@@ -1,0 +1,441 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
+
+  python3 chip_smoke.py
+
+Needs one NVIDIA H100 and the CUDA toolkit; imports torch, numpy and the
+port only. Phases, each of which fails the run with a non-zero exit:
+
+1. build every kernel of ``src/repro_torch/csrc`` (one nvcc per source,
+   all started together) and print the build time;
+2. hold each kernel against its plain PyTorch version on the card at the
+   main path's shapes (max abs error against a stated tolerance) and time
+   kernel, plain version and, where one exists, the one PyTorch call that
+   computes the same function (CUDA events, L2 flushed before each run,
+   median of 30 after warm-up), beside the least time the card could take;
+3. serve 6 requests through the paged disaggregated slot engine at the
+   full width of Qwen3-235B-A22B (depth cut to 4 of 94 layers, bf16,
+   random weights from a seed) and check from the launch counters that
+   every decode step went through both kernels; profile a few decode
+   steps (kernel time by name, the device's busy share); serve the same
+   requests again through the kernels with the plain versions run on a copy
+   of the same state at every step, and hold the two steps' logits
+   together; then serve them through the plain versions alone and compare
+   the greedy tokens.
+
+It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
+and as its last line ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core peak
+PAGED_TOL = 1e-4               # f32 accumulation order, bf16 inputs
+HOOK_TOL = 1e-4
+# decode logits, kernels vs plain versions on the same state. The kernels
+# sum in another order, which flips single bf16 roundings of activations
+# (2^-8 relative) on their way through 4 layers: a step differs by ~1e-3.
+# The router's top-8 is discrete, so a near-tie there can send a token to
+# another expert and move a step's logits far more; hence the median over
+# steps, and greedy picks that agree on at least 90% of the rows.
+LOGIT_TOL = 1e-2
+ARGMAX_AGREE = 0.9
+ARCH, LAYERS, SEED = "qwen3-moe-235b-a22b", 4, 0
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+
+
+def cuda_ms(torch, fn, flush, n=30, warmup=5):
+    """Median device time of ``fn`` in ms: CUDA events around each call,
+    with the L2 cache flushed before each (the decode step reads gigabytes
+    of expert weights between two calls of a kernel)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(n):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+# ------------------------------ phase 2 ------------------------------ #
+def paged_phase(torch, paged, ref, flush):
+    """Paged attention at the main path's head shape (KV=4, G=16, hd=128,
+    page 16), batch 8, contexts up to 2048 tokens, with inactive rows,
+    unallocated pages and one windowed case."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    B, KV, G, hd, ps, nb = 8, 4, 16, 128, 16, 128
+    P = B * nb + 8
+    q = torch.randn(B, KV, G, hd, generator=g, device=dev).bfloat16()
+    k = torch.randn(P, ps, KV, hd, generator=g, device=dev).bfloat16()
+    v = torch.randn(P, ps, KV, hd, generator=g, device=dev).bfloat16()
+    bt = torch.randperm(P, generator=g, device=dev)[: B * nb]
+    bt = bt.reshape(B, nb).to(torch.int32)
+    pos = torch.tensor([2047, 1500, 1023, 700, 255, -1, 95, 2000],
+                       dtype=torch.int32, device=dev)
+    bt[1, 94:] = -1                     # unallocated tail past pos
+    bt[2, 10] = -1                      # a hole inside the context
+    bt[5, :] = -1                       # inactive row without pages
+    cases = {}
+    for window in (0, 512):
+        got = paged.paged_attention(q, k, v, bt, pos, window=window)
+        want = ref.paged_attention_ref(q, k, v, bt, pos, window)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(err <= PAGED_TOL, f"paged_attention window={window}: max abs "
+              f"err {err} > {PAGED_TOL}")
+        check(bool(torch.all(got[5] == 0)), "inactive row not exactly 0")
+        # work this run's data needs: pages with a valid key, valid keys
+        kp = (torch.arange(nb, device=dev)[:, None] * ps
+              + torch.arange(ps, device=dev)[None, :])[None]
+        p = pos.long()[:, None, None]
+        valid = (bt[:, :, None] >= 0) & (kp <= p) & (p >= 0)
+        if window:
+            valid &= kp > p - window
+        pages = int(valid.any(-1).sum())
+        keys = int(valid.sum())
+        n_bytes = (q.numel() * 2 + pages * ps * KV * hd * 2 * 2
+                   + bt.numel() * 4 + pos.numel() * 4 + got.numel() * 4)
+        b_ms, b_by = bound_ms(n_bytes, keys * KV * G * hd * 4)
+        ms = cuda_ms(torch, lambda w=window: paged.paged_attention(
+            q, k, v, bt, pos, window=w), flush)
+        plain = cuda_ms(torch, lambda w=window: ref.paged_attention_ref(
+            q, k, v, bt, pos, w), flush)
+        # yardstick: one SDPA call over the gathered dense KV
+        S = nb * ps
+        kd = k[bt.long().clamp(min=0)].reshape(B, S, KV, hd).transpose(1, 2)
+        vd = v[bt.long().clamp(min=0)].reshape(B, S, KV, hd).transpose(1, 2)
+        kd, vd = kd.contiguous(), vd.contiguous()
+        mask = valid.reshape(B, 1, 1, S)
+        qd = q.reshape(B, KV * G, 1, hd)
+        lib = cuda_ms(torch, lambda m=mask: torch.nn.functional
+                      .scaled_dot_product_attention(qd, kd, vd, attn_mask=m,
+                                                    enable_gqa=True), flush)
+        cases[window] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": lib, "pages_read": pages,
+                         "keys": keys}
+        print(f"paged_attention window={window}: err {err:.3g} kernel "
+              f"{ms:.4f} ms plain {plain:.4f} ms sdpa {lib:.4f} ms bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
+    return cases
+
+
+def hook_phase(torch, bgmv, ref, flush):
+    """Both server hooks at the main path's decode shapes: E*C = 8192 rows
+    (128 experts x capacity 64), 64 active (8 tokens x top-8), adapters of
+    true rank 8/16/32/32 in a rank-32 pool, the rest inactive."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 1)
+    M, E, C, T_tok, K, d, ff, r = 4, 128, 64, 8, 8, 4096, 1536, 32
+    ranks_of_slot = torch.tensor([8, 16, 32, 32], dtype=torch.int32,
+                                 device=dev)
+    rows_n = E * C
+    ids = torch.full((rows_n,), -1, dtype=torch.int32, device=dev)
+    fill = [0] * E
+    pairs = set()
+    for t in range(T_tok):
+        experts = torch.randperm(E, generator=g, device=dev)[:K].tolist()
+        for e in experts:
+            ids[e * C + fill[e]] = t % M
+            fill[e] += 1
+            pairs.add((t % M, e))
+    eids = (torch.arange(rows_n, device=dev) // C).to(torch.int32)
+    ranks = torch.where(ids >= 0, ranks_of_slot[ids.long().clamp(min=0)],
+                        r).to(torch.int32)
+    active = int((ids >= 0).sum())
+    out = {}
+    for hook, d_in, rr, d_out in (("up", d, 2 * r, 2 * ff),
+                                  ("down", ff, r, d)):
+        A = (torch.randn(M, E, d_in, rr, generator=g, device=dev) / rr)
+        A = A.bfloat16()
+        Bm = (torch.randn(M, E, rr, d_out, generator=g, device=dev) * 0.01)
+        Bm = Bm.bfloat16()
+        x = torch.randn(rows_n, d_in, generator=g, device=dev).bfloat16()
+        x[ids < 0] = 0                  # inactive dispatch rows are zeros
+        got = bgmv.bgmv_expert(x, A, Bm, ids, eids, ranks, r)
+        want = ref.bgmv_expert_ref(x, A, Bm, ids, eids, ranks, r)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(err <= HOOK_TOL, f"bgmv_expert {hook}: max abs err {err} > "
+              f"{HOOK_TOL}")
+        check(bool(torch.all(got[ids < 0] == 0)), "inactive rows not 0")
+        n_bytes = (active * d_in * 2 + len(pairs) * (d_in * rr + rr * d_out)
+                   * 2 + got.numel() * 4 + 3 * rows_n * 4)
+        b_ms, b_by = bound_ms(n_bytes, active * 2 * (d_in * rr + rr * d_out))
+        ms = cuda_ms(torch, lambda: bgmv.bgmv_expert(x, A, Bm, ids, eids,
+                                                     ranks, r), flush)
+        plain = cuda_ms(torch, lambda: ref.bgmv_expert_ref(
+            x, A, Bm, ids, eids, ranks, r), flush)
+        out[hook] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": b_ms, "bound_by": b_by, "rows": rows_n,
+                     "active_rows": active, "factor_slices": len(pairs),
+                     "max_abs_out": want.abs().max().item()}
+        print(f"bgmv_expert {hook}: err {err:.3g} kernel {ms:.4f} ms plain "
+              f"{plain:.4f} ms bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return out
+
+
+# ------------------------------ phase 3 ------------------------------ #
+@contextlib.contextmanager
+def plain_versions(ops, ref):
+    """Route the port's kernel calls to their plain versions (on the card)."""
+    saved = ops.paged_attention, ops.bgmv_expert
+    ops.paged_attention = (lambda q, k, v, bt, pos, *, window=0:
+                           ref.paged_attention_ref(q, k, v, bt, pos, window))
+    ops.bgmv_expert = ref.bgmv_expert_ref
+    try:
+        yield
+    finally:
+        ops.paged_attention, ops.bgmv_expert = saved
+
+
+def profile_steps(torch, engine, requests, n_steps=4):
+    """Device kernel time by name over a few decode steps of all requests,
+    and the device's busy share of the window (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs.clock import wall_time
+    for rid, prompt, aid in requests:
+        engine.add_request(rid, prompt, aid)
+    engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = wall_time()
+        for _ in range(n_steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (wall_time() - t0)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            tot, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (tot + e.device_time_total, n + 1)
+    busy_us = sum(t for t, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    out = {"steps": n_steps, "rows": len(requests),
+           "wall_ms_per_step": wall_us / 1e3 / n_steps,
+           "device_ms_per_step": busy_us / 1e3 / n_steps,
+           "device_busy_share": busy_us / wall_us if wall_us else 0.0,
+           "top_kernels_ms_per_step": [[name[:90], t / 1e3 / n_steps, n]
+                                       for name, (t, n) in top]}
+    print("profile: " + json.dumps(out), flush=True)
+    return out
+
+
+def main_path(torch, ops, paged, bgmv, ref):
+    from repro_torch.core import disagg
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import Engine
+
+    traffic = serve.Traffic()
+    cfg, params, server, scale, ecfg = serve.build(
+        ARCH, layers=LAYERS, seed=SEED, device="cuda", traffic=traffic)
+    torch.cuda.synchronize()
+    requests = serve.make_requests(cfg, traffic, SEED)
+    print(f"main path: {cfg.name} d={cfg.d_model} H={cfg.n_heads} "
+          f"KV={cfg.n_kv_heads} E={cfg.n_experts} top-{cfg.top_k} "
+          f"layers={cfg.n_layers} vocab={cfg.vocab_size}; prompts "
+          f"{[len(p) for _, p, _ in requests]}; weights+pool "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    def engine():
+        return Engine(cfg, params, ecfg, server, lora_scale=scale,
+                      device="cuda")
+
+    # 1. the main path, through the kernels, counted
+    eng = engine()
+    paged.paged_attention.launches = 0
+    bgmv.bgmv_expert.launches = 0
+    res = serve.serve(eng, requests, traffic)
+    launches = {"paged_attention": paged.paged_attention.launches,
+                "bgmv_expert": bgmv.bgmv_expert.launches}
+    steps = res["decode_steps"]
+    print(json.dumps({"decode_steps": steps,
+                      "decode_ms_per_step": res["decode_ms_per_step"],
+                      "tokens_per_s": res["tokens_per_s"],
+                      "generated_tokens": res["generated_tokens"],
+                      "prefill_s": res["prefill_s"],
+                      "rows_per_step": res["rows_per_step"],
+                      "launches": launches,
+                      "kv_stats": eng.kv_stats(),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}),
+          flush=True)
+    check(launches["paged_attention"] == cfg.n_layers * steps,
+          f"paged_attention launched {launches['paged_attention']} times, "
+          f"not {cfg.n_layers} x {steps} decode steps")
+    check(launches["bgmv_expert"] == 2 * cfg.n_layers * steps,
+          f"bgmv_expert launched {launches['bgmv_expert']} times, not "
+          f"{2 * cfg.n_layers} x {steps} decode steps")
+    check(all(len(t) == traffic.new_tokens for t in res["tokens"].values()),
+          "a request did not get all its tokens")
+    check(all(0 <= x < cfg.vocab_size for t in res["tokens"].values()
+              for x in t), "token out of the vocabulary")
+
+    # 2. where the time goes
+    profile_steps(torch, engine(), requests)
+
+    # 3. the same requests again through the kernels; at every step the
+    # plain versions first run on a copy of the KV pools, so both see the
+    # same state and their logits can be held together
+    steps_seen = []
+    orig = disagg.disagg_decode_step_slots
+
+    def shadow(params_, cfg_, k, v, tokens, pos, server_, ads, scale_, *,
+               block_table):
+        with plain_versions(ops, ref):
+            lp = orig(params_, cfg_, k.clone(), v.clone(), tokens, pos,
+                      server_, ads, scale_, block_table=block_table)[0]
+        lk, k, v = orig(params_, cfg_, k, v, tokens, pos, server_, ads,
+                        scale_, block_table=block_table)
+        act = pos >= 0
+        a = lk[act][:, : cfg.vocab_size]
+        b = lp[act][:, : cfg.vocab_size]
+        tk, tp = a.argmax(-1), b.argmax(-1)
+        steps_seen.append({
+            "finite": bool(torch.isfinite(lk).all()),
+            "shape_ok": tuple(lk.shape) == (pos.shape[0], cfg.padded_vocab),
+            "max_abs_diff": (a - b).abs().max().item(),
+            "argmax_equal": int((tk == tp).sum()), "rows": int(act.sum()),
+            # how far below the plain version's best the kernel's pick is
+            "worst_gap": (b.gather(1, tp[:, None])
+                          - b.gather(1, tk[:, None])).max().item()})
+        return lk, k, v
+
+    disagg.disagg_decode_step_slots = shadow
+    try:
+        res_s = serve.serve(engine(), requests, traffic)
+    finally:
+        disagg.disagg_decode_step_slots = orig
+
+    # 4. the same requests through the plain versions alone
+    with plain_versions(ops, ref):
+        res_p = serve.serve(engine(), requests, traffic)
+    diverge = {}
+    for rid, toks in res["tokens"].items():
+        other = res_p["tokens"][rid]
+        diverge[rid] = next((i for i, (a, b) in enumerate(zip(toks, other))
+                             if a != b), None)
+    diffs = sorted(s["max_abs_diff"] for s in steps_seen)
+    agree = sum(s["argmax_equal"] for s in steps_seen)
+    rows = sum(s["rows"] for s in steps_seen)
+    print(json.dumps({
+        "step_logits_max_abs_diff": {
+            "median": statistics.median(diffs), "max": diffs[-1],
+            "steps_over_tol": sum(d > LOGIT_TOL for d in diffs),
+            "steps": len(diffs)},
+        "step_argmax_equal": agree, "step_rows": rows,
+        "step_worst_gap": max(s["worst_gap"] for s in steps_seen),
+        "plain_decode_ms_per_step": res_p["decode_ms_per_step"],
+        "plain_tokens_per_s": res_p["tokens_per_s"],
+        "plain_prefill_s": res_p["prefill_s"],
+        "free_run_tokens_equal": sum(
+            a == b for rid in res["tokens"]
+            for a, b in zip(res["tokens"][rid], res_p["tokens"][rid])),
+        "free_run_tokens_total": res["generated_tokens"],
+        "free_run_first_divergence": diverge}), flush=True)
+    check(res_s["tokens"] == res["tokens"],
+          "two runs through the kernels gave different tokens")
+    check(all(s["finite"] and s["shape_ok"] for s in steps_seen),
+          "decode logits not finite or of the wrong shape")
+    check(statistics.median(diffs) <= LOGIT_TOL,
+          f"decode logits of the kernels and the plain versions differ by a "
+          f"median {statistics.median(diffs)} > {LOGIT_TOL}")
+    check(agree >= ARGMAX_AGREE * rows,
+          f"greedy picks agree on only {agree} of {rows} rows")
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    root = pathlib.Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels import bgmv, build, ops, paged, ref
+    from repro_torch.obs.clock import wall_time
+
+    # the plain versions contract in f32: keep them IEEE f32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}",
+          flush=True)
+    t0 = wall_time()
+    build.build(build.sources())
+    print(f"kernel build: {wall_time() - t0:.1f} s for {build.sources()}",
+          flush=True)
+    for name, log in build.BUILD_LOGS.items():
+        print(f"[nvcc {name}] " + " | ".join(
+            ln.strip() for ln in log.splitlines() if "Used" in ln or
+            "spill" in ln), flush=True)
+
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    pa = paged_phase(torch, paged, ref, flush)
+    hk = hook_phase(torch, bgmv, ref, flush)
+    launches = main_path(torch, ops, paged, bgmv, ref)
+
+    up, dn = hk["up"], hk["down"]
+    kernels = [
+        dict(name="paged_attention", route="cuda",
+             source="src/repro_torch/csrc/paged_attention.cu",
+             replaces="src/repro/kernels/paged.py:93",
+             launches=launches["paged_attention"], **pa[0],
+             window_512=pa[512]),
+        dict(name="bgmv_expert", route="cuda",
+             source="src/repro_torch/csrc/bgmv_expert.cu",
+             replaces="src/repro/kernels/bgmv.py:138",
+             launches=launches["bgmv_expert"],
+             max_abs_err=max(up["max_abs_err"], dn["max_abs_err"]),
+             ms=up["ms"] + dn["ms"], plain_ms=up["plain_ms"] + dn["plain_ms"],
+             bound_ms=up["bound_ms"] + dn["bound_ms"], bound_by="bytes"
+             if up["bound_by"] == dn["bound_by"] == "bytes" else "operations",
+             library_ms=None, per_layer="one up hook + one down hook",
+             hooks=hk),
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

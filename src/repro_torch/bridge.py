@@ -1,0 +1,63 @@
+"""Numpy -> torch bridge for parity checks against the JAX reference.
+
+The reference's parameters, adapter pools and server slot pools arrive as
+nested dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray, ...)``
+on the caller's side); these helpers turn them into the port's tensors.
+This module never imports JAX.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.adapter import AdapterPool
+
+
+def config_from(ref_cfg) -> ModelConfig:
+    """The port's ModelConfig with the same values as a reference config
+    (read attribute by attribute)."""
+    return ModelConfig(**{f.name: getattr(ref_cfg, f.name)
+                          for f in dataclasses.fields(ModelConfig)})
+
+
+def to_tensor(a, device="cpu", dtype: Optional[torch.dtype] = None):
+    """One numpy array (any float type, bfloat16 included) as a tensor.
+    Floats become ``dtype`` (default float32); integers stay integers."""
+    arr = np.asarray(a)
+    if arr.dtype.kind in "iub":
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    t = torch.from_numpy(np.ascontiguousarray(arr.astype(np.float32)))
+    return t.to(device=device, dtype=dtype or torch.float32)
+
+
+def tree_to_tensors(tree, device="cpu", dtype: Optional[torch.dtype] = None):
+    """Nested dicts of numpy arrays -> the same dicts of tensors."""
+    if isinstance(tree, dict):
+        return {k: tree_to_tensors(v, device, dtype) for k, v in tree.items()}
+    return to_tensor(tree, device, dtype)
+
+
+def adapter_pool(cfg, tensors, rank: int, scale: float,
+                 ranks: Optional[Sequence[int]] = None, device="cpu",
+                 dtype: Optional[torch.dtype] = None) -> AdapterPool:
+    """The port's AdapterPool from the reference pool's fields (its
+    ``tensors`` as numpy arrays)."""
+    t = tree_to_tensors(tensors, device, dtype)
+    n = next(iter(t.values()))["A"].shape[1]
+    return AdapterPool(cfg, n, int(rank), float(scale), t,
+                       tuple(int(r) for r in ranks) if ranks else None)
+
+
+def load_server_pool(server, pool_np) -> None:
+    """Copy a reference ``LoRAServer.pool`` (numpy arrays of the same
+    (y, L_stage, M, E, ...) shapes) into the port server's slot pools."""
+    for name, buf in server.pool.items():
+        src = to_tensor(pool_np[name], buf.device, buf.dtype)
+        if tuple(src.shape) != tuple(buf.shape):
+            raise ValueError(f"{name}: {tuple(src.shape)} vs "
+                             f"{tuple(buf.shape)}")
+        buf.copy_(src)

@@ -1,0 +1,100 @@
+"""LoRA adapter pools, the counterpart of ``repro.core.adapter`` for the
+targets the disaggregated server serves.
+
+  attention target t : A (L, N, d_in, r)     B (L, N, r, d_out)
+  expert FFN target  : A (L, N, E, d, r)     B (L, N, E, r, ff)
+
+A mixed-rank pool pads every adapter to the pool rank with exact +0.0 in
+the lanes past its true rank (the prefix-zero padding contract), so the
+padded product equals the true-rank product.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.models.model import resolve_device
+
+
+def target_dims(cfg, target: str) -> Tuple[int, int, bool]:
+    """(d_in, d_out, expert_specific) of one LoRA target."""
+    d, ff = cfg.d_model, cfg.d_ff
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    moe = cfg.is_moe
+    return {
+        "q": (d, H * hd, False), "k": (d, KV * hd, False),
+        "v": (d, KV * hd, False), "o": (H * hd, d, False),
+        "gate": (d, ff, moe), "up": (d, ff, moe), "down": (ff, d, moe),
+    }[target]
+
+
+@dataclasses.dataclass
+class AdapterPool:
+    """Stacked LoRA factors of ``n`` adapters of one model config."""
+    cfg: object
+    n: int
+    rank: int
+    scale: float
+    tensors: Dict[str, Dict[str, torch.Tensor]]  # target -> {"A", "B"}
+    ranks: Optional[Tuple[int, ...]] = None      # true ranks (mixed pools)
+
+    def rank_of(self, adapter_id: int) -> int:
+        """True rank of one adapter (the pool rank for uniform pools)."""
+        if self.ranks is not None:
+            return int(self.ranks[adapter_id])
+        return int(self.rank)
+
+
+def init_adapter_pool(cfg, n_adapters: int, seed: int = 0,
+                      rank: Optional[int] = None, dtype=torch.bfloat16,
+                      alpha: float = 16.0, device=None) -> AdapterPool:
+    """A ~ N(0, 1)/r, B ~ N(0, 1) * 0.01 (visible serving deltas), drawn on
+    ``device`` (default: the CUDA card) from ``seed``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    r = rank or cfg.lora_rank
+    L, E = cfg.n_layers, max(cfg.n_experts, 1)
+    tensors = {}
+    for tgt in cfg.lora_targets:
+        d_in, d_out, per_expert = target_dims(cfg, tgt)
+        mid = (L, n_adapters, E) if per_expert else (L, n_adapters)
+
+        def draw(shape, mul):
+            return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                                device=dev) * mul).to(dtype)
+
+        tensors[tgt] = {"A": draw(mid + (d_in, r), 1.0 / r),
+                        "B": draw(mid + (r, d_out), 0.01)}
+    return AdapterPool(cfg, n_adapters, r, alpha / r, tensors)
+
+
+def init_mixed_rank_pool(cfg, ranks: Sequence[int], seed: int = 0,
+                         dtype=torch.bfloat16, alpha: float = 16.0,
+                         device=None) -> AdapterPool:
+    """Adapters of different true ranks in one pool of rank max(ranks):
+    adapter i uses its first ranks[i] columns, the rest hold +0.0 in both A
+    and B, and its B is scaled by r_max / ranks[i] so that its update keeps
+    the alpha / r_i convention under the pool's alpha / r_max scale."""
+    ranks = [int(r) for r in ranks]
+    r_max = max(ranks)
+    pool = init_adapter_pool(cfg, len(ranks), seed, rank=r_max, dtype=dtype,
+                             alpha=alpha, device=device)
+    dev = next(iter(pool.tensors.values()))["A"].device
+    rk = torch.tensor(ranks, device=dev)
+    keep = torch.arange(r_max, device=dev)[None, :] < rk[:, None]  # (N, r)
+    rescale = r_max / rk.to(torch.float32)
+    for t in pool.tensors.values():
+        A, B = t["A"], t["B"]
+        lead = (1, len(ranks)) + (1,) * (A.ndim - 4)
+        a_mask = keep.reshape(lead + (1, r_max))
+        b_mask = keep.reshape(lead + (r_max, 1))
+        b_fac = rescale.reshape(lead + (1, 1))
+        zero = torch.zeros((), dtype=A.dtype, device=dev)
+        # where (not multiply): masked lanes must be +0.0 exactly
+        t["A"] = torch.where(a_mask, A, zero)
+        t["B"] = torch.where(b_mask, (B * b_fac).to(B.dtype), zero)
+    pool.ranks = tuple(ranks)
+    return pool

@@ -1,0 +1,169 @@
+"""Forward math of the transformer layers on the serving path (functions on
+tensors over plain dicts of parameters), the counterpart of
+``repro.models.layers``.
+
+Activations are (B, S, d); attention internals (B, S, H, hd). Matrix
+products that the reference takes with ``preferred_element_type=f32`` are
+taken with an f32 result here too (``mm_f32``), so a bf16 model rounds at
+the same places as the reference.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+
+F32 = torch.float32
+NEG_INF = -1e30
+
+
+def mm_f32(a, b):
+    """a @ b with an f32 result (a: (..., k) or (E, n, k) batched with b:
+    (k, m) or (E, k, m)). f32 operands multiply as they are; bf16 operands on
+    the card accumulate in f32 and return f32 (cuBLAS ``out_dtype``), as the
+    reference's ``preferred_element_type=f32``."""
+    if a.dtype == F32 and b.dtype == F32:
+        return a @ b
+    if a.device.type != "cuda":
+        return a.to(F32) @ b.to(F32)
+    if b.dim() == 3:
+        return torch.bmm(a, b, out_dtype=F32)
+    lead = a.shape[:-1]
+    return torch.mm(a.reshape(-1, a.shape[-1]), b,
+                    out_dtype=F32).reshape(*lead, b.shape[-1])
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    """RMSNorm in f32 with the reference's (1 + scale) weight."""
+    xf = x.to(F32)
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.to(F32))).to(x.dtype)
+
+
+# ------------------------------- RoPE ---------------------------------- #
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    """Inverse frequencies in float64 (cast to f32 where used), as the
+    reference computes them."""
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim: int, theta: float, device: torch.device):
+    # copied to the device once: a host->device copy from pageable memory
+    # inside the decode step would wait for the stream to drain
+    return torch.as_tensor(rope_freqs(head_dim, theta), dtype=F32,
+                           device=device)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (B, S, H, hd); positions: (B, S) int."""
+    hd = x.shape[-1]
+    freqs = _rope_freqs_on(hd, float(theta), x.device)
+    angles = positions[..., None].to(F32) * freqs          # (B, S, hd/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.to(F32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------- projections ------------------------------ #
+def qkv_project(x, p, cfg):
+    """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,KV,hd); RoPE applied outside."""
+    B, S, _ = x.shape
+    outs = []
+    for name, heads in (("q", cfg.n_heads), ("k", cfg.n_kv_heads),
+                        ("v", cfg.n_kv_heads)):
+        y = mm_f32(x, p["w" + name])
+        if cfg.qkv_bias:
+            y = y + p["b" + name].to(F32)
+        outs.append(y.to(x.dtype).reshape(B, S, heads, cfg.head_dim))
+    return tuple(outs)
+
+
+def out_project(attn_out, p):
+    """attn_out: (B, S, H, hd) -> (B, S, d)."""
+    B, S = attn_out.shape[:2]
+    return mm_f32(attn_out.reshape(B, S, -1), p["wo"]).to(attn_out.dtype)
+
+
+def embed(tokens, table):
+    """tokens: (B, S) int; table: (V, d)."""
+    return table[tokens]
+
+
+def unembed(x, table):
+    """x: (B, S, d) -> logits (B, S, V) f32."""
+    return mm_f32(x, table.t())
+
+
+# --------------------------- prefill attention ------------------------- #
+def causal_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                     q_offset: int = 0):
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd), GQA by head grouping.
+    ``window`` > 0 masks keys at least ``window`` positions older than the
+    query; ``q_offset`` is the position of q[0] relative to k[0]. Scores and
+    softmax in f32. Returns (B, Sq, H, hd) in q's dtype."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(F32), k.to(F32))
+    s = s * (1.0 / np.sqrt(hd))
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    mask = torch.ones((Sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1)                                        # (B,KV,G,Sq)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(F32))
+    o = o / l.clamp_min(1e-20).permute(0, 3, 1, 2)[..., None]
+    return o.to(q.dtype).reshape(B, Sq, H, hd)
+
+
+# --------------------------- paged decode ------------------------------ #
+def decode_attention_update_slots_paged(q, k_new, v_new, k_pool, v_pool,
+                                        block_table, pos_vec, *,
+                                        window: int = 0):
+    """Per-slot KV write + flash-decode attention over a paged block pool.
+
+    q: (B, H, hd); k_new/v_new: (B, KV, hd) post-RoPE; k_pool/v_pool:
+    (P, page_size, KV, hd), updated IN PLACE; block_table: (B, nb) int32
+    page ids (-1 = unallocated); pos_vec: (B,) int32 tokens already cached
+    per row (this token is written at position pos_vec[b]). Rows with
+    pos_vec < 0, or whose page is unallocated, write nothing (the
+    reference's ``mode="drop"``). Returns (out (B, H, hd), k_pool, v_pool).
+    """
+    B, H, hd = q.shape
+    P, ps, KV = k_pool.shape[:3]
+    nb = block_table.shape[1]
+    rows = torch.arange(B, device=q.device)
+    posc = pos_vec.long().clamp_min(0)
+    page = block_table[rows, (posc // ps).clamp(max=nb - 1)].long()
+    ok = (pos_vec >= 0) & (page >= 0) & (page < P)
+    cell = page.clamp(0, P - 1) * ps + posc % ps
+    # torch has no drop mode, and a sync to select the writing rows would
+    # stall the step. A dropped row is sent instead to the cell of the first
+    # writing row with that row's value: duplicate indices then carry equal
+    # values, so the write is exact and deterministic. With no writing row
+    # at all, every row rewrites cell 0 with the value it already holds.
+    any_ok = ok.any()
+    first = torch.argmax(ok.to(torch.int32))
+    target = torch.where(ok, cell, torch.where(any_ok, cell[first], 0))
+    for pool, new in ((k_pool, k_new), (v_pool, v_new)):
+        flat = pool.view(P * ps, KV, hd)
+        fill = torch.where(any_ok, new[first].to(pool.dtype), flat[0])
+        vals = torch.where(ok[:, None, None], new.to(pool.dtype), fill[None])
+        flat[target] = vals
+    out = ops.paged_attention(q.reshape(B, KV, H // KV, hd), k_pool, v_pool,
+                              block_table, pos_vec, window=window)
+    return out.reshape(B, H, hd).to(q.dtype), k_pool, v_pool
+

@@ -1,0 +1,112 @@
+"""Token-choice top-k MoE with static-capacity sort-based dispatch, the
+local (single-device) path of ``repro.models.moe``.
+
+Routing reproduces the reference's orders exactly: ``jax.lax.top_k`` keeps
+the lower expert id first among equal probabilities (a stable descending
+sort here), and dispatch groups (token, k) pairs by a stable argsort.
+The combine gathers each token's K expert outputs and sums them in
+ascending slot order, the order of the reference's scatter-add, with no
+float atomics, so two runs on the card give the same tokens.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import mm_f32
+
+F32 = torch.float32
+
+
+def route(x_flat, router_w, n_experts: int, top_k: int):
+    """x_flat: (T, d) -> (ids (T, K) int32, weights (T, K) f32)."""
+    logits = mm_f32(x_flat, router_w)
+    probs = torch.softmax(logits, dim=-1)
+    weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, ids = weights[:, :top_k], ids[:, :top_k]
+    weights = weights / weights.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    return ids.to(torch.int32), weights
+
+
+def capacity(n_tokens: int, top_k: int, n_experts: int, cf: float,
+             dropless: bool = False) -> int:
+    """Static per-expert slot count; ``dropless``: every pair could land on
+    one expert. Rounded up to a multiple of 4, at least 4."""
+    if dropless:
+        c = n_tokens * top_k
+    else:
+        c = int(cf * n_tokens * top_k / n_experts) + 1
+    return max(4, -(-c // 4) * 4)
+
+
+def local_dispatch(x_flat, ids, C: int, n_experts: int):
+    """Group tokens by expert into an (E, C, d) buffer, overflow dropped.
+
+    Returns (xe (E, C, d), slot_tok (E*C,) token per slot with T = empty,
+    pair_slot (T*K,) slot of each (token, k) pair with E*C = dropped)."""
+    T, d = x_flat.shape
+    K = ids.shape[1]
+    dev = x_flat.device
+    flat_ids = ids.reshape(-1).long()
+    sort_idx = torch.argsort(flat_ids, stable=True)
+    sorted_ids = flat_ids[sort_idx]
+    counts = torch.zeros(n_experts, dtype=torch.long, device=dev)
+    counts.scatter_add_(0, flat_ids, torch.ones_like(flat_ids))
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(T * K, device=dev) - starts[sorted_ids]
+    keep = pos_in_e < C
+    slot = torch.where(keep, sorted_ids * C + pos_in_e, n_experts * C)
+    pair_slot = torch.empty_like(slot)
+    pair_slot[sort_idx] = slot
+    # one extra sink row takes the dropped pairs' writes, then is cut off
+    slot_tok = torch.full((n_experts * C + 1,), T, dtype=torch.long,
+                          device=dev)
+    slot_tok[slot] = torch.where(keep, sort_idx // K, T)
+    slot_tok = slot_tok[:-1]
+    x_pad = torch.cat([x_flat, x_flat.new_zeros((1, d))], dim=0)
+    xe = x_pad[slot_tok].reshape(n_experts, C, d)
+    return xe, slot_tok, pair_slot
+
+
+def combine(y_slots, pair_slot, wts):
+    """Router-weighted sum of each token's expert outputs.
+
+    y_slots: (E*C, d) expert outputs per slot; pair_slot: (T*K,) from
+    ``local_dispatch``; wts: (T, K). -> (T, d) f32, each token's terms
+    added in ascending slot order (dropped pairs add zero)."""
+    T, K = wts.shape
+    d = y_slots.shape[1]
+    y_pad = torch.cat([y_slots.to(F32), y_slots.new_zeros((1, d), dtype=F32)])
+    slots, order = torch.sort(pair_slot.reshape(T, K), dim=1, stable=True)
+    w = wts.gather(1, order)
+    out = torch.zeros((T, d), dtype=F32, device=y_slots.device)
+    for k in range(K):
+        out = out + y_pad[slots[:, k]] * w[:, k:k + 1]
+    return out
+
+
+def expert_ffn(xe, wg, wu, wd):
+    """LoRA-free gated expert FFN. xe: (E, C, d); wg/wu: (E, d, f); wd:
+    (E, f, d) -> (E, C, d) f32."""
+    g = mm_f32(xe, wg)
+    u = mm_f32(xe, wu)
+    h = (F.silu(g) * u).to(xe.dtype)
+    return mm_f32(h, wd)
+
+
+def moe_local(x, params, cfg):
+    """The reference's ``_moe_local`` without LoRA: x (B, S, d) -> (B, S, d)
+    (prefill runs LoRA-free). Dropless when T*K <= 4096, as in the
+    reference."""
+    if not cfg.gated_mlp:
+        raise ValueError("the port serves gated (SwiGLU) experts")
+    B, S, d = x.shape
+    xf = x.reshape(-1, d)
+    T = xf.shape[0]
+    ids, wts = route(xf, params["router"], cfg.n_experts, cfg.top_k)
+    C = capacity(T, cfg.top_k, cfg.n_experts, cfg.capacity_factor,
+                 dropless=(T * cfg.top_k <= 4096))
+    xe, _, pair_slot = local_dispatch(xf, ids, C, cfg.n_experts)
+    y = expert_ffn(xe, params["gate"], params["up"], params["down"])
+    out = combine(y.reshape(-1, d), pair_slot, wts)
+    return out.reshape(B, S, d).to(x.dtype)
