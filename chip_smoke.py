@@ -9,19 +9,24 @@ port only. Phases, each of which fails the run with a non-zero exit:
 1. build every kernel of ``src/repro_torch/csrc`` (one nvcc per source,
    all started together) and print the build time;
 2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (max abs error against a stated tolerance) and time
+   main paths' shapes (max abs error against a stated tolerance) and time
    kernel, plain version and, where one exists, the one PyTorch call that
    computes the same function (CUDA events, L2 flushed before each run,
    median of 30 after warm-up), beside the least time the card could take;
-3. serve 6 requests through the paged disaggregated slot engine at the
-   full width of Qwen3-235B-A22B (depth cut to 4 of 94 layers, bf16,
-   random weights from a seed) and check from the launch counters that
-   every decode step went through both kernels; profile a few decode
-   steps (kernel time by name, the device's busy share); serve the same
-   requests again through the kernels with the plain versions run on a copy
-   of the same state at every step, and hold the two steps' logits
-   together; then serve them through the plain versions alone and compare
-   the greedy tokens.
+3. serve 6 requests at the full width of Qwen3-235B-A22B (depth cut to 4
+   of 94 layers, bf16, random weights from a seed) through each plane of
+   the slot engine over the paged pool: the disaggregated plane (LoRA
+   Server hooks) and the coupled plane (the S-LoRA baseline, adapters on
+   all seven targets inside the model). For each: check from the launch
+   counters that every decode step went through the plane's kernels;
+   profile a few decode steps (kernel time by name, the device's busy
+   share); serve the same requests again through the kernels with the
+   plain versions run on a copy of the same state at every step, and hold
+   the two steps' logits together; then serve them through the plain
+   versions alone and compare the greedy tokens;
+4. paged == dense: the coupled plane at depth 2 over the paged pool and
+   over the dense slab in lock step (the dense layout's attention is plain
+   torch), holding each step's logits together.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -29,6 +34,7 @@ and as its last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -39,6 +45,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core peak
 PAGED_TOL = 1e-4               # f32 accumulation order, bf16 inputs
 HOOK_TOL = 1e-4
+BGMV_TOL = 1e-4
 # decode logits, kernels vs plain versions on the same state. The kernels
 # sum in another order, which flips single bf16 roundings of activations
 # (2^-8 relative) on their way through 4 layers: a step differs by ~1e-3.
@@ -47,7 +54,10 @@ HOOK_TOL = 1e-4
 # steps, and greedy picks that agree on at least 90% of the rows.
 LOGIT_TOL = 1e-2
 ARGMAX_AGREE = 0.9
+SPIN_CYCLES = 2_000_000         # ~1 ms at the H100's 1.98 GHz boost clock
 ARCH, LAYERS, SEED = "qwen3-moe-235b-a22b", 4, 0
+DENSE_LAYERS = 2               # paged == dense runs twice: kept shallow
+RANKS = (8, 16, 32, 32)        # true ranks of the 4 adapters, pool rank 32
 
 
 def nvidia_smi() -> str:
@@ -60,13 +70,17 @@ def nvidia_smi() -> str:
 def cuda_ms(torch, fn, flush, n=30, warmup=5):
     """Median device time of ``fn`` in ms: CUDA events around each call,
     with the L2 cache flushed before each (the decode step reads gigabytes
-    of expert weights between two calls of a kernel)."""
+    of expert weights between two calls of a kernel). A spin of ~1 ms on
+    the card before the start event keeps the host's time to enqueue
+    ``fn`` out of the window: a kernel of a few microseconds would
+    otherwise measure the host's speed."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(n):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -209,18 +223,66 @@ def hook_phase(torch, bgmv, ref, flush):
     return out
 
 
+def bgmv_phase(torch, bgmv, ref, flush):
+    """bgmv at the coupled path's four attention-projection shapes, T=8
+    rows (6 active over 4 distinct adapters of true rank 8/16/32/32 in a
+    rank-32 pool, 2 padding rows with id -1)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 2)
+    N, T, r = len(RANKS), 8, 32
+    ids = torch.tensor([0, 1, 2, 3, 0, 2, -1, -1], dtype=torch.int32,
+                       device=dev)
+    act = ids >= 0
+    n_act, n_adapters = int(act.sum()), len(set(ids[act].tolist()))
+    keep = (torch.arange(r, device=dev)[None, :]
+            < torch.tensor(RANKS, device=dev)[:, None])      # (N, r)
+    out = {}
+    for tgt, d_in, d_out in (("q", 4096, 8192), ("k", 4096, 512),
+                             ("v", 4096, 512), ("o", 8192, 4096)):
+        A = torch.randn(N, d_in, r, generator=g, device=dev) / r
+        Bm = torch.randn(N, r, d_out, generator=g, device=dev) * 0.01
+        A = torch.where(keep[:, None, :], A, 0.0).bfloat16()
+        Bm = torch.where(keep[:, :, None], Bm, 0.0).bfloat16()
+        x = torch.randn(T, d_in, generator=g, device=dev).bfloat16()
+        got = bgmv.bgmv(x, A, Bm, ids)
+        again = bgmv.bgmv(x, A, Bm, ids)
+        want = ref.bgmv_ref(x, A, Bm, ids)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(err <= BGMV_TOL, f"bgmv {tgt}: max abs err {err} > {BGMV_TOL}")
+        check(bool(torch.all(got[~act] == 0)), "bgmv padding rows not 0")
+        check(bool(torch.equal(got, again)), "bgmv: two runs differ")
+        # this run's data: x of the active rows, the distinct adapters'
+        # factors, the ids and the output, once each
+        n_bytes = (n_act * d_in * 2 + n_adapters * (d_in * r + r * d_out) * 2
+                   + T * 4 + got.numel() * 4)
+        b_ms, b_by = bound_ms(n_bytes, n_act * 2 * (d_in * r + r * d_out))
+        ms = cuda_ms(torch, lambda: bgmv.bgmv(x, A, Bm, ids), flush)
+        plain = cuda_ms(torch, lambda: ref.bgmv_ref(x, A, Bm, ids), flush)
+        out[tgt] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                    "bound_ms": b_ms, "bound_by": b_by, "T": T,
+                    "active_rows": n_act, "adapters": n_adapters,
+                    "d_in": d_in, "r": r, "d_out": d_out,
+                    "max_abs_out": want.abs().max().item()}
+        print(f"bgmv {tgt}: err {err:.3g} kernel {ms:.4f} ms plain "
+              f"{plain:.4f} ms bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return out
+
+
 # ------------------------------ phase 3 ------------------------------ #
 @contextlib.contextmanager
 def plain_versions(ops, ref):
     """Route the port's kernel calls to their plain versions (on the card)."""
-    saved = ops.paged_attention, ops.bgmv_expert
+    saved = ops.paged_attention, ops.bgmv_expert, ops.bgmv
     ops.paged_attention = (lambda q, k, v, bt, pos, *, window=0:
                            ref.paged_attention_ref(q, k, v, bt, pos, window))
     ops.bgmv_expert = ref.bgmv_expert_ref
+    ops.bgmv = ref.bgmv_ref
     try:
         yield
     finally:
-        ops.paged_attention, ops.bgmv_expert = saved
+        ops.paged_attention, ops.bgmv_expert, ops.bgmv = saved
 
 
 def profile_steps(torch, engine, requests, n_steps=4):
@@ -258,35 +320,57 @@ def profile_steps(torch, engine, requests, n_steps=4):
     return out
 
 
-def main_path(torch, ops, paged, bgmv, ref):
-    from repro_torch.core import disagg
+def step_stats(torch, cfg, lk, lp, pos):
+    """One step's logits of the active rows, two versions on one state."""
+    act = pos >= 0
+    a = lk[act][:, : cfg.vocab_size]
+    b = lp[act][:, : cfg.vocab_size]
+    tk, tp = a.argmax(-1), b.argmax(-1)
+    return {"finite": bool(torch.isfinite(lk).all()),
+            "shape_ok": tuple(lk.shape) == (pos.shape[0], cfg.padded_vocab),
+            "max_abs_diff": (a - b).abs().max().item(),
+            "argmax_equal": int((tk == tp).sum()), "rows": int(act.sum()),
+            # how far below the second version's best the first's pick is
+            "worst_gap": (b.gather(1, tp[:, None])
+                          - b.gather(1, tk[:, None])).max().item()}
+
+
+def hold_steps(steps_seen, what: str) -> dict:
+    """Summary of per-step comparisons; fails unless the median step's
+    logits agree within LOGIT_TOL and the greedy picks on ARGMAX_AGREE."""
+    diffs = sorted(s["max_abs_diff"] for s in steps_seen)
+    agree = sum(s["argmax_equal"] for s in steps_seen)
+    rows = sum(s["rows"] for s in steps_seen)
+    check(all(s["finite"] and s["shape_ok"] for s in steps_seen),
+          f"{what}: decode logits not finite or of the wrong shape")
+    check(statistics.median(diffs) <= LOGIT_TOL,
+          f"{what}: decode logits differ by a median "
+          f"{statistics.median(diffs)} > {LOGIT_TOL}")
+    check(agree >= ARGMAX_AGREE * rows,
+          f"{what}: greedy picks agree on only {agree} of {rows} rows")
+    return {"step_logits_max_abs_diff": {
+                "median": statistics.median(diffs), "max": diffs[-1],
+                "steps_over_tol": sum(d > LOGIT_TOL for d in diffs),
+                "steps": len(diffs)},
+            "step_argmax_equal": agree, "step_rows": rows,
+            "step_worst_gap": max(s["worst_gap"] for s in steps_seen)}
+
+
+def serve_path(torch, ops, ref, counters, cfg, engine, requests, traffic,
+               step_mod, step_name, per_layer):
+    """One plane's main path: ``engine()`` makes a fresh engine whose decode
+    step is ``step_mod.<step_name>``; ``per_layer`` maps each counter to
+    its launches per layer per decode step."""
     from repro_torch.launch import serve
-    from repro_torch.serving.engine import Engine
-
-    traffic = serve.Traffic()
-    cfg, params, server, scale, ecfg = serve.build(
-        ARCH, layers=LAYERS, seed=SEED, device="cuda", traffic=traffic)
-    torch.cuda.synchronize()
-    requests = serve.make_requests(cfg, traffic, SEED)
-    print(f"main path: {cfg.name} d={cfg.d_model} H={cfg.n_heads} "
-          f"KV={cfg.n_kv_heads} E={cfg.n_experts} top-{cfg.top_k} "
-          f"layers={cfg.n_layers} vocab={cfg.vocab_size}; prompts "
-          f"{[len(p) for _, p, _ in requests]}; weights+pool "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
-
-    def engine():
-        return Engine(cfg, params, ecfg, server, lora_scale=scale,
-                      device="cuda")
 
     # 1. the main path, through the kernels, counted
     eng = engine()
-    paged.paged_attention.launches = 0
-    bgmv.bgmv_expert.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     res = serve.serve(eng, requests, traffic)
-    launches = {"paged_attention": paged.paged_attention.launches,
-                "bgmv_expert": bgmv.bgmv_expert.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
     steps = res["decode_steps"]
-    print(json.dumps({"decode_steps": steps,
+    print(json.dumps({"plane": step_name, "decode_steps": steps,
                       "decode_ms_per_step": res["decode_ms_per_step"],
                       "tokens_per_s": res["tokens_per_s"],
                       "generated_tokens": res["generated_tokens"],
@@ -296,52 +380,37 @@ def main_path(torch, ops, paged, bgmv, ref):
                       "kv_stats": eng.kv_stats(),
                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}),
           flush=True)
-    check(launches["paged_attention"] == cfg.n_layers * steps,
-          f"paged_attention launched {launches['paged_attention']} times, "
-          f"not {cfg.n_layers} x {steps} decode steps")
-    check(launches["bgmv_expert"] == 2 * cfg.n_layers * steps,
-          f"bgmv_expert launched {launches['bgmv_expert']} times, not "
-          f"{2 * cfg.n_layers} x {steps} decode steps")
+    for name, n in per_layer.items():
+        check(launches[name] == n * cfg.n_layers * steps,
+              f"{step_name}: {name} launched {launches[name]} times, not "
+              f"{n} x {cfg.n_layers} layers x {steps} decode steps")
     check(all(len(t) == traffic.new_tokens for t in res["tokens"].values()),
           "a request did not get all its tokens")
     check(all(0 <= x < cfg.vocab_size for t in res["tokens"].values()
               for x in t), "token out of the vocabulary")
 
     # 2. where the time goes
-    profile_steps(torch, engine(), requests)
+    prof = profile_steps(torch, engine(), requests)
 
     # 3. the same requests again through the kernels; at every step the
-    # plain versions first run on a copy of the KV pools, so both see the
-    # same state and their logits can be held together
+    # plain versions first run on a copy of the KV, so both see the same
+    # state and their logits can be held together
     steps_seen = []
-    orig = disagg.disagg_decode_step_slots
+    orig = getattr(step_mod, step_name)
 
-    def shadow(params_, cfg_, k, v, tokens, pos, server_, ads, scale_, *,
-               block_table):
+    def shadow(params_, cfg_, k, v, tokens, pos, *rest, **kw):
         with plain_versions(ops, ref):
             lp = orig(params_, cfg_, k.clone(), v.clone(), tokens, pos,
-                      server_, ads, scale_, block_table=block_table)[0]
-        lk, k, v = orig(params_, cfg_, k, v, tokens, pos, server_, ads,
-                        scale_, block_table=block_table)
-        act = pos >= 0
-        a = lk[act][:, : cfg.vocab_size]
-        b = lp[act][:, : cfg.vocab_size]
-        tk, tp = a.argmax(-1), b.argmax(-1)
-        steps_seen.append({
-            "finite": bool(torch.isfinite(lk).all()),
-            "shape_ok": tuple(lk.shape) == (pos.shape[0], cfg.padded_vocab),
-            "max_abs_diff": (a - b).abs().max().item(),
-            "argmax_equal": int((tk == tp).sum()), "rows": int(act.sum()),
-            # how far below the plain version's best the kernel's pick is
-            "worst_gap": (b.gather(1, tp[:, None])
-                          - b.gather(1, tk[:, None])).max().item()})
+                      *rest, **kw)[0]
+        lk, k, v = orig(params_, cfg_, k, v, tokens, pos, *rest, **kw)
+        steps_seen.append(step_stats(torch, cfg, lk, lp, pos))
         return lk, k, v
 
-    disagg.disagg_decode_step_slots = shadow
+    setattr(step_mod, step_name, shadow)
     try:
         res_s = serve.serve(engine(), requests, traffic)
     finally:
-        disagg.disagg_decode_step_slots = orig
+        setattr(step_mod, step_name, orig)
 
     # 4. the same requests through the plain versions alone
     with plain_versions(ops, ref):
@@ -351,16 +420,11 @@ def main_path(torch, ops, paged, bgmv, ref):
         other = res_p["tokens"][rid]
         diverge[rid] = next((i for i, (a, b) in enumerate(zip(toks, other))
                              if a != b), None)
-    diffs = sorted(s["max_abs_diff"] for s in steps_seen)
-    agree = sum(s["argmax_equal"] for s in steps_seen)
-    rows = sum(s["rows"] for s in steps_seen)
+    check(res_s["tokens"] == res["tokens"],
+          f"{step_name}: two runs through the kernels gave different tokens")
+    held = hold_steps(steps_seen, f"{step_name}, kernels vs plain versions")
     print(json.dumps({
-        "step_logits_max_abs_diff": {
-            "median": statistics.median(diffs), "max": diffs[-1],
-            "steps_over_tol": sum(d > LOGIT_TOL for d in diffs),
-            "steps": len(diffs)},
-        "step_argmax_equal": agree, "step_rows": rows,
-        "step_worst_gap": max(s["worst_gap"] for s in steps_seen),
+        "plane": step_name, **held,
         "plain_decode_ms_per_step": res_p["decode_ms_per_step"],
         "plain_tokens_per_s": res_p["tokens_per_s"],
         "plain_prefill_s": res_p["prefill_s"],
@@ -369,16 +433,129 @@ def main_path(torch, ops, paged, bgmv, ref):
             for a, b in zip(res["tokens"][rid], res_p["tokens"][rid])),
         "free_run_tokens_total": res["generated_tokens"],
         "free_run_first_divergence": diverge}), flush=True)
-    check(res_s["tokens"] == res["tokens"],
-          "two runs through the kernels gave different tokens")
-    check(all(s["finite"] and s["shape_ok"] for s in steps_seen),
-          "decode logits not finite or of the wrong shape")
-    check(statistics.median(diffs) <= LOGIT_TOL,
-          f"decode logits of the kernels and the plain versions differ by a "
-          f"median {statistics.median(diffs)} > {LOGIT_TOL}")
-    check(agree >= ARGMAX_AGREE * rows,
-          f"greedy picks agree on only {agree} of {rows} rows")
-    return launches
+    return launches, res, prof
+
+
+def paged_vs_dense(torch, transformer, cfg, engines, requests, traffic):
+    """Drive the engines (paged first, then dense) through the same
+    requests in the same two waves, in lock step: after each step every
+    engine is fed the first one's greedy tokens, and each step's logits of
+    the active rows are held against the first engine's."""
+    captured = []
+    orig = transformer.decode_step_slots
+
+    def capture(*args, **kw):
+        out = orig(*args, **kw)
+        captured.append((out[0], args[5]))
+        return out
+
+    steps_seen, free_equal = [], 0
+    pending = list(requests)
+    done = {rid: 0 for rid, _, _ in requests}
+    steps = 0
+
+    def admit(batch):
+        for rid, prompt, aid in batch:
+            for eng in engines:
+                eng.add_request(rid, prompt, aid)
+
+    transformer.decode_step_slots = capture
+    try:
+        admit(pending[: traffic.first_wave])
+        pending = pending[traffic.first_wave:]
+        while pending or engines[0].active_rids():
+            if pending and (steps >= traffic.second_wave_after
+                            or not engines[0].active_rids()):
+                admit(pending)
+                pending = []
+            captured.clear()
+            outs = [eng.step() for eng in engines]
+            (lead, pos), *others = captured
+            for (logits, _), eng, out in zip(others, engines[1:], outs[1:]):
+                steps_seen.append(step_stats(torch, cfg, lead, logits, pos))
+                free_equal += sum(out[rid] == t for rid, t in outs[0].items())
+                for s in eng.slots:   # teacher forcing
+                    if s is not None:
+                        s.last_token = outs[0][s.rid]
+            steps += 1
+            for rid in outs[0]:
+                done[rid] += 1
+                if done[rid] == traffic.new_tokens:
+                    for eng in engines:
+                        eng.evict_request(rid)
+    finally:
+        transformer.decode_step_slots = orig
+    held = hold_steps(steps_seen, "paged vs dense")
+    out = {"layers": cfg.n_layers, "decode_steps": steps, **held,
+           "step_tokens_equal": free_equal,
+           "step_tokens_total": sum(done.values())}
+    print("paged == dense: " + json.dumps(out), flush=True)
+    return out
+
+
+def main_paths(torch, ops, paged, bgmv, ref):
+    from repro_torch.core import disagg
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import Engine
+
+    traffic = serve.Traffic(adapter_ranks=RANKS)
+    cfg, params, lora, ecfg = serve.build(
+        ARCH, layers=LAYERS, seed=SEED, device="cuda", traffic=traffic,
+        mode="disagg")
+    torch.cuda.synchronize()
+    requests = serve.make_requests(cfg, traffic, SEED)
+    print(f"main paths: {cfg.name} d={cfg.d_model} H={cfg.n_heads} "
+          f"KV={cfg.n_kv_heads} E={cfg.n_experts} top-{cfg.top_k} "
+          f"layers={cfg.n_layers} vocab={cfg.vocab_size}; prompts "
+          f"{[len(p) for _, p, _ in requests]}; weights+server "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    counters = {"paged_attention": paged.paged_attention,
+                "bgmv_expert": bgmv.bgmv_expert, "bgmv": bgmv.bgmv}
+
+    # the disaggregated plane (slice 1): attention + two server hooks
+    d_launch, d_res, d_prof = serve_path(
+        torch, ops, ref, counters, cfg,
+        lambda: Engine(cfg, params, ecfg, device="cuda", **lora), requests,
+        traffic, disagg, "disagg_decode_step_slots",
+        {"paged_attention": 1, "bgmv_expert": 2, "bgmv": 0})
+    del lora
+
+    # the coupled plane: q/k/v/o deltas (bgmv) and three expert deltas
+    pool = serve.build_lora(cfg, "coupled", RANKS, seed=SEED,
+                            dtype=torch.bfloat16, device="cuda")["pool"]
+    c_launch, c_res, c_prof = serve_path(
+        torch, ops, ref, counters, cfg,
+        lambda: Engine(cfg, params, ecfg, device="cuda", pool=pool),
+        requests, traffic, transformer, "decode_step_slots",
+        {"paged_attention": 1, "bgmv_expert": 3, "bgmv": 4})
+    print("coupled vs disagg (same traffic, same card): " + json.dumps({
+        "decode_ms_per_step": {"coupled": c_res["decode_ms_per_step"],
+                               "disagg": d_res["decode_ms_per_step"]},
+        "tokens_per_s": {"coupled": c_res["tokens_per_s"],
+                         "disagg": d_res["tokens_per_s"]},
+        "device_busy_share": {"coupled": c_prof["device_busy_share"],
+                              "disagg": d_prof["device_busy_share"]}}),
+          flush=True)
+
+    # paged == dense on the coupled plane, at depth DENSE_LAYERS
+    cfg2 = dataclasses.replace(cfg, n_layers=DENSE_LAYERS)
+    params2 = dict(params, layers=_first_layers(params["layers"],
+                                                DENSE_LAYERS))
+    pool2 = dataclasses.replace(pool, cfg=cfg2, tensors=_first_layers(
+        pool.tensors, DENSE_LAYERS))
+    paged_vs_dense(torch, transformer, cfg2, [
+        Engine(cfg2, params2, dataclasses.replace(ecfg, paged=p),
+               device="cuda", pool=pool2) for p in (True, False)],
+        requests, traffic)
+    return {"disagg": d_launch, "coupled": c_launch}
+
+
+def _first_layers(tree, n: int):
+    """Views of the first ``n`` layers of a layer-stacked tree."""
+    if isinstance(tree, dict):
+        return {k: _first_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
 
 
 def main() -> int:
@@ -409,25 +586,44 @@ def main() -> int:
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     pa = paged_phase(torch, paged, ref, flush)
     hk = hook_phase(torch, bgmv, ref, flush)
-    launches = main_path(torch, ops, paged, bgmv, ref)
+    bg = bgmv_phase(torch, bgmv, ref, flush)
+    launches = main_paths(torch, ops, paged, bgmv, ref)
+
+    # "launches": this slice's main path (the coupled plane); each plane's
+    # counted run in "launches_by_plane"
+    def launch_counts(name):
+        return {"launches": launches["coupled"][name],
+                "launches_by_plane": {p: n[name]
+                                      for p, n in launches.items()}}
 
     up, dn = hk["up"], hk["down"]
     kernels = [
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged.py:93",
-             launches=launches["paged_attention"], **pa[0],
+             **launch_counts("paged_attention"), **pa[0],
              window_512=pa[512]),
         dict(name="bgmv_expert", route="cuda",
              source="src/repro_torch/csrc/bgmv_expert.cu",
              replaces="src/repro/kernels/bgmv.py:138",
-             launches=launches["bgmv_expert"],
+             **launch_counts("bgmv_expert"),
              max_abs_err=max(up["max_abs_err"], dn["max_abs_err"]),
              ms=up["ms"] + dn["ms"], plain_ms=up["plain_ms"] + dn["plain_ms"],
              bound_ms=up["bound_ms"] + dn["bound_ms"], bound_by="bytes"
              if up["bound_by"] == dn["bound_by"] == "bytes" else "operations",
              library_ms=None, per_layer="one up hook + one down hook",
              hooks=hk),
+        dict(name="bgmv", route="cuda", source="src/repro_torch/csrc/bgmv.cu",
+             replaces="src/repro/kernels/bgmv.py:48",
+             **launch_counts("bgmv"),
+             max_abs_err=max(t["max_abs_err"] for t in bg.values()),
+             ms=sum(t["ms"] for t in bg.values()),
+             plain_ms=sum(t["plain_ms"] for t in bg.values()),
+             bound_ms=sum(t["bound_ms"] for t in bg.values()),
+             bound_by="bytes" if all(t["bound_by"] == "bytes"
+                                     for t in bg.values()) else "operations",
+             library_ms=None, per_layer="q + k + v + o deltas",
+             targets=bg),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

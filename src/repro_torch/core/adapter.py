@@ -1,5 +1,6 @@
 """LoRA adapter pools, the counterpart of ``repro.core.adapter`` for the
-targets the disaggregated server serves.
+MoE family's targets: the attention projections (the coupled plane) and
+the expert FFN (both planes).
 
   attention target t : A (L, N, d_in, r)     B (L, N, r, d_out)
   expert FFN target  : A (L, N, E, d, r)     B (L, N, E, r, ff)
@@ -30,6 +31,18 @@ def target_dims(cfg, target: str) -> Tuple[int, int, bool]:
     }[target]
 
 
+def active_targets(cfg) -> Tuple[str, ...]:
+    """The config's LoRA targets that this model family has."""
+    out = []
+    for t in cfg.lora_targets:
+        try:
+            target_dims(cfg, t)
+        except KeyError:
+            continue
+        out.append(t)
+    return tuple(out)
+
+
 @dataclasses.dataclass
 class AdapterPool:
     """Stacked LoRA factors of ``n`` adapters of one model config."""
@@ -39,6 +52,11 @@ class AdapterPool:
     scale: float
     tensors: Dict[str, Dict[str, torch.Tensor]]  # target -> {"A", "B"}
     ranks: Optional[Tuple[int, ...]] = None      # true ranks (mixed pools)
+
+    def lora_ctx(self, ids: torch.Tensor) -> Dict:
+        """The coupled decode step's ``lora_ctx`` for per-row adapter ids
+        (int32, -1 = no adapter)."""
+        return {"adapters": self.tensors, "ids": ids, "scale": self.scale}
 
     def rank_of(self, adapter_id: int) -> int:
         """True rank of one adapter (the pool rank for uniform pools)."""
@@ -58,7 +76,7 @@ def init_adapter_pool(cfg, n_adapters: int, seed: int = 0,
     r = rank or cfg.lora_rank
     L, E = cfg.n_layers, max(cfg.n_experts, 1)
     tensors = {}
-    for tgt in cfg.lora_targets:
+    for tgt in active_targets(cfg):
         d_in, d_out, per_expert = target_dims(cfg, tgt)
         mid = (L, n_adapters, E) if per_expert else (L, n_adapters)
 

@@ -1,5 +1,5 @@
 """Client-side disaggregated LoRA execution (paper §3 / Fig. 7), the
-counterpart of ``repro.core.disagg`` for the paged slot engine.
+counterpart of ``repro.core.disagg`` for the slot engine.
 
 The LLM instance stays LoRA-free; at each MoE layer's two hook points the
 activated (token, expert) rows go to the LoRA Server and the deltas are
@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as ll
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import transformer
 from repro_torch.models.model import layer_params
 
 
@@ -63,12 +64,15 @@ def _moe_hooks_layer(x, lp, cfg, l: int, server, adapter_ids,
 
 def disagg_decode_step_slots(params, cfg, k_cache, v_cache, tokens, pos_vec,
                              server, adapter_ids, lora_scale: float, *,
-                             block_table):
-    """Continuous-batching disaggregated decode over a paged KV pool.
+                             block_table=None):
+    """Continuous-batching disaggregated decode: the client math of
+    ``transformer.decode_step_slots`` without adapters, plus the server's
+    deltas at the two MoE hook points.
 
     tokens: (B, 1); pos_vec: (B,) int32 (-1 = inactive row, whose adapter
-    id must be -1 too); k_cache/v_cache: (L, n_pages, page_size, KV, hd),
-    written in place; block_table: (B, nb) int32. Returns (logits (B, V)
+    id must be -1 too); k_cache/v_cache: paged pools (L, n_pages,
+    page_size, KV, hd) with ``block_table`` (B, nb) int32, or dense rows
+    (L, B, S, KV, hd) without; written in place. Returns (logits (B, V)
     f32, k_cache, v_cache)."""
     if not cfg.is_moe:
         raise ValueError("disaggregated hooks target MoE FFNs (paper Fig. 3b)")
@@ -76,14 +80,8 @@ def disagg_decode_step_slots(params, cfg, k_cache, v_cache, tokens, pos_vec,
     positions = pos_vec.clamp_min(0)[:, None]
     for l in range(cfg.n_layers):
         lp = layer_params(params["layers"], l)
-        h = ll.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = ll.qkv_project(h, lp["attn"], cfg)
-        q = ll.apply_rope(q, positions, cfg.rope_theta)
-        k = ll.apply_rope(k, positions, cfg.rope_theta)
-        att, _, _ = ll.decode_attention_update_slots_paged(
-            q[:, 0], k[:, 0], v[:, 0], k_cache[l], v_cache[l], block_table,
-            pos_vec, window=cfg.sliding_window)
-        x = x + ll.out_project(att[:, None], lp["attn"])
+        x = transformer.attn_decode_slots(x, lp, cfg, positions, pos_vec,
+                                          k_cache[l], v_cache[l], block_table)
         x = _moe_hooks_layer(x, lp, cfg, l, server, adapter_ids, lora_scale)
     x = ll.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = ll.unembed(x, params.get("lm_head", params["embed"]))

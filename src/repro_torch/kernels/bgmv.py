@@ -1,7 +1,15 @@
-"""Expert-LoRA shrink-expand on Hopper: the wrapper of
-``csrc/bgmv_expert.cu`` (the port of the TPU kernel
-``repro.kernels.bgmv.bgmv_expert``, extended with the serving hook's
-true-rank mask; plain twin: ``ref.bgmv_expert_ref``).
+"""LoRA shrink-expand on Hopper: the wrappers of ``csrc/bgmv.cu`` and
+``csrc/bgmv_expert.cu``.
+
+``bgmv`` ports the TPU kernel ``repro.kernels.bgmv.bgmv`` (plain twin:
+``ref.bgmv_ref``); the coupled plane's q/k/v/o deltas run through it.
+
+  x (T, d_in) | A (N, d_in, r) | B (N, r, d_out) | ids (T,) int32
+  -> (T, d_out) f32
+
+``bgmv_expert`` ports ``repro.kernels.bgmv.bgmv_expert``, extended with the
+serving hook's true-rank mask (plain twin: ``ref.bgmv_expert_ref``); the
+LoRA Server's hooks and the coupled plane's expert deltas run through it.
 
   x (T, d_in) | A (N, E, d_in, r) | B (N, E, r, d_out) | ids, eids (T,) int32
   | ranks (T,) int32 or None | r_mod -> (T, d_out) f32
@@ -16,20 +24,79 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels._launch import (check_cuda, check_int32, dtype_code,
                                          raise_on_error)
+from repro_torch.kernels.paged import N_SM
 
-VEC_BYTES = 16  # the kernel streams the factors in 16-byte vectors
+VEC_BYTES = 16  # the kernels stream the factors in 16-byte vectors
 
 
-def _lib():
-    lib = build.load("bgmv_expert")
-    fn = lib.bgmv_expert_launch
+def _lib(name: str, n_ptr: int, n_int: int):
+    """The library of ``csrc/<name>.cu`` with its launch function typed:
+    two dtype codes, ``n_ptr`` pointers, ``n_int`` ints and the stream."""
+    lib = build.load(name)
+    fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i, p, p, p, p, p, p, p,
-                       i, i, i, i, i, i, i, p]
+        fn.argtypes = [i, i] + [p] * n_ptr + [i] * n_int + [p]
         fn.restype = ctypes.c_int
-        lib.bgmv_expert_threads.restype = ctypes.c_int
+        getattr(lib, f"{name}_threads").restype = ctypes.c_int
     return lib
+
+
+def _check_factors(name, A, B, r: int, d_out: int, threads: int) -> None:
+    """What the kernels' 16-byte factor loads need."""
+    if A.dtype != B.dtype:
+        raise TypeError(f"{name}: A and B differ in dtype")
+    vec = VEC_BYTES // A.element_size()
+    groups = r // vec if r % vec == 0 else 0
+    if not groups or threads % groups or d_out % vec:
+        raise ValueError(f"{name}: r={r} and d_out={d_out} must be multiples "
+                         f"of {vec}, with r/{vec} dividing {threads}")
+    if A.data_ptr() % VEC_BYTES or B.data_ptr() % VEC_BYTES:
+        raise ValueError(f"{name}: A and B must be 16-byte aligned")
+
+
+def split_plan(T: int, d_in: int, stride: int) -> int:
+    """Splits of d_in for the shrink: about two blocks per SM over the T
+    rows, with at least 2 * ``stride`` rows of A (two loads a thread) in
+    each split."""
+    want = max(1, -(-2 * N_SM // max(T, 1)))
+    return max(1, min(want, -(-d_in // (2 * stride))))
+
+
+def bgmv(x, A, B, ids):
+    """Launch the CUDA kernel on CUDA tensors (see module docstring)."""
+    name = "bgmv"
+    dev = check_cuda(name, x, A, B, ids)
+    check_int32(name, ids)
+    if x.dim() != 2 or A.dim() != 3 or B.dim() != 3:
+        raise ValueError(f"{name}: x (T,d_in), A (N,d_in,r), B (N,r,d_out)")
+    T, d_in = x.shape
+    N, _, r = A.shape
+    d_out = B.shape[-1]
+    if tuple(A.shape[1:]) != (d_in, r) or tuple(B.shape[:2]) != (N, r):
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, A "
+                         f"{tuple(A.shape)}, B {tuple(B.shape)} disagree")
+    if tuple(ids.shape) != (T,):
+        raise ValueError(f"{name}: ids must be (T,)")
+    lib = _lib(name, 6, 6)
+    threads = lib.bgmv_threads()
+    _check_factors(name, A, B, r, d_out, threads)
+    out = torch.empty((T, d_out), dtype=torch.float32, device=dev)
+    if T == 0:
+        return out
+    splits = split_plan(T, d_in, threads * VEC_BYTES // A.element_size() // r)
+    part = torch.empty((T, splits, r), dtype=torch.float32, device=dev)
+    err = lib.bgmv_launch(
+        dtype_code(name, x), dtype_code(name, A), x.data_ptr(), A.data_ptr(),
+        B.data_ptr(), ids.data_ptr(), part.data_ptr(), out.data_ptr(),
+        T, N, d_in, r, d_out, splits,
+        torch.cuda.current_stream(dev).cuda_stream)
+    raise_on_error(name, err)
+    bgmv.launches += 1
+    return out
+
+
+bgmv.launches = 0
 
 
 def bgmv_expert(x, A, B, ids, eids, ranks: Optional[torch.Tensor] = None,
@@ -49,17 +116,8 @@ def bgmv_expert(x, A, B, ids, eids, ranks: Optional[torch.Tensor] = None,
                          f"{tuple(A.shape)}, B {tuple(B.shape)} disagree")
     if any(tuple(t.shape) != (T,) for t in operands[3:]):
         raise ValueError(f"{name}: ids, eids and ranks must be (T,)")
-    if A.dtype != B.dtype:
-        raise TypeError(f"{name}: A and B differ in dtype")
-    lib = _lib()
-    vec = VEC_BYTES // A.element_size()
-    groups = r // vec if r % vec == 0 else 0
-    if not groups or lib.bgmv_expert_threads() % groups or d_out % vec:
-        raise ValueError(f"{name}: r={r} and d_out={d_out} must be multiples "
-                         f"of {vec}, with r/{vec} dividing "
-                         f"{lib.bgmv_expert_threads()}")
-    if A.data_ptr() % VEC_BYTES or B.data_ptr() % VEC_BYTES:
-        raise ValueError(f"{name}: A and B must be 16-byte aligned")
+    lib = _lib(name, 7, 7)
+    _check_factors(name, A, B, r, d_out, lib.bgmv_expert_threads())
     r_mod = int(r_mod) or r
     out = torch.empty((T, d_out), dtype=torch.float32, device=dev)
     if T == 0:

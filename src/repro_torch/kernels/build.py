@@ -4,8 +4,9 @@ Each source is compiled on first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds). Libraries go to
 ``build/repro_torch/`` at the root of the checkout (listed in
-``.gitignore``), named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused within a checkout.
+``.gitignore``), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is reused within a checkout.
 Nothing here runs at import: the CPU tests import every module.
 """
 from __future__ import annotations
@@ -41,8 +42,9 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    text = b"".join(p.read_bytes() for p in
+                    [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -23,6 +23,13 @@ def paged_attention(q, k_pool, v_pool, block_tables, pos, *, window: int = 0):
                                   window=window)
 
 
+def bgmv(x, A, B, ids):
+    """Per-row LoRA shrink-expand -> (T, d_out) f32 (see kernels/bgmv.py)."""
+    if x.device.type == "cpu":
+        return _ref.bgmv_ref(x, A, B, ids)
+    return _bgmv.bgmv(x, A, B, ids)
+
+
 def bgmv_expert(x, A, B, ids, eids, ranks: Optional[torch.Tensor] = None,
                 r_mod: int = 0):
     """Per-row expert-LoRA shrink-expand with an optional true-rank mask

@@ -3,8 +3,9 @@
 Each function computes what its CUDA kernel computes, on any device; the
 CPU runs them, and ``chip_smoke.py`` holds each kernel against them on the
 card. They mirror the reference's jnp oracles
-(``repro.kernels.ref.paged_attention_ref``, ``repro.core.lora_math.bgmv_expert``
-and the body of ``repro.core.lora_server.LoRAServer._step``), f32 inside.
+(``repro.kernels.ref.paged_attention_ref``, ``repro.core.lora_math.bgmv``
+and ``bgmv_expert``, and the body of
+``repro.core.lora_server.LoRAServer._step``), f32 inside.
 """
 from __future__ import annotations
 
@@ -49,6 +50,20 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, pos, window: int = 0):
     l = e.sum(dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", e, v.to(F32))
     return o / l.clamp_min(1e-20)[..., None]
+
+
+def bgmv_ref(x, A, B, ids):
+    """Per-row shrink-expand (``repro.core.lora_math.bgmv``).
+
+    x: (T, d_in); A: (N, d_in, r); B: (N, r, d_out); ids: (T,) ->
+    (T, d_out) f32. Every row gathers the factors of max(ids, 0) (clamped
+    to N - 1, as a jnp gather clamps) and contracts in f32; rows with
+    ids < 0 then give exact 0. Needs no host sync: the decode batch has
+    at most a bucket of rows."""
+    safe = ids.long().clamp(0, A.shape[0] - 1)
+    h = torch.einsum("td,tdr->tr", x.to(F32), A[safe].to(F32))
+    y = torch.einsum("tr,tro->to", h, B[safe].to(F32))
+    return torch.where((ids >= 0)[:, None], y, 0.0)
 
 
 def bgmv_expert_ref(x, A, B, ids, eids, ranks: Optional[torch.Tensor] = None,

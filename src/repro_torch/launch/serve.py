@@ -1,9 +1,10 @@
-"""Serving entry point of the port: disaggregated multi-LoRA decode
-through the paged slot engine, with the LoRA Server's hooks computed on
-the card.
+"""Serving entry point of the port: multi-LoRA decode through the slot
+engine, disaggregated (the LoRA Server computes the MoE hooks' deltas) or
+coupled (the S-LoRA baseline: adapters applied inside the model), over a
+paged KV pool or, with ``--dense``, a dense slab.
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
-      --arch qwen3-moe-235b-a22b --layers 4 --requests 6
+      --arch qwen3-moe-235b-a22b --layers 4 --requests 6 --mode coupled
 
 Weights and adapters are random, drawn on the device from ``--seed``;
 nothing is downloaded. Requests arrive in two waves, so the second wave is
@@ -29,6 +30,7 @@ from repro_torch.obs.clock import wall_time
 from repro_torch.serving.engine import Engine, EngineConfig
 
 FFN_TARGETS = ("gate", "up", "down")
+MODES = ("disagg", "coupled")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,22 +57,32 @@ def make_requests(cfg, traffic: Traffic, seed: int = 0):
             for rid in range(traffic.n_requests)]
 
 
-def build_server(cfg, adapter_ranks: Sequence[int], seed: int = 0,
-                 dtype=torch.bfloat16, device=None):
-    """A LoRA Server holding one mixed-rank pool of adapters (ids 0..N-1)
-    and the pool's scale. The pool rank is the model config's LoRA rank."""
-    r = max(max(adapter_ranks), cfg.lora_rank)
-    pool = init_mixed_rank_pool(
-        dataclasses.replace(cfg, lora_targets=FFN_TARGETS), adapter_ranks,
-        seed=seed + 1, dtype=dtype, device=device)
+def build_lora(cfg, mode: str, adapter_ranks: Sequence[int], seed: int = 0,
+               dtype=torch.bfloat16, device=None) -> Dict:
+    """One mixed-rank pool of adapters (ids 0..N-1), served by one plane;
+    returns the Engine's keyword arguments for it.
+
+    disagg : a LoRA Server holding the pool's expert-FFN targets (the
+             hooks it serves) -> {"server", "lora_scale"}
+    coupled: the pool over all of the config's targets -> {"pool"}
+
+    The pool rank, and the server's, is the largest true rank."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
+    pool_cfg = (dataclasses.replace(cfg, lora_targets=FFN_TARGETS)
+                if mode == "disagg" else cfg)
+    pool = init_mixed_rank_pool(pool_cfg, adapter_ranks, seed=seed + 1,
+                                dtype=dtype, device=device)
+    if mode == "coupled":
+        return {"pool": pool}
     server = LoRAServer(cfg, ServerConfig(m=1, x=1, y=1,
                                           cache_slots=len(adapter_ranks),
-                                          rank=r),
+                                          rank=pool.rank),
                         dtype=dtype, device=device)
     for aid in range(pool.n):
         server.insert(aid, pool_tensors_from_adapter(pool, aid),
                       rank=pool.rank_of(aid))
-    return server, pool.scale
+    return {"server": server, "lora_scale": pool.scale}
 
 
 def serve(engine: Engine, requests, traffic: Traffic) -> Dict:
@@ -118,9 +130,12 @@ def serve(engine: Engine, requests, traffic: Traffic) -> Dict:
 
 
 def build(arch: str, *, layers: Optional[int] = None, reduced: bool = False,
-          seed: int = 0, device=None, traffic: Traffic = Traffic()):
-    """(cfg, params, server, lora_scale, engine config) for one run: 8
-    slots of up to 256 tokens in pages of 16, prefill chunks of 64."""
+          seed: int = 0, device=None, traffic: Traffic = Traffic(),
+          mode: str = "disagg", paged: bool = True):
+    """(cfg, params, lora, engine config) for one run, where ``lora`` is
+    the Engine's keyword arguments of the ``mode``'s plane (``build_lora``):
+    8 slots of up to 256 tokens, in pages of 16 or a dense slab, prefill
+    chunks of 64."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -129,11 +144,11 @@ def build(arch: str, *, layers: Optional[int] = None, reduced: bool = False,
     dev = resolve_device(device)
     dt = resolve_dtype(cfg.dtype)
     params = init_params(cfg, seed=seed, dtype=dt, device=dev)
-    server, scale = build_server(cfg, traffic.adapter_ranks, seed=seed,
-                                 dtype=dt, device=dev)
-    ecfg = EngineConfig(max_len=256, n_slots=8, page_size=16,
+    lora = build_lora(cfg, mode, traffic.adapter_ranks, seed=seed, dtype=dt,
+                      device=dev)
+    ecfg = EngineConfig(max_len=256, n_slots=8, paged=paged, page_size=16,
                         prefill_chunk=64)
-    return cfg, params, server, scale, ecfg
+    return cfg, params, lora, ecfg
 
 
 def main(argv=None) -> int:
@@ -147,18 +162,24 @@ def main(argv=None) -> int:
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mode", default="disagg", choices=MODES,
+                    help="disagg: LoRA Server hooks; coupled: adapters in "
+                         "the model (S-LoRA)")
+    ap.add_argument("--dense", action="store_true",
+                    help="dense KV slab instead of the paged pool")
     args = ap.parse_args(argv)
     traffic = dataclasses.replace(Traffic(), n_requests=args.requests)
     if args.reduced:
         traffic = dataclasses.replace(traffic, prompt_len=(6, 20),
                                       new_tokens=6, second_wave_after=2)
-    cfg, params, server, scale, ecfg = build(
+    cfg, params, lora, ecfg = build(
         args.arch, layers=args.layers, reduced=args.reduced, seed=args.seed,
-        device=args.device, traffic=traffic)
-    engine = Engine(cfg, params, ecfg, server, lora_scale=scale,
-                    device=args.device)
+        device=args.device, traffic=traffic, mode=args.mode,
+        paged=not args.dense)
+    engine = Engine(cfg, params, ecfg, device=args.device, **lora)
     res = serve(engine, make_requests(cfg, traffic, args.seed), traffic)
-    print(json.dumps({k: v for k, v in res.items() if k != "tokens"}))
+    print(json.dumps({"mode": args.mode, "paged": ecfg.paged,
+                      **{k: v for k, v in res.items() if k != "tokens"}}))
     print(json.dumps({"kv_stats": engine.kv_stats()}))
     print("generated:", {rid: t for rid, t in res["tokens"].items()})
     return 0

@@ -129,7 +129,45 @@ def causal_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return o.to(q.dtype).reshape(B, Sq, H, hd)
 
 
-# --------------------------- paged decode ------------------------------ #
+# --------------------------- slot decode ------------------------------- #
+def decode_attention_update_slots(q, k_new, v_new, k_cache, v_cache, pos_vec,
+                                  *, window: int = 0):
+    """Per-slot KV write + decode attention over a dense slab (plain torch,
+    as the reference's is plain jnp).
+
+    q: (B, H, hd); k_new/v_new: (B, KV, hd) post-RoPE; k_cache/v_cache:
+    (B, S, KV, hd), updated IN PLACE; pos_vec: (B,) int32 tokens already
+    cached per row (this token is written at position pos_vec[b]). Rows
+    with pos_vec < 0 are inactive: they rewrite the cell they point at with
+    its own value, and their output is finite garbage. Returns (out
+    (B, H, hd), k_cache, v_cache)."""
+    B, H, hd = q.shape
+    S, KV = k_cache.shape[1:3]
+    active = (pos_vec >= 0)[:, None, None]
+    rows = torch.arange(B, device=q.device)
+    idx = pos_vec.long().clamp(0, S - 1)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        cache[rows, idx] = torch.where(active, new.to(cache.dtype),
+                                       cache[rows, idx])
+    qg = q.reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.to(F32), k_cache.to(F32))
+    s = s * (1.0 / np.sqrt(hd))
+    # the reference's mask: key positions below pos + 1 (and the window)
+    n_keys = (pos_vec.long() + 1)[:, None]
+    kp = torch.arange(S, device=q.device)[None, :]
+    valid = kp < n_keys
+    if window:
+        valid &= kp >= n_keys - window
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)
+    e = torch.exp(s - m[..., None])
+    l = e.sum(dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", e, v_cache.to(F32))
+    out = o / l.clamp_min(1e-20)[..., None]
+    return out.reshape(B, H, hd).to(q.dtype), k_cache, v_cache
+
+
+
 def decode_attention_update_slots_paged(q, k_new, v_new, k_pool, v_pool,
                                         block_table, pos_vec, *,
                                         window: int = 0):

@@ -1,5 +1,6 @@
 """Token-choice top-k MoE with static-capacity sort-based dispatch, the
-local (single-device) path of ``repro.models.moe``.
+local (single-device) path of ``repro.models.moe``, with the coupled
+plane's expert LoRA.
 
 Routing reproduces the reference's orders exactly: ``jax.lax.top_k`` keeps
 the lower expert id first among equal probabilities (a stable descending
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.models.layers import mm_f32
 
 F32 = torch.float32
@@ -85,19 +87,50 @@ def combine(y_slots, pair_slot, wts):
     return out
 
 
-def expert_ffn(xe, wg, wu, wd):
-    """LoRA-free gated expert FFN. xe: (E, C, d); wg/wu: (E, d, f); wd:
-    (E, f, d) -> (E, C, d) f32."""
+def expert_ffn(xe, wg, wu, wd, lora=None, row_adapter=None,
+               lora_scale: float = 1.0):
+    """Gated expert FFN. xe: (E, C, d); wg/wu: (E, d, f); wd: (E, f, d) ->
+    (E, C, d) f32.
+
+    With ``lora`` holding expert-specific adapter factors ({gate/up/down:
+    {A (N, E_total, d_in, r), B (N, E_total, r, d_out)}}, the coupled
+    plane), each dispatch row's delta x A[a, e] B[a, e] * lora_scale is
+    added at the paper's two hook points: to g and u in f32 before silu,
+    and to the down output. One ``ops.bgmv_expert`` launch per target.
+    ``row_adapter``: (E*C,) int32 adapter id per dispatch row, -1 =
+    inactive."""
+    E, C, _ = xe.shape
+    if lora is not None:
+        row_e = torch.arange(E * C, dtype=torch.int32, device=xe.device) // C
+
+    def dl(name, rows_in):
+        if lora is None or name not in lora:
+            return None
+        return ops.bgmv_expert(
+            rows_in.reshape(E * C, -1), lora[name]["A"], lora[name]["B"],
+            row_adapter, row_e).reshape(E, C, -1) * lora_scale
+
     g = mm_f32(xe, wg)
     u = mm_f32(xe, wu)
+    dg, du = dl("gate", xe), dl("up", xe)
+    if dg is not None:
+        g = g + dg
+    if du is not None:
+        u = u + du
     h = (F.silu(g) * u).to(xe.dtype)
-    return mm_f32(h, wd)
+    y = mm_f32(h, wd)
+    dd = dl("down", h)
+    if dd is not None:
+        y = y + dd
+    return y
 
 
-def moe_local(x, params, cfg):
-    """The reference's ``_moe_local`` without LoRA: x (B, S, d) -> (B, S, d)
-    (prefill runs LoRA-free). Dropless when T*K <= 4096, as in the
-    reference."""
+def moe_block(x, params, cfg, lora=None, ids_tok=None,
+              lora_scale: float = 1.0):
+    """x: (B, S, d) -> (B, S, d), the reference's ``moe_block`` on its
+    local (single-device) plan, dropless when T*K <= 4096 as there.
+    ``lora``: a layer's adapter factors (its gate/up/down are used; the
+    coupled plane); ``ids_tok``: (B*S,) int32 adapter id per token."""
     if not cfg.gated_mlp:
         raise ValueError("the port serves gated (SwiGLU) experts")
     B, S, d = x.shape
@@ -106,7 +139,24 @@ def moe_local(x, params, cfg):
     ids, wts = route(xf, params["router"], cfg.n_experts, cfg.top_k)
     C = capacity(T, cfg.top_k, cfg.n_experts, cfg.capacity_factor,
                  dropless=(T * cfg.top_k <= 4096))
-    xe, _, pair_slot = local_dispatch(xf, ids, C, cfg.n_experts)
-    y = expert_ffn(xe, params["gate"], params["up"], params["down"])
-    out = combine(y.reshape(-1, d), pair_slot, wts)
-    return out.reshape(B, S, d).to(x.dtype)
+    y = _dispatch_compute_combine(xf, ids, wts, params["gate"], params["up"],
+                                  params["down"], cfg, C, lora=lora,
+                                  token_ads=ids_tok, lora_scale=lora_scale)
+    return y.reshape(B, S, d).to(x.dtype)
+
+
+def _dispatch_compute_combine(xf, ids, wts, wg, wu, wd, cfg, C, lora=None,
+                              token_ads=None, lora_scale=1.0):
+    """Dispatch -> expert FFN -> combine (the reference's shared core on
+    one device). A dispatch row takes its token's adapter, or -1 when the
+    row is empty (the reference's ``row_adapter`` rule). -> (T, d) f32."""
+    T, d = xf.shape
+    xe, slot_tok, pair_slot = local_dispatch(xf, ids, C, cfg.n_experts)
+    row_adapter = None
+    if lora is not None and token_ads is not None:
+        row_adapter = torch.where(slot_tok < T,
+                                  token_ads[slot_tok.clamp(max=T - 1)],
+                                  -1).to(torch.int32)
+    y = expert_ffn(xe, wg, wu, wd, lora=lora, row_adapter=row_adapter,
+                   lora_scale=lora_scale)
+    return combine(y.reshape(-1, d), pair_slot, wts)

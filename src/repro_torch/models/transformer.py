@@ -1,16 +1,106 @@
-"""Chunked prefill of the slot engine, the counterpart of
-``repro.models.transformer.prefill_chunk`` for the moe family: plain torch
-operations, LoRA-free (under prefill/decode disaggregation prefill runs on
-LoRA-free instances, paper footnote 1)."""
+"""The slot engine's model steps for the moe family, the counterpart of
+``repro.models.transformer``: LoRA-free chunked prefill (under
+prefill/decode disaggregation prefill runs on LoRA-free instances, paper
+footnote 1) and the coupled (S-LoRA) decode step, which applies the
+adapters inside the model: q/k/v/o deltas through ``ops.bgmv`` and expert
+deltas through ``moe.moe_block``. Each decode layer writes its token's KV
+into a paged pool or a dense slab.
+"""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models import layers as ll
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.model import layer_params
 
 
+# ------------------------- LoRA helper (coupled) ------------------------ #
+def _delta(xf, lora_layer, name, ids_tok, scale):
+    """One target's per-row delta ops.bgmv(xf, A, B, ids) * scale in f32,
+    or None if the layer has no adapter for it."""
+    if lora_layer is None or name not in lora_layer:
+        return None
+    ab = lora_layer[name]
+    return ops.bgmv(xf, ab["A"], ab["B"], ids_tok) * scale
+
+
+# ------------------------------ decode ---------------------------------- #
+def attn_decode_slots(x, lp, cfg, positions, pos_vec, k_l, v_l, block_table,
+                      lora_layer=None, ids_tok=None, lora_scale=1.0):
+    """The attention half of one decode layer: rms_norm -> q/k/v (+ their
+    deltas) -> RoPE -> this token's KV write + attention -> out projection
+    (+ its delta) -> residual. x: (B, 1, d); k_l/v_l: one layer's paged
+    pool (P, page_size, KV, hd) when ``block_table`` (B, nb) is given, else
+    its dense rows (B, S, KV, hd); both are written in place.
+
+    Deltas round where the reference rounds: each is cast to its target's
+    dtype before the add."""
+    B = x.shape[0]
+    h = ll.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = ll.qkv_project(h, lp["attn"], cfg)
+    if lora_layer is not None:
+        xf = h.reshape(B, -1)
+        qkv = []
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            dlt = _delta(xf, lora_layer, name, ids_tok, lora_scale)
+            qkv.append(t if dlt is None else
+                       t + dlt.reshape(t.shape).to(t.dtype))
+        q, k, v = qkv
+    q = ll.apply_rope(q, positions, cfg.rope_theta)
+    k = ll.apply_rope(k, positions, cfg.rope_theta)
+    if block_table is None:
+        att, _, _ = ll.decode_attention_update_slots(
+            q[:, 0], k[:, 0], v[:, 0], k_l, v_l, pos_vec,
+            window=cfg.sliding_window)
+    else:
+        att, _, _ = ll.decode_attention_update_slots_paged(
+            q[:, 0], k[:, 0], v[:, 0], k_l, v_l, block_table, pos_vec,
+            window=cfg.sliding_window)
+    att = att[:, None]                                      # (B, 1, H, hd)
+    y = ll.out_project(att, lp["attn"])
+    dlt = _delta(att.reshape(B, -1), lora_layer, "o", ids_tok, lora_scale)
+    if dlt is not None:
+        y = y + dlt.reshape(y.shape).to(y.dtype)
+    return x + y
+
+
+def decode_step_slots(params, cfg, k_cache, v_cache, tokens, pos_vec,
+                      lora_ctx=None, *, block_table=None):
+    """One coupled decode token for a batch of engine slots.
+
+    tokens: (B, 1); pos_vec: (B,) int32 position of this token per slot
+    (-1 = inactive row: no cache write, garbage logits); k_cache/v_cache:
+    paged pools (L, n_pages, page_size, KV, hd) with ``block_table``
+    (B, nb), or dense rows (L, B, S, KV, hd) without; written in place.
+    ``lora_ctx`` (``AdapterPool.lora_ctx``): adapter stacks, per-row int32
+    ids (-1 = no delta) and the scale. Returns (logits (B, Vp) f32,
+    k_cache, v_cache)."""
+    if cfg.family != "moe":
+        raise ValueError(f"the port's decode serves moe, not {cfg.family}")
+    # the pool's layer-stacked factors {target: {A, B}}; a port pool holds
+    # only the MoE family's targets, so none needs filtering out
+    stack = lora_ctx["adapters"] if lora_ctx is not None else None
+    ids_tok = lora_ctx["ids"] if lora_ctx is not None else None
+    scale = lora_ctx["scale"] if lora_ctx is not None else 1.0
+    x = ll.embed(tokens, params["embed"])
+    positions = pos_vec.clamp_min(0)[:, None]
+    for l in range(cfg.n_layers):
+        lp = layer_params(params["layers"], l)
+        lora_layer = layer_params(stack, l) if stack is not None else None
+        x = attn_decode_slots(x, lp, cfg, positions, pos_vec, k_cache[l],
+                              v_cache[l], block_table, lora_layer, ids_tok,
+                              scale)
+        h = ll.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + moe_mod.moe_block(h, lp["moe"], cfg, lora=lora_layer,
+                                  ids_tok=ids_tok, lora_scale=scale)
+    x = ll.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = ll.unembed(x, params.get("lm_head", params["embed"]))
+    return logits[:, 0], k_cache, v_cache
+
+
+# ------------------------------ prefill --------------------------------- #
 def prefill_chunk(params, cfg, tokens, k_ctx, v_ctx):
     """One prefill chunk attending over the previously cached KV.
 
@@ -41,5 +131,5 @@ def prefill_chunk(params, cfg, tokens, k_ctx, v_ctx):
         vs.append(v)
         if l + 1 < cfg.n_layers:
             h = ll.rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + moe_mod.moe_local(h, lp["moe"], cfg)
+            x = x + moe_mod.moe_block(h, lp["moe"], cfg)
     return torch.stack(ks), torch.stack(vs)

@@ -1,14 +1,22 @@
-"""Paged slot engine for disaggregated multi-LoRA decode, the counterpart
-of ``repro.serving.engine.Engine`` with ``EngineConfig(paged=True)`` and a
-LoRA server on the host transport.
+"""Slot engine for multi-LoRA decode, the counterpart of
+``repro.serving.engine.Engine`` on the host transport, in both adapter
+planes and both KV layouts:
+
+  disaggregated : ``server`` given; the model stays LoRA-free and the LoRA
+                  Server computes the MoE hooks' deltas
+  coupled       : ``server=None``; the adapters of a static ``pool`` are
+                  applied inside the model (the S-LoRA baseline)
+  paged         : one pool of pages shared by all slots, pages allocated
+                  as positions are written and freed at eviction
+  dense         : ``EngineConfig(paged=False)``; a slab of max_len rows per
+                  slot, gathered into the step's rows and scattered back
 
 The engine owns ``n_slots`` persistent decode slots. A request is admitted
 into a free slot at a step boundary: its prompt, all but the last token,
 runs through fixed-width LoRA-free prefill chunks whose KV goes straight
-into pages of the shared pool. ``step()`` decodes one token for every
-occupied slot: occupied slots are packed into a power-of-two bucket,
-padding rows run with position -1 and adapter -1, and each row's next page
-is allocated on demand. Evicting a request returns its pages to the pool.
+into the slot's pages or rows. ``step()`` decodes one token for every
+occupied slot: occupied slots are packed into a power-of-two bucket and
+padding rows run with position -1 and adapter -1.
 """
 from __future__ import annotations
 
@@ -36,8 +44,10 @@ def _bucket(n: int, cap: int) -> int:
 class EngineConfig:
     max_len: int = 256
     n_slots: int = 8
+    # the port's default layout is paged (the reference's is dense)
+    paged: bool = True
     page_size: int = 8
-    prefill_chunk: int = 16        # rounded up to a page multiple
+    prefill_chunk: int = 16        # rounded up to a page multiple when paged
 
 
 @dataclasses.dataclass
@@ -49,34 +59,43 @@ class SlotState:
 
 
 class Engine:
-    """Paged, disaggregated slot engine; ``server`` satisfies the LoRA
-    Server's ``compute`` contract and ``lora_scale`` multiplies its deltas
-    (an AdapterPool's ``scale``)."""
+    """Slot engine. Disaggregated when ``server`` (the LoRA Server's
+    ``compute`` contract) is given, its deltas multiplied by
+    ``lora_scale`` (an AdapterPool's ``scale``). Coupled otherwise, with
+    the adapters of ``pool`` (an AdapterPool; None serves the base
+    model)."""
 
-    def __init__(self, cfg, params, ecfg: EngineConfig, server,
-                 lora_scale: float = 1.0, device=None):
+    def __init__(self, cfg, params, ecfg: EngineConfig, server=None,
+                 lora_scale: float = 1.0, device=None, pool=None):
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg
         self.server = server
+        self.pool = pool
         self.lora_scale = float(lora_scale)
         self.device = resolve_device(device)
-        ps = int(ecfg.page_size)
-        if ps < 1 or ecfg.max_len % ps:
-            raise ValueError(f"page_size ({ps}) must divide max_len "
-                             f"({ecfg.max_len})")
         self.slots: List[Optional[SlotState]] = [None] * ecfg.n_slots
         self._by_rid: Dict[int, int] = {}
-        chunk = -(-max(int(ecfg.prefill_chunk), 1) // ps) * ps
+        chunk = max(int(ecfg.prefill_chunk), 1)
+        if ecfg.paged:
+            ps = int(ecfg.page_size)
+            if ps < 1 or ecfg.max_len % ps:
+                raise ValueError(f"page_size ({ps}) must divide max_len "
+                                 f"({ecfg.max_len})")
+            chunk = -(-chunk // ps) * ps
+            self.blocks_per_slot = ecfg.max_len // ps
+            self.total_pages = ecfg.n_slots * self.blocks_per_slot
+            self._bt = np.full((ecfg.n_slots, self.blocks_per_slot), -1,
+                               np.int32)
+            self._free: List[int] = list(range(self.total_pages - 1, -1, -1))
+            self.peak_pages = 0
+            kv = cache_mod.init_paged_cache(cfg, self.total_pages, ps,
+                                            device=self.device)
+        else:
+            kv = cache_mod.init_cache(cfg, ecfg.n_slots, ecfg.max_len,
+                                      device=self.device)
         self._chunk = min(chunk, ecfg.max_len)
-        self.blocks_per_slot = ecfg.max_len // ps
-        self.total_pages = ecfg.n_slots * self.blocks_per_slot
-        self._bt = np.full((ecfg.n_slots, self.blocks_per_slot), -1, np.int32)
-        self._free: List[int] = list(range(self.total_pages - 1, -1, -1))
-        self.peak_pages = 0
-        pool = cache_mod.init_paged_cache(cfg, self.total_pages, ps,
-                                          device=self.device)
-        self._k, self._v = pool["k"], pool["v"]
+        self._k, self._v = kv["k"], kv["v"]
 
     # ----------------------- slot bookkeeping ----------------------- #
     @property
@@ -90,21 +109,22 @@ class Engine:
         return [s.rid for s in self.slots if s is not None]
 
     def kv_stats(self) -> Dict[str, int]:
-        """Slot and page occupancy, and the pool's bytes against the dense
-        slab it replaces."""
-        ps = self.ecfg.page_size
-        return {
+        """Slot occupancy, the dense slab's bytes and, when paged, the
+        page pool's occupancy and bytes."""
+        out = {
             "n_slots": self.n_slots,
             "slots_in_use": self.n_slots - self.free_slots(),
             "dense_slab_bytes": cache_mod.dense_cache_bytes(
                 self.cfg, self.n_slots, self.ecfg.max_len),
-            "page_size": ps,
-            "n_pages": self.total_pages,
-            "pages_in_use": self.total_pages - len(self._free),
-            "peak_pages": self.peak_pages,
-            "pool_bytes": cache_mod.paged_cache_bytes(
-                self.cfg, self.total_pages, ps),
         }
+        if self.ecfg.paged:
+            ps = self.ecfg.page_size
+            out.update(page_size=ps, n_pages=self.total_pages,
+                       pages_in_use=self.total_pages - len(self._free),
+                       peak_pages=self.peak_pages,
+                       pool_bytes=cache_mod.paged_cache_bytes(
+                           self.cfg, self.total_pages, ps))
+        return out
 
     def _alloc_page(self) -> int:
         p = self._free.pop()
@@ -116,7 +136,8 @@ class Engine:
     def add_request(self, rid: int, prompt: Sequence[int],
                     adapter_id: int) -> int:
         """Admit a request into a free slot: allocate the pages of its
-        prompt and prime them by chunked prefill. Returns the slot."""
+        prompt (paged) and prime its KV by chunked prefill. Returns the
+        slot."""
         if rid in self._by_rid:
             raise ValueError(f"rid {rid} already running")
         slot = next((i for i, s in enumerate(self.slots) if s is None), None)
@@ -127,13 +148,14 @@ class Engine:
         if plen < 1 or plen > self.ecfg.max_len:
             raise ValueError(f"prompt length {plen} vs max_len "
                              f"{self.ecfg.max_len}")
-        need = cache_mod.pages_for(plen - 1, self.ecfg.page_size)
-        if need > len(self._free):
-            raise RuntimeError(
-                f"rid {rid}: free KV pages ({len(self._free)}) do not cover "
-                f"the prompt ({need} pages)")
-        for j in range(need):
-            self._bt[slot, j] = self._alloc_page()
+        if self.ecfg.paged:
+            need = cache_mod.pages_for(plen - 1, self.ecfg.page_size)
+            if need > len(self._free):
+                raise RuntimeError(
+                    f"rid {rid}: free KV pages ({len(self._free)}) do not "
+                    f"cover the prompt ({need} pages)")
+            for j in range(need):
+                self._bt[slot, j] = self._alloc_page()
         if plen > 1:
             self._prefill_slot(slot, prompt[:-1])
         self.slots[slot] = SlotState(rid=rid, adapter_id=int(adapter_id),
@@ -142,9 +164,10 @@ class Engine:
         return slot
 
     def _prefill_slot(self, slot: int, toks: np.ndarray) -> None:
-        """Chunked prefill of ``toks`` into the slot's pages. The last chunk
-        is zero-padded; its padded positions lie past the slot's position,
-        so every attention masks them until decode overwrites them."""
+        """Chunked prefill of ``toks`` into the slot's pages or rows. The
+        last chunk is zero-padded; its padded positions lie past the slot's
+        position, so every attention masks them until decode overwrites
+        them."""
         n_tok = int(toks.shape[0])
         C, ps = self._chunk, self.ecfg.page_size
         L, _, _, KV, hd = self._k.shape
@@ -154,13 +177,21 @@ class Engine:
             chunk = np.zeros((1, w), np.int64)
             m = min(w, n_tok - c)
             chunk[0, :m] = toks[c:c + m]
-            ctx = torch.as_tensor(self._bt[slot, : c // ps], dtype=torch.long,
-                                  device=dev)
-            k_ctx = self._k[:, ctx].reshape(L, 1, -1, KV, hd)
-            v_ctx = self._v[:, ctx].reshape(L, 1, -1, KV, hd)
+            if self.ecfg.paged:
+                ctx = torch.as_tensor(self._bt[slot, : c // ps],
+                                      dtype=torch.long, device=dev)
+                k_ctx = self._k[:, ctx].reshape(L, 1, -1, KV, hd)
+                v_ctx = self._v[:, ctx].reshape(L, 1, -1, KV, hd)
+            else:
+                k_ctx = self._k[:, slot:slot + 1, :c]
+                v_ctx = self._v[:, slot:slot + 1, :c]
             k_c, v_c = transformer.prefill_chunk(
                 self.params, self.cfg, torch.as_tensor(chunk, device=dev),
                 k_ctx, v_ctx)
+            if not self.ecfg.paged:
+                self._k[:, slot, c:c + w] = k_c[:, 0].to(self._k.dtype)
+                self._v[:, slot, c:c + w] = v_c[:, 0].to(self._v.dtype)
+                continue
             # the chunk's pages; unallocated ones (a padded tail) are skipped
             have = self._bt[slot, c // ps: c // ps + w // ps]
             keep = np.nonzero(have >= 0)[0]
@@ -171,15 +202,22 @@ class Engine:
                     .to(pool.dtype)
 
     def evict_request(self, rid: int) -> None:
-        """Free a slot at a step boundary; its pages return to the pool."""
+        """Free a slot at a step boundary. Paged: its pages return to the
+        pool. Dense: its rows stay; a later occupant masks them by its own
+        position."""
         slot = self._by_rid.pop(rid)
         self.slots[slot] = None
-        self._free.extend(int(p) for p in self._bt[slot] if p >= 0)
-        self._bt[slot, :] = -1
+        if self.ecfg.paged:
+            self._free.extend(int(p) for p in self._bt[slot] if p >= 0)
+            self._bt[slot, :] = -1
 
     # ---------------------------- decode ----------------------------- #
     def step(self) -> Dict[int, int]:
-        """Decode one token for every occupied slot; returns {rid: token}."""
+        """Decode one token for every occupied slot; returns {rid: token}.
+        Paged: each row's next page is allocated on demand and the step
+        reads and writes the shared pool. Dense: the occupied slots' rows
+        are gathered into the bucket (padding rows repeat slot 0 and write
+        nothing) and the occupied ones scattered back."""
         occupied = [i for i, s in enumerate(self.slots) if s is not None]
         if not occupied:
             return {}
@@ -195,22 +233,42 @@ class Engine:
                 raise RuntimeError(
                     f"rid {s.rid} exhausted slot KV capacity "
                     f"(pos {s.pos} >= max_len {self.ecfg.max_len})")
-            pidx = s.pos // self.ecfg.page_size
-            if self._bt[i, pidx] < 0:
-                if not self._free:
-                    raise RuntimeError(
-                        f"rid {s.rid}: KV page pool exhausted mid-decode")
-                self._bt[i, pidx] = self._alloc_page()
+            if self.ecfg.paged:
+                pidx = s.pos // self.ecfg.page_size
+                if self._bt[i, pidx] < 0:
+                    if not self._free:
+                        raise RuntimeError(
+                            f"rid {s.rid}: KV page pool exhausted mid-decode")
+                    self._bt[i, pidx] = self._alloc_page()
             toks[row, 0] = s.last_token
             pos_vec[row] = s.pos
             ads[row] = s.adapter_id
         dev = self.device
-        logits, self._k, self._v = disagg_mod.disagg_decode_step_slots(
-            self.params, self.cfg, self._k, self._v,
-            torch.as_tensor(toks, device=dev),
-            torch.as_tensor(pos_vec, device=dev), self.server,
-            torch.as_tensor(ads, device=dev), self.lora_scale,
-            block_table=torch.as_tensor(self._bt[sel], device=dev))
+        toks_t = torch.as_tensor(toks, device=dev)
+        pos_t = torch.as_tensor(pos_vec, device=dev)
+        ads_t = torch.as_tensor(ads, device=dev)
+        if self.ecfg.paged:
+            k, v = self._k, self._v
+            bt = torch.as_tensor(self._bt[sel], device=dev)
+        else:
+            sel_t = torch.as_tensor(sel, device=dev)
+            k, v = self._k[:, sel_t], self._v[:, sel_t]
+            bt = None
+        if self.server is not None:
+            logits, k, v = disagg_mod.disagg_decode_step_slots(
+                self.params, self.cfg, k, v, toks_t, pos_t, self.server,
+                ads_t, self.lora_scale, block_table=bt)
+        else:
+            lora_ctx = (self.pool.lora_ctx(ads_t) if self.pool is not None
+                        else None)
+            logits, k, v = transformer.decode_step_slots(
+                self.params, self.cfg, k, v, toks_t, pos_t, lora_ctx,
+                block_table=bt)
+        if not self.ecfg.paged:
+            # padding rows sit past the occupied ones: they are not written
+            occ = sel_t[: len(occupied)]
+            self._k[:, occ] = k[:, : len(occupied)]
+            self._v[:, occ] = v[:, : len(occupied)]
         tok = torch.argmax(logits[:, : self.cfg.vocab_size], dim=-1).tolist()
         out: Dict[int, int] = {}
         for row, i in enumerate(occupied):
