@@ -26,7 +26,12 @@ port only. Phases, each of which fails the run with a non-zero exit:
    versions alone and compare the greedy tokens;
 4. paged == dense: the coupled plane at depth 2 over the paged pool and
    over the dense slab in lock step (the dense layout's attention is plain
-   torch), holding each step's logits together.
+   torch), holding each step's logits together;
+5. the LoRA-kernel path (``repro_torch.launch.kernels.run``) at full width
+   with its counters set to 0 just before: its invariants, its launch
+   counts, each of its kernels held against its plain twin on the same
+   bf16 inputs and timed beside its twin, its bound and, for ``gmm``, one
+   ``torch.bmm`` over all experts.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -46,6 +51,7 @@ BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core peak
 PAGED_TOL = 1e-4               # f32 accumulation order, bf16 inputs
 HOOK_TOL = 1e-4
 BGMV_TOL = 1e-4
+LORA_TOL = 1e-4                # the LoRA-kernel path: the same reason
 # decode logits, kernels vs plain versions on the same state. The kernels
 # sum in another order, which flips single bf16 roundings of activations
 # (2^-8 relative) on their way through 4 layers: a step differs by ~1e-3.
@@ -268,6 +274,116 @@ def bgmv_phase(torch, bgmv, ref, flush):
         print(f"bgmv {tgt}: err {err:.3g} kernel {ms:.4f} ms plain "
               f"{plain:.4f} ms bound {b_ms:.4f} ms ({b_by})", flush=True)
     return out
+
+
+# ------------------------------ phase 5 ------------------------------ #
+# name in the kernels line -> (path cases timed together, source, replaces)
+LORA_ROWS = {
+    "bgmv_ranked": (("bgmv_ranked",), "src/repro_torch/csrc/bgmv.cu",
+                    "src/repro/kernels/bgmv.py:92"),
+    "sgmv": (("sgmv",), "src/repro_torch/csrc/sgmv.cu",
+             "src/repro/kernels/sgmv.py:65"),
+    "sgmv_ranked": (("sgmv_ranked",), "src/repro_torch/csrc/sgmv.cu",
+                    "src/repro/kernels/sgmv.py:89"),
+    "fused_sgmv": (("fused_sgmv",), "src/repro_torch/csrc/sgmv.cu",
+                   "src/repro/kernels/fused.py:54"),
+    "fused_sgmv_ranked": (("fused_sgmv_ranked",),
+                          "src/repro_torch/csrc/sgmv.cu",
+                          "src/repro/kernels/fused.py:108"),
+    "gmm": (("gmm_gate", "gmm_up", "gmm_down"), "src/repro_torch/csrc/gmm.cu",
+            "src/repro/kernels/gmm.py:40"),
+}
+
+
+def lora_path_phase(torch, ops, ref, counters, flush):
+    """The LoRA-kernel path once, counted; then each of its calls held
+    against its twin on the same inputs and timed."""
+    from repro_torch.launch import kernels as path
+
+    for fn in counters.values():
+        fn.launches = 0
+    res = path.run(device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print("lora-kernel path: " + json.dumps({
+        "counts": res["counts"], "launches": launches,
+        "expected_launches": res["expected_launches"]}), flush=True)
+    for name, n in launches.items():
+        want = res["expected_launches"].get(name, 0)
+        check(n == want, f"lora-kernel path: {name} launched {n} times, "
+              f"not {want}")
+    for inv in res["invariants"]:
+        print("invariant: " + json.dumps(inv), flush=True)
+        check(inv["ok"], f"lora-kernel path: {inv['name']}: {inv['value']} "
+              f"against {inv['tol']}")
+    cases = {}
+    for case, (op, args, work) in res["cases"].items():
+        got = res["outputs"][case]
+        want = getattr(ref, f"{op}_ref")(*args)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(bool(torch.isfinite(got).all()), f"{case}: non-finite output")
+        check(err <= LORA_TOL, f"{case}: max abs err {err} > {LORA_TOL}")
+        row = {"op": op, "max_abs_err": err,
+               "max_abs_out": want.abs().max().item(),
+               "shapes": [list(a.shape) for a in args
+                          if isinstance(a, torch.Tensor)]}
+        del want
+        if work is not None:   # bgmv_expert is timed at the hooks' shapes
+            row["bound_ms"], row["bound_by"] = bound_ms(work.bytes,
+                                                        work.operations)
+            row["ms"] = cuda_ms(torch, lambda o=op, a=args:
+                                getattr(ops, o)(*a), flush)
+            row["plain_ms"] = cuda_ms(torch, lambda o=op, a=args: getattr(
+                ref, f"{o}_ref")(*a), flush)
+            row["work"] = dataclasses.asdict(work)
+            if op == "gmm":
+                xe, w, _ = args
+                row["library_ms"] = cuda_ms(
+                    torch, lambda a=xe, b=w: torch.bmm(a, b), flush)
+            print(f"{case}: err {err:.3g} (|out| <= {row['max_abs_out']:.3g})"
+                  f" kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms"
+                  f" bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+                  + (f" bmm {row['library_ms']:.4f} ms" if op == "gmm"
+                     else ""), flush=True)
+        else:
+            print(f"{case}: err {err:.3g} (|out| <= "
+                  f"{row['max_abs_out']:.3g})", flush=True)
+        cases[case] = row
+    counts = res["counts"]
+    del res
+    torch.cuda.empty_cache()
+    return launches, cases, counts
+
+
+def lora_rows(lora, plane_launches):
+    """Rows 4-9 of the kernels line."""
+    launches, cases, counts = lora
+    rows = []
+    for name, (parts, source, replaces) in LORA_ROWS.items():
+        got = [cases[c] for c in parts]
+        row = dict(name=name, route="cuda", source=source, replaces=replaces,
+                   launches=launches[name], launches_by_plane={
+                       **{p: n[name] for p, n in plane_launches.items()},
+                       "lora_kernels": launches[name]},
+                   max_abs_err=max(c["max_abs_err"] for c in got),
+                   ms=sum(c["ms"] for c in got),
+                   plain_ms=sum(c["plain_ms"] for c in got),
+                   bound_ms=sum(c["bound_ms"] for c in got),
+                   bound_by="bytes" if all(c["bound_by"] == "bytes"
+                                           for c in got) else "operations",
+                   library_ms=(sum(c["library_ms"] for c in got)
+                               if name == "gmm" else None),
+                   calls={c: cases[c] for c in parts})
+        if name == "bgmv_ranked":   # padded bgmv at the same shape
+            row["padded"] = cases["bgmv"]
+        if name == "sgmv":
+            row["rank_grouped"] = dict(cases["sgmv_rank_grouped"],
+                                       launches=counts["rank_buckets"])
+        if name == "fused_sgmv":
+            row["cross_check"] = cases["fused_sgmv_down"]
+        rows.append(row)
+    return rows
 
 
 # ------------------------------ phase 3 ------------------------------ #
@@ -493,7 +609,7 @@ def paged_vs_dense(torch, transformer, cfg, engines, requests, traffic):
     return out
 
 
-def main_paths(torch, ops, paged, bgmv, ref):
+def main_paths(torch, ops, paged, bgmv, ref, counters):
     from repro_torch.core import disagg
     from repro_torch.launch import serve
     from repro_torch.models import transformer
@@ -510,15 +626,15 @@ def main_paths(torch, ops, paged, bgmv, ref):
           f"layers={cfg.n_layers} vocab={cfg.vocab_size}; prompts "
           f"{[len(p) for _, p, _ in requests]}; weights+server "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
-    counters = {"paged_attention": paged.paged_attention,
-                "bgmv_expert": bgmv.bgmv_expert, "bgmv": bgmv.bgmv}
+    off = {name: 0 for name in counters
+           if name not in ("paged_attention", "bgmv_expert", "bgmv")}
 
     # the disaggregated plane (slice 1): attention + two server hooks
     d_launch, d_res, d_prof = serve_path(
         torch, ops, ref, counters, cfg,
         lambda: Engine(cfg, params, ecfg, device="cuda", **lora), requests,
         traffic, disagg, "disagg_decode_step_slots",
-        {"paged_attention": 1, "bgmv_expert": 2, "bgmv": 0})
+        {"paged_attention": 1, "bgmv_expert": 2, "bgmv": 0, **off})
     del lora
 
     # the coupled plane: q/k/v/o deltas (bgmv) and three expert deltas
@@ -528,7 +644,7 @@ def main_paths(torch, ops, paged, bgmv, ref):
         torch, ops, ref, counters, cfg,
         lambda: Engine(cfg, params, ecfg, device="cuda", pool=pool),
         requests, traffic, transformer, "decode_step_slots",
-        {"paged_attention": 1, "bgmv_expert": 3, "bgmv": 4})
+        {"paged_attention": 1, "bgmv_expert": 3, "bgmv": 4, **off})
     print("coupled vs disagg (same traffic, same card): " + json.dumps({
         "decode_ms_per_step": {"coupled": c_res["decode_ms_per_step"],
                                "disagg": d_res["decode_ms_per_step"]},
@@ -565,7 +681,8 @@ def main() -> int:
         return 2
     root = pathlib.Path(__file__).resolve().parent
     sys.path.insert(0, str(root / "src"))
-    from repro_torch.kernels import bgmv, build, ops, paged, ref
+    from repro_torch.kernels import bgmv, build, fused, gmm, ops, paged, ref
+    from repro_torch.kernels import sgmv
     from repro_torch.obs.clock import wall_time
 
     # the plain versions contract in f32: keep them IEEE f32, not TF32
@@ -587,14 +704,23 @@ def main() -> int:
     pa = paged_phase(torch, paged, ref, flush)
     hk = hook_phase(torch, bgmv, ref, flush)
     bg = bgmv_phase(torch, bgmv, ref, flush)
-    launches = main_paths(torch, ops, paged, bgmv, ref)
+    counters = {"paged_attention": paged.paged_attention,
+                "bgmv_expert": bgmv.bgmv_expert, "bgmv": bgmv.bgmv,
+                "bgmv_ranked": bgmv.bgmv_ranked, "sgmv": sgmv.sgmv,
+                "sgmv_ranked": sgmv.sgmv_ranked,
+                "fused_sgmv": fused.fused_sgmv,
+                "fused_sgmv_ranked": fused.fused_sgmv_ranked, "gmm": gmm.gmm}
+    lora = lora_path_phase(torch, ops, ref, counters, flush)
+    launches = main_paths(torch, ops, paged, bgmv, ref, counters)
 
-    # "launches": this slice's main path (the coupled plane); each plane's
-    # counted run in "launches_by_plane"
+    # "launches": the coupled plane's decode for rows 1-3, the LoRA-kernel
+    # path's run for rows 4-9; each path's counted run in
+    # "launches_by_plane"
     def launch_counts(name):
         return {"launches": launches["coupled"][name],
-                "launches_by_plane": {p: n[name]
-                                      for p, n in launches.items()}}
+                "launches_by_plane": {**{p: n[name]
+                                         for p, n in launches.items()},
+                                      "lora_kernels": lora[0][name]}}
 
     up, dn = hk["up"], hk["down"]
     kernels = [
@@ -624,6 +750,7 @@ def main() -> int:
                                      for t in bg.values()) else "operations",
              library_ms=None, per_layer="q + k + v + o deltas",
              targets=bg),
+        *lora_rows(lora, launches),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

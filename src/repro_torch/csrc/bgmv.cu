@@ -2,15 +2,18 @@
 // (S-LoRA) plane's attention-projection LoRA (q, k, v, o), bound through a
 // plain C interface (kernels/bgmv.py loads it with ctypes).
 //
-// Replaces the TPU kernel src/repro/kernels/bgmv.py::bgmv (the contract of
-// src/repro/core/lora_math.py::bgmv):
+// Replaces the TPU kernels src/repro/kernels/bgmv.py::bgmv (the contract of
+// src/repro/core/lora_math.py::bgmv) and, with a ranks pointer,
+// src/repro/kernels/bgmv.py::bgmv_ranked:
 //
 //   h      = x[t] . A[ids[t]]                          (f32, width r)
+//   h[c]   = 0 where c >= ranks[ids[t]]                (ranked form only)
 //   out[t] = h . B[ids[t]]                             (f32, width d_out)
 //   out[t] = 0 where ids[t] < 0, and such a row reads no factor
 //
 //   x (T, d_in) | A (N, d_in, r) | B (N, r, d_out) | ids (T,) int32
-//   -> out (T, d_out) f32; part (T, S, r) f32 is the wrapper's scratch
+//   | ranks (N,) int32 or null -> out (T, d_out) f32; part (T, S, r) f32 is
+//   the wrapper's scratch
 //
 // What bounds it: bytes, and at decode the launch. An active row reads its
 // adapter's (d_in x r) A and (r x d_out) B and does 2 operations per factor
@@ -36,6 +39,13 @@
 // A row with ids < 0 returns at once in the shrink and writes its zeros in
 // the expand. Adapter ids past N - 1 are clamped, as the reference's gather
 // clamps them.
+// Ranked form: a thread whose column group starts at or past the row's rank
+// reads no A (its partial sum stays 0), the expand masks h at c >= rank and
+// reads only B's first rank rows. Every sum keeps the padded form's order,
+// so on a pool whose columns past each adapter's rank are zero (the
+// prefix-zero contract) ranked and padded give the same values bit for bit;
+// only the skipped reads differ (at rank 4 of 64 in bf16 an A row is still
+// read as one 32-byte sector, a quarter of its 128 bytes).
 
 #include "vec.cuh"
 
@@ -50,8 +60,8 @@ constexpr int kWarps = kThreads / 32;
 template <typename TX, typename TW>
 __global__ void __launch_bounds__(kThreads) bgmv_shrink_kernel(
     const TX* __restrict__ x, const TW* __restrict__ A,
-    const int* __restrict__ ids, float* __restrict__ part, int N, int d_in,
-    int r, int chunk) {
+    const int* __restrict__ ids, const int* __restrict__ ranks,
+    float* __restrict__ part, int N, int d_in, int r, int chunk) {
   constexpr int VEC = Vec<TW>::N;
   const int t = blockIdx.x, s = blockIdx.y, S = gridDim.y;
   int slot = ids[t];
@@ -61,7 +71,8 @@ __global__ void __launch_bounds__(kThreads) bgmv_shrink_kernel(
   const int groups = r / VEC;
   const int c0 = (tid % groups) * VEC;
   const int stride = kThreads / groups;
-  const int d_end = min(d_in, (s + 1) * chunk);
+  const int rank = ranks ? ranks[slot] : r;
+  const int d_end = c0 < rank ? min(d_in, (s + 1) * chunk) : 0;
   const TW* a = A + (size_t)slot * d_in * r + c0;
   const TX* xr = x + (size_t)t * d_in;
   float acc[VEC];
@@ -90,8 +101,8 @@ __global__ void __launch_bounds__(kThreads) bgmv_shrink_kernel(
 template <typename TW>
 __global__ void __launch_bounds__(kThreads) bgmv_expand_kernel(
     const TW* __restrict__ Bm, const int* __restrict__ ids,
-    const float* __restrict__ part, float* __restrict__ out, int N, int r,
-    int d_out, int S) {
+    const int* __restrict__ ranks, const float* __restrict__ part,
+    float* __restrict__ out, int N, int r, int d_out, int S) {
   constexpr int VEC = Vec<TW>::N;
   constexpr int kTile = 32 * VEC;
   const int t = blockIdx.x;
@@ -105,6 +116,7 @@ __global__ void __launch_bounds__(kThreads) bgmv_expand_kernel(
     return;
   }
   slot = min(slot, N - 1);
+  const int rank = ranks ? min(max(ranks[slot], 0), r) : r;
 
   extern __shared__ float smem[];
   float* h_s = smem;       // r
@@ -113,7 +125,7 @@ __global__ void __launch_bounds__(kThreads) bgmv_expand_kernel(
   for (int c = tid; c < r; c += kThreads) {
     float h = 0.f;
     for (int s = 0; s < S; ++s) h += p[(size_t)s * r + c];
-    h_s[c] = h;
+    h_s[c] = c < rank ? h : 0.f;
   }
   __syncthreads();
 
@@ -124,7 +136,7 @@ __global__ void __launch_bounds__(kThreads) bgmv_expand_kernel(
   // d_out is a multiple of VEC, so a lane's vector lies wholly inside d_out
   if (lane * VEC < width) {
     const TW* b = Bm + (size_t)slot * r * d_out + tile0 + lane * VEC;
-    for (int c = warp; c < r; c += kWarps) {
+    for (int c = warp; c < rank; c += kWarps) {
       float bv[VEC];
       Vec<TW>::load(b + (size_t)c * d_out, bv);
       const float hc = h_s[c];
@@ -145,13 +157,13 @@ __global__ void __launch_bounds__(kThreads) bgmv_expand_kernel(
 
 template <typename TX, typename TW>
 int launch(const void* x, const void* A, const void* B, const int* ids,
-           float* part, float* out, int T, int N, int d_in, int r, int d_out,
-           int S, cudaStream_t stream) {
+           const int* ranks, float* part, float* out, int T, int N, int d_in,
+           int r, int d_out, int S, cudaStream_t stream) {
   constexpr int VEC = Vec<TW>::N;
   const int chunk = (d_in + S - 1) / S;
   bgmv_shrink_kernel<TX, TW><<<dim3(T, S), kThreads, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TW*>(A), ids, part, N,
-      d_in, r, chunk);
+      static_cast<const TX*>(x), static_cast<const TW*>(A), ids, ranks, part,
+      N, d_in, r, chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int tiles = (d_out + 32 * VEC - 1) / (32 * VEC);
@@ -161,7 +173,7 @@ int launch(const void* x, const void* A, const void* B, const int* ids,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(T, tiles), kThreads, smem, stream>>>(
-      static_cast<const TW*>(B), ids, part, out, N, r, d_out, S);
+      static_cast<const TW*>(B), ids, ranks, part, out, N, r, d_out, S);
   return (int)cudaGetLastError();
 }
 
@@ -171,14 +183,17 @@ int launch(const void* x, const void* A, const void* B, const int* ids,
 // the d_in split from it.
 extern "C" int bgmv_threads() { return kThreads; }
 
-// dtype codes: 0 = float32, 1 = bfloat16. part holds T * S * r floats.
+// dtype codes: 0 = float32, 1 = bfloat16. part holds T * S * r floats;
+// ranks is null (padded) or N per-adapter true ranks (ranked).
 // Returns a cudaError_t (0 = ok).
 extern "C" int bgmv_launch(int x_dtype, int w_dtype, const void* x,
                            const void* A, const void* B, const int* ids,
-                           float* part, float* out, int T, int N, int d_in,
-                           int r, int d_out, int S, void* stream) {
+                           const int* ranks, float* part, float* out, int T,
+                           int N, int d_in, int r, int d_out, int S,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_BGMV_ARGS x, A, B, ids, part, out, T, N, d_in, r, d_out, S, st
+#define REPRO_BGMV_ARGS \
+  x, A, B, ids, ranks, part, out, T, N, d_in, r, d_out, S, st
   if (x_dtype == 0 && w_dtype == 0)
     return launch<float, float>(REPRO_BGMV_ARGS);
   if (x_dtype == 0 && w_dtype == 1)

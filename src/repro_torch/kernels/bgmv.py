@@ -7,6 +7,11 @@
   x (T, d_in) | A (N, d_in, r) | B (N, r, d_out) | ids (T,) int32
   -> (T, d_out) f32
 
+``bgmv_ranked`` ports ``repro.kernels.bgmv.bgmv_ranked`` through the same
+kernel (plain twin: ``ref.bgmv_ranked_ref``): h is zeroed at columns
+``>= ranks[ids[t]]``, ranks (N,) int32 per adapter, and the kernel skips
+those columns' factor reads.
+
 ``bgmv_expert`` ports ``repro.kernels.bgmv.bgmv_expert``, extended with the
 serving hook's true-rank mask (plain twin: ``ref.bgmv_expert_ref``); the
 LoRA Server's hooks and the coupled plane's expert deltas run through it.
@@ -42,15 +47,19 @@ def _lib(name: str, n_ptr: int, n_int: int):
     return lib
 
 
-def _check_factors(name, A, B, r: int, d_out: int, threads: int) -> None:
-    """What the kernels' 16-byte factor loads need."""
+def _check_factors(name, A, B, r: int, d_out: int,
+                   threads: Optional[int] = None) -> None:
+    """What the kernels' 16-byte factor loads need; with ``threads``, also
+    that the r / VEC column groups divide the block's threads (bgmv.cu and
+    bgmv_expert.cu split them so; sgmv.cu takes any group count)."""
     if A.dtype != B.dtype:
         raise TypeError(f"{name}: A and B differ in dtype")
     vec = VEC_BYTES // A.element_size()
     groups = r // vec if r % vec == 0 else 0
-    if not groups or threads % groups or d_out % vec:
+    if not groups or (threads and threads % groups) or d_out % vec:
         raise ValueError(f"{name}: r={r} and d_out={d_out} must be multiples "
-                         f"of {vec}, with r/{vec} dividing {threads}")
+                         f"of {vec}" + (f", with r/{vec} dividing {threads}"
+                                        if threads else ""))
     if A.data_ptr() % VEC_BYTES or B.data_ptr() % VEC_BYTES:
         raise ValueError(f"{name}: A and B must be 16-byte aligned")
 
@@ -63,11 +72,10 @@ def split_plan(T: int, d_in: int, stride: int) -> int:
     return max(1, min(want, -(-d_in // (2 * stride))))
 
 
-def bgmv(x, A, B, ids):
-    """Launch the CUDA kernel on CUDA tensors (see module docstring)."""
-    name = "bgmv"
-    dev = check_cuda(name, x, A, B, ids)
-    check_int32(name, ids)
+def _bgmv(name, x, A, B, ids, ranks: Optional[torch.Tensor]):
+    operands = [x, A, B, ids] + ([ranks] if ranks is not None else [])
+    dev = check_cuda(name, *operands)
+    check_int32(name, *operands[3:])
     if x.dim() != 2 or A.dim() != 3 or B.dim() != 3:
         raise ValueError(f"{name}: x (T,d_in), A (N,d_in,r), B (N,r,d_out)")
     T, d_in = x.shape
@@ -78,7 +86,9 @@ def bgmv(x, A, B, ids):
                          f"{tuple(A.shape)}, B {tuple(B.shape)} disagree")
     if tuple(ids.shape) != (T,):
         raise ValueError(f"{name}: ids must be (T,)")
-    lib = _lib(name, 6, 6)
+    if ranks is not None and tuple(ranks.shape) != (N,):
+        raise ValueError(f"{name}: ranks must be (N,), one per adapter")
+    lib = _lib("bgmv", 7, 6)
     threads = lib.bgmv_threads()
     _check_factors(name, A, B, r, d_out, threads)
     out = torch.empty((T, d_out), dtype=torch.float32, device=dev)
@@ -88,15 +98,35 @@ def bgmv(x, A, B, ids):
     part = torch.empty((T, splits, r), dtype=torch.float32, device=dev)
     err = lib.bgmv_launch(
         dtype_code(name, x), dtype_code(name, A), x.data_ptr(), A.data_ptr(),
-        B.data_ptr(), ids.data_ptr(), part.data_ptr(), out.data_ptr(),
-        T, N, d_in, r, d_out, splits,
+        B.data_ptr(), ids.data_ptr(),
+        ranks.data_ptr() if ranks is not None else None, part.data_ptr(),
+        out.data_ptr(), T, N, d_in, r, d_out, splits,
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(name, err)
-    bgmv.launches += 1
+    return out
+
+
+def bgmv(x, A, B, ids):
+    """Launch the CUDA kernel on CUDA tensors (see module docstring)."""
+    out = _bgmv("bgmv", x, A, B, ids, None)
+    if x.shape[0]:
+        bgmv.launches += 1
     return out
 
 
 bgmv.launches = 0
+
+
+def bgmv_ranked(x, A, B, ids, ranks):
+    """``bgmv`` bounded at each row's adapter true rank (``ranks`` (N,)
+    int32); launches the CUDA kernel on CUDA tensors."""
+    out = _bgmv("bgmv_ranked", x, A, B, ids, ranks)
+    if x.shape[0]:
+        bgmv_ranked.launches += 1
+    return out
+
+
+bgmv_ranked.launches = 0
 
 
 def bgmv_expert(x, A, B, ids, eids, ranks: Optional[torch.Tensor] = None,

@@ -9,8 +9,14 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import bgmv as _bgmv
+from repro_torch.kernels import fused as _fused
+from repro_torch.kernels import gmm as _gmm
 from repro_torch.kernels import paged as _paged
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import sgmv as _sgmv
+
+build_segments = _sgmv.build_segments
+build_segments_ranked = _sgmv.build_segments_ranked
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, pos, *, window: int = 0):
@@ -37,3 +43,59 @@ def bgmv_expert(x, A, B, ids, eids, ranks: Optional[torch.Tensor] = None,
     if x.device.type == "cpu":
         return _ref.bgmv_expert_ref(x, A, B, ids, eids, ranks, r_mod)
     return _bgmv.bgmv_expert(x, A, B, ids, eids, ranks, r_mod)
+
+
+def bgmv_ranked(x, A, B, ids, ranks):
+    """``bgmv`` bounded at each row's adapter true rank (``ranks`` (N,))."""
+    if x.device.type == "cpu":
+        return _ref.bgmv_ranked_ref(x, A, B, ids, ranks)
+    return _bgmv.bgmv_ranked(x, A, B, ids, ranks)
+
+
+def sgmv(seg_rows, seg_adapter, A, B):
+    """Segmented gather shrink-expand -> (S, cap, d_out) f32 (see
+    kernels/sgmv.py)."""
+    if seg_rows.device.type == "cpu":
+        return _ref.sgmv_ref(seg_rows, seg_adapter, A, B)
+    return _sgmv.sgmv(seg_rows, seg_adapter, A, B)
+
+
+def sgmv_ranked(seg_rows, seg_adapter, seg_rank, A, B):
+    """``sgmv`` with per-segment true ranks."""
+    if seg_rows.device.type == "cpu":
+        return _ref.sgmv_ranked_ref(seg_rows, seg_adapter, seg_rank, A, B)
+    return _sgmv.sgmv_ranked(seg_rows, seg_adapter, seg_rank, A, B)
+
+
+def sgmv_rank_grouped(seg_rows, seg_adapter, seg_rank, A, B):
+    """Rank-bucketed SGMV: one ``sgmv`` launch per distinct active rank
+    (feed it ``build_segments_ranked``'s layout)."""
+    if seg_rows.device.type == "cpu":
+        return _ref.sgmv_rank_grouped_ref(seg_rows, seg_adapter, seg_rank,
+                                          A, B)
+    return _sgmv.sgmv_rank_grouped(seg_rows, seg_adapter, seg_rank, A, B)
+
+
+def fused_sgmv(seg_rows, seg_slot, seg_eid, A, B):
+    """The fused server-hook operator over (slot, expert) segments, one
+    launch per call (see kernels/fused.py)."""
+    if seg_rows.device.type == "cpu":
+        return _ref.fused_sgmv_ref(seg_rows, seg_slot, seg_eid, A, B)
+    return _fused.fused_sgmv(seg_rows, seg_slot, seg_eid, A, B)
+
+
+def fused_sgmv_ranked(seg_rows, seg_slot, seg_eid, seg_rank, A, B):
+    """``fused_sgmv`` with per-segment true ranks."""
+    if seg_rows.device.type == "cpu":
+        return _ref.fused_sgmv_ranked_ref(seg_rows, seg_slot, seg_eid,
+                                          seg_rank, A, B)
+    return _fused.fused_sgmv_ranked(seg_rows, seg_slot, seg_eid, seg_rank,
+                                    A, B)
+
+
+def gmm(xe, w, group_sizes: Optional[torch.Tensor] = None):
+    """Grouped expert GEMM -> (E, C, f) f32, rows past group_sizes zero
+    (see kernels/gmm.py)."""
+    if xe.device.type == "cpu":
+        return _ref.gmm_ref(xe, w, group_sizes)
+    return _gmm.gmm(xe, w, group_sizes)

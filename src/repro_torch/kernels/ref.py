@@ -4,8 +4,10 @@ Each function computes what its CUDA kernel computes, on any device; the
 CPU runs them, and ``chip_smoke.py`` holds each kernel against them on the
 card. They mirror the reference's jnp oracles
 (``repro.kernels.ref.paged_attention_ref``, ``repro.core.lora_math.bgmv``
-and ``bgmv_expert``, and the body of
-``repro.core.lora_server.LoRAServer._step``), f32 inside.
+and ``bgmv_expert``, the body of ``repro.core.lora_server.LoRAServer._step``,
+and ``repro.kernels.ref``'s ``bgmv_ranked_ref``, ``sgmv_ref``,
+``sgmv_ranked_ref``, ``sgmv_rank_grouped_ref``, ``fused_sgmv_ref``,
+``fused_sgmv_ranked_ref`` and ``gmm_ref``), f32 inside.
 """
 from __future__ import annotations
 
@@ -103,3 +105,79 @@ def lora_hook_ref(rows, A, B, slots, eids, ranks, r_pool: int):
     fills the first k columns of each r_pool-wide block. Slots < 0 give 0."""
     return bgmv_expert_ref(rows, A, B, slots, eids, ranks=ranks,
                            r_mod=r_pool)
+
+
+def _rank_mask(h, ranks):
+    """h (..., r) with columns >= ranks (broadcast over the last axis)
+    forced to +0.0."""
+    col = torch.arange(h.shape[-1], device=h.device)
+    return torch.where(col < ranks.long()[..., None], h, 0.0)
+
+
+def bgmv_ranked_ref(x, A, B, ids, ranks):
+    """``bgmv_ref`` with h zeroed at columns >= the row's adapter true rank
+    (``ranks`` (N,) per adapter; ids past N - 1 clamp, ids < 0 give 0)."""
+    safe = ids.long().clamp(0, A.shape[0] - 1)
+    row_ranks = torch.where(ids >= 0, ranks.to(ids.device)[safe], 0)
+    h = torch.einsum("td,tdr->tr", x.to(F32), A[safe].to(F32))
+    y = torch.einsum("tr,tro->to", _rank_mask(h, row_ranks), B[safe].to(F32))
+    return torch.where((ids >= 0)[:, None], y, 0.0)
+
+
+def _segments(seg_rows, a, b, active, seg_rank=None):
+    """One shrink-expand chain per segment against its gathered factors
+    a (S, d_in, r) and b (S, r, d_out); inactive segments give 0."""
+    h = torch.einsum("scd,sdr->scr", seg_rows.to(F32), a.to(F32))
+    if seg_rank is not None:
+        h = _rank_mask(h, seg_rank[:, None])
+    y = torch.einsum("scr,sro->sco", h, b.to(F32))
+    return torch.where(active[:, None, None], y, 0.0)
+
+
+def sgmv_ref(seg_rows, seg_adapter, A, B):
+    """seg_rows (S, cap, d_in); seg_adapter (S,) (-1 = padding segment);
+    A (N, d_in, r); B (N, r, d_out) -> (S, cap, d_out) f32."""
+    ids = seg_adapter.long().clamp(0, A.shape[0] - 1)
+    return _segments(seg_rows, A[ids], B[ids], seg_adapter >= 0)
+
+
+def sgmv_ranked_ref(seg_rows, seg_adapter, seg_rank, A, B):
+    """``sgmv_ref`` with h zeroed at columns >= ``seg_rank[s]``."""
+    ids = seg_adapter.long().clamp(0, A.shape[0] - 1)
+    return _segments(seg_rows, A[ids], B[ids], seg_adapter >= 0, seg_rank)
+
+
+def sgmv_rank_grouped_ref(seg_rows, seg_adapter, seg_rank, A, B):
+    """The rank-bucketed dispatch computes the true-rank-masked SGMV,
+    whatever the bucket layout."""
+    return sgmv_ranked_ref(seg_rows, seg_adapter, seg_rank, A, B)
+
+
+def _slot_expert(seg_slot, seg_eid, A):
+    M, E = A.shape[:2]
+    return (seg_slot.long().clamp(0, M - 1), seg_eid.long().clamp(0, E - 1))
+
+
+def fused_sgmv_ref(seg_rows, seg_slot, seg_eid, A, B):
+    """seg_rows (S, cap, d_in); seg_slot (S,) (-1 = padding segment);
+    seg_eid (S,); A (M, E, d_in, r); B (M, E, r, d_out) ->
+    (S, cap, d_out) f32: the fused server-hook operator."""
+    m, e = _slot_expert(seg_slot, seg_eid, A)
+    return _segments(seg_rows, A[m, e], B[m, e], seg_slot >= 0)
+
+
+def fused_sgmv_ranked_ref(seg_rows, seg_slot, seg_eid, seg_rank, A, B):
+    """``fused_sgmv_ref`` with h zeroed at columns >= ``seg_rank[s]``."""
+    m, e = _slot_expert(seg_slot, seg_eid, A)
+    return _segments(seg_rows, A[m, e], B[m, e], seg_slot >= 0, seg_rank)
+
+
+def gmm_ref(xe, w, group_sizes=None):
+    """xe (E, C, d); w (E, d, f) -> (E, C, f) f32; rows at or past
+    group_sizes[e] are zeroed (ragged groups)."""
+    y = torch.einsum("ecd,edf->ecf", xe.to(F32), w.to(F32))
+    if group_sizes is None:
+        return y
+    rows = torch.arange(xe.shape[1], device=xe.device)
+    return torch.where((rows[None, :] < group_sizes.long()[:, None])[..., None],
+                       y, 0.0)
