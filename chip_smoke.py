@@ -9,21 +9,25 @@ port only. Phases, each of which fails the run with a non-zero exit:
 1. build every kernel of ``src/repro_torch/csrc`` (one nvcc per source,
    all started together) and print the build time;
 2. hold each kernel against its plain PyTorch version on the card at the
-   main paths' shapes (max abs error against a stated tolerance) and time
-   kernel, plain version and, where one exists, the one PyTorch call that
-   computes the same function (CUDA events, L2 flushed before each run,
-   median of 30 after warm-up), beside the least time the card could take;
+   main paths' shapes (max abs error against a stated tolerance; two runs
+   on the same inputs give the same bits) and time kernel, plain version
+   and, where one exists, the one PyTorch call that computes the same
+   function (CUDA events, L2 flushed before each run, median of 30 after
+   warm-up), beside the least time the card could take: paged attention
+   at the serving cell's tables and at 2048-token contexts, ``bgmv_expert``
+   at both server hooks and the coupled plane's three expert deltas;
 3. serve 6 requests at the full width of Qwen3-235B-A22B (depth cut to 4
    of 94 layers, bf16, random weights from a seed) through each plane of
    the slot engine over the paged pool: the disaggregated plane (LoRA
    Server hooks) and the coupled plane (the S-LoRA baseline, adapters on
    all seven targets inside the model). For each: check from the launch
    counters that every decode step went through the plane's kernels;
-   profile a few decode steps (kernel time by name, the device's busy
-   share); serve the same requests again through the kernels with the
-   plain versions run on a copy of the same state at every step, and hold
-   the two steps' logits together; then serve them through the plain
-   versions alone and compare the greedy tokens;
+   profile a few decode steps (kernel time by name, every port kernel's
+   ms/step, the device's busy share); serve the same requests again
+   through the kernels with the plain versions run on a copy of the same
+   state at every step, and hold the two steps' logits together; then
+   serve them through the plain versions alone and compare the greedy
+   tokens;
 4. paged == dense: the coupled plane at depth 2 over the paged pool and
    over the dense slab in lock step (the dense layout's attention is plain
    torch), holding each step's logits together;
@@ -42,6 +46,7 @@ import contextlib
 import dataclasses
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -109,34 +114,34 @@ def check(cond: bool, what: str) -> None:
 
 
 # ------------------------------ phase 2 ------------------------------ #
-def paged_phase(torch, paged, ref, flush):
+def paged_case(torch, paged, ref, flush, g, nb, pos, holes, windows):
     """Paged attention at the main path's head shape (KV=4, G=16, hd=128,
-    page 16), batch 8, contexts up to 2048 tokens, with inactive rows,
-    unallocated pages and one windowed case."""
+    page 16), batch 8, tables of ``nb`` pages, rows at ``pos``; ``holes``
+    edits the block table. Held against the plain version and timed beside
+    its bound and one SDPA call over the gathered dense KV, per window."""
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev)
-    g.manual_seed(SEED)
-    B, KV, G, hd, ps, nb = 8, 4, 16, 128, 16, 128
+    B, KV, G, hd, ps = len(pos), 4, 16, 128, 16
     P = B * nb + 8
     q = torch.randn(B, KV, G, hd, generator=g, device=dev).bfloat16()
     k = torch.randn(P, ps, KV, hd, generator=g, device=dev).bfloat16()
     v = torch.randn(P, ps, KV, hd, generator=g, device=dev).bfloat16()
     bt = torch.randperm(P, generator=g, device=dev)[: B * nb]
     bt = bt.reshape(B, nb).to(torch.int32)
-    pos = torch.tensor([2047, 1500, 1023, 700, 255, -1, 95, 2000],
-                       dtype=torch.int32, device=dev)
-    bt[1, 94:] = -1                     # unallocated tail past pos
-    bt[2, 10] = -1                      # a hole inside the context
-    bt[5, :] = -1                       # inactive row without pages
+    pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    holes(bt)
+    inactive = (pos < 0) | (bt < 0).all(-1)
     cases = {}
-    for window in (0, 512):
+    for window in windows:
         got = paged.paged_attention(q, k, v, bt, pos, window=window)
+        again = paged.paged_attention(q, k, v, bt, pos, window=window)
         want = ref.paged_attention_ref(q, k, v, bt, pos, window)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        check(err <= PAGED_TOL, f"paged_attention window={window}: max abs "
-              f"err {err} > {PAGED_TOL}")
-        check(bool(torch.all(got[5] == 0)), "inactive row not exactly 0")
+        check(err <= PAGED_TOL, f"paged_attention nb={nb} window={window}: "
+              f"max abs err {err} > {PAGED_TOL}")
+        check(bool(torch.all(got[inactive] == 0)), "inactive row not 0")
+        check(bool(torch.equal(got, again)), "paged_attention: two runs "
+              "differ")
         # work this run's data needs: pages with a valid key, valid keys
         kp = (torch.arange(nb, device=dev)[:, None] * ps
               + torch.arange(ps, device=dev)[None, :])[None]
@@ -163,26 +168,58 @@ def paged_phase(torch, paged, ref, flush):
         lib = cuda_ms(torch, lambda m=mask: torch.nn.functional
                       .scaled_dot_product_attention(qd, kd, vd, attn_mask=m,
                                                     enable_gqa=True), flush)
+        pps, n_split = paged.split_plan(B, KV, nb)
         cases[window] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
                          "bound_ms": b_ms, "bound_by": b_by,
                          "library_ms": lib, "pages_read": pages,
-                         "keys": keys}
-        print(f"paged_attention window={window}: err {err:.3g} kernel "
-              f"{ms:.4f} ms plain {plain:.4f} ms sdpa {lib:.4f} ms bound "
-              f"{b_ms:.4f} ms ({b_by})", flush=True)
+                         "keys": keys, "nb": nb, "pages_per_split": pps,
+                         "splits": n_split}
+        print(f"paged_attention nb={nb} window={window}: err {err:.3g} "
+              f"kernel {ms:.4f} ms plain {plain:.4f} ms sdpa {lib:.4f} ms "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
     return cases
 
 
+def paged_phase(torch, paged, ref, flush):
+    """Two shapes: the serving cell's (tables of 16 pages, contexts of
+    96-224 tokens, one inactive row) and 2048-token contexts (tables of
+    128 pages, inactive rows, unallocated pages, a 512-key window)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+
+    def long_holes(bt):
+        bt[1, 94:] = -1                     # unallocated tail past pos
+        bt[2, 10] = -1                      # a hole inside the context
+        bt[5, :] = -1                       # inactive row without pages
+
+    long = paged_case(torch, paged, ref, flush, g, 128,
+                      [2047, 1500, 1023, 700, 255, -1, 95, 2000], long_holes,
+                      (0, 512))
+
+    def serving_holes(bt):
+        bt[:, 14:] = -1                     # pages past the longest context
+
+    serving = paged_case(torch, paged, ref, flush, g, 16,
+                         [95, 130, 223, 160, -1, 200, 111, 180],
+                         serving_holes, (0,))
+    return {"serving": serving[0], "context_2048": long[0],
+            "window_512": long[512]}
+
+
 def hook_phase(torch, bgmv, ref, flush):
-    """Both server hooks at the main path's decode shapes: E*C = 8192 rows
-    (128 experts x capacity 64), 64 active (8 tokens x top-8), adapters of
-    true rank 8/16/32/32 in a rank-32 pool, the rest inactive."""
+    """bgmv_expert at the main paths' decode shapes: E*C = 8192 rows (128
+    experts x capacity 64), 64 active (8 tokens x top-8), the rest
+    inactive. The disaggregated plane's two server hooks carry adapters of
+    true rank 8/16/32/32 in a rank-32 pool (gate|up fused at rank 64, the
+    mask on col % 32); the coupled plane's three expert deltas (gate, up,
+    down) run without a rank vector. The bound counts the factor columns
+    these inputs need: each row's true rank where a rank vector is given
+    (the pool rank's count beside it), else the pool rank."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 1)
     M, E, C, T_tok, K, d, ff, r = 4, 128, 64, 8, 8, 4096, 1536, 32
-    ranks_of_slot = torch.tensor([8, 16, 32, 32], dtype=torch.int32,
-                                 device=dev)
+    ranks_of_slot = torch.tensor(RANKS, dtype=torch.int32, device=dev)
     rows_n = E * C
     ids = torch.full((rows_n,), -1, dtype=torch.int32, device=dev)
     fill = [0] * E
@@ -196,36 +233,58 @@ def hook_phase(torch, bgmv, ref, flush):
     eids = (torch.arange(rows_n, device=dev) // C).to(torch.int32)
     ranks = torch.where(ids >= 0, ranks_of_slot[ids.long().clamp(min=0)],
                         r).to(torch.int32)
-    active = int((ids >= 0).sum())
+    act = ids >= 0
+    active = int(act.sum())
+    slot_of_row = ids[act].tolist()
     out = {}
-    for hook, d_in, rr, d_out in (("up", d, 2 * r, 2 * ff),
-                                  ("down", ff, r, d)):
+    for hook, d_in, rr, d_out, ranked in (
+            ("up", d, 2 * r, 2 * ff, True), ("down", ff, r, d, True),
+            ("coupled_gate", d, r, ff, False),
+            ("coupled_up", d, r, ff, False),
+            ("coupled_down", ff, r, d, False)):
         A = (torch.randn(M, E, d_in, rr, generator=g, device=dev) / rr)
         A = A.bfloat16()
         Bm = (torch.randn(M, E, rr, d_out, generator=g, device=dev) * 0.01)
         Bm = Bm.bfloat16()
         x = torch.randn(rows_n, d_in, generator=g, device=dev).bfloat16()
         x[ids < 0] = 0                  # inactive dispatch rows are zeros
-        got = bgmv.bgmv_expert(x, A, Bm, ids, eids, ranks, r)
-        want = ref.bgmv_expert_ref(x, A, Bm, ids, eids, ranks, r)
+        args = (x, A, Bm, ids, eids) + ((ranks, r) if ranked else ())
+        got = bgmv.bgmv_expert(*args)
+        again = bgmv.bgmv_expert(*args)
+        want = ref.bgmv_expert_ref(*args)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         check(err <= HOOK_TOL, f"bgmv_expert {hook}: max abs err {err} > "
               f"{HOOK_TOL}")
         check(bool(torch.all(got[ids < 0] == 0)), "inactive rows not 0")
-        n_bytes = (active * d_in * 2 + len(pairs) * (d_in * rr + rr * d_out)
-                   * 2 + got.numel() * 4 + 3 * rows_n * 4)
-        b_ms, b_by = bound_ms(n_bytes, active * 2 * (d_in * rr + rr * d_out))
-        ms = cuda_ms(torch, lambda: bgmv.bgmv_expert(x, A, Bm, ids, eids,
-                                                     ranks, r), flush)
-        plain = cuda_ms(torch, lambda: ref.bgmv_expert_ref(
-            x, A, Bm, ids, eids, ranks, r), flush)
+        check(bool(torch.equal(got, again)), f"bgmv_expert {hook}: two runs "
+              f"differ")
+
+        def kept(slot):                 # factor columns the mask keeps
+            return (sum(c % r < RANKS[slot] for c in range(rr)) if ranked
+                    else rr)
+
+        def work(cols):
+            n_bytes = (active * d_in * 2 + sum(
+                (d_in * cols(sl) + cols(sl) * d_out) * 2 for sl, _ in pairs)
+                + got.numel() * 4 + (3 if ranked else 2) * rows_n * 4)
+            return bound_ms(n_bytes, sum(2 * (d_in * cols(sl)
+                                              + cols(sl) * d_out)
+                                         for sl in slot_of_row))
+        b_ms, b_by = work(kept)
+        pool_ms, _ = work(lambda sl: rr)
+        ms = cuda_ms(torch, lambda: bgmv.bgmv_expert(*args), flush)
+        plain = cuda_ms(torch, lambda: ref.bgmv_expert_ref(*args), flush)
         out[hook] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                     "bound_ms": b_ms, "bound_by": b_by, "rows": rows_n,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "bound_ms_pool_rank": pool_ms, "rows": rows_n,
                      "active_rows": active, "factor_slices": len(pairs),
+                     "d_in": d_in, "r": rr, "d_out": d_out,
+                     "ranked": ranked,
                      "max_abs_out": want.abs().max().item()}
         print(f"bgmv_expert {hook}: err {err:.3g} kernel {ms:.4f} ms plain "
-              f"{plain:.4f} ms bound {b_ms:.4f} ms ({b_by})", flush=True)
+              f"{plain:.4f} ms bound {b_ms:.4f} ms ({b_by}; pool rank "
+              f"{pool_ms:.4f} ms)", flush=True)
     return out
 
 
@@ -401,6 +460,17 @@ def plain_versions(ops, ref):
         ops.paged_attention, ops.bgmv_expert, ops.bgmv = saved
 
 
+CSRC = pathlib.Path(__file__).resolve().parent / "src/repro_torch/csrc"
+GLOBAL_FN = re.compile(
+    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+
+
+def port_kernels(csrc=CSRC) -> dict:
+    """{source name: its __global__ functions}, read from the sources."""
+    return {src.name: GLOBAL_FN.findall(src.read_text())
+            for src in sorted(csrc.glob("*.cu"))}
+
+
 def profile_steps(torch, engine, requests, n_steps=4):
     """Device kernel time by name over a few decode steps of all requests,
     and the device's busy share of the window (torch.profiler)."""
@@ -425,13 +495,21 @@ def profile_steps(torch, engine, requests, n_steps=4):
             tot, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (tot + e.device_time_total, n + 1)
     busy_us = sum(t for t, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    port = {}   # every kernel of csrc/, in the top 12 or not: [ms, launches]
+    names = [k for ks in port_kernels().values() for k in ks]
+    for name, (t, n) in ranked:
+        for k in names:
+            if re.search(rf"(?<!\w){k}(?!\w)", name):
+                ms, cnt = port.get(k, (0.0, 0))
+                port[k] = [ms + t / 1e3 / n_steps, cnt + n]
     out = {"steps": n_steps, "rows": len(requests),
            "wall_ms_per_step": wall_us / 1e3 / n_steps,
            "device_ms_per_step": busy_us / 1e3 / n_steps,
            "device_busy_share": busy_us / wall_us if wall_us else 0.0,
            "top_kernels_ms_per_step": [[name[:90], t / 1e3 / n_steps, n]
-                                       for name, (t, n) in top]}
+                                       for name, (t, n) in ranked[:12]],
+           "port_kernels_ms_per_step": port}
     print("profile: " + json.dumps(out), flush=True)
     return out
 
@@ -727,8 +805,9 @@ def main() -> int:
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged.py:93",
-             **launch_counts("paged_attention"), **pa[0],
-             window_512=pa[512]),
+             **launch_counts("paged_attention"), **pa["context_2048"],
+             shape="2048-token contexts (nb 128)",
+             serving=pa["serving"], window_512=pa["window_512"]),
         dict(name="bgmv_expert", route="cuda",
              source="src/repro_torch/csrc/bgmv_expert.cu",
              replaces="src/repro/kernels/bgmv.py:138",
@@ -738,7 +817,8 @@ def main() -> int:
              bound_ms=up["bound_ms"] + dn["bound_ms"], bound_by="bytes"
              if up["bound_by"] == dn["bound_by"] == "bytes" else "operations",
              library_ms=None, per_layer="one up hook + one down hook",
-             hooks=hk),
+             bound_ms_pool_rank=up["bound_ms_pool_rank"]
+             + dn["bound_ms_pool_rank"], hooks=hk),
         dict(name="bgmv", route="cuda", source="src/repro_torch/csrc/bgmv.cu",
              replaces="src/repro/kernels/bgmv.py:48",
              **launch_counts("bgmv"),

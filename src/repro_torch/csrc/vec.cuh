@@ -17,24 +17,32 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 template <typename T>
 struct Vec;
 
+// raw() reads the 16 bytes without widening them (4 registers, where the
+// widened values take N), widen() converts them later.
 template <>
 struct Vec<float> {
   static constexpr int N = 4;
+  __device__ __forceinline__ static uint4 raw(const float* p) {
+    return *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ static void widen(const uint4& u, float* out) {
+    out[0] = __uint_as_float(u.x);
+    out[1] = __uint_as_float(u.y);
+    out[2] = __uint_as_float(u.z);
+    out[3] = __uint_as_float(u.w);
+  }
   __device__ __forceinline__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x;
-    out[1] = v.y;
-    out[2] = v.z;
-    out[3] = v.w;
+    widen(raw(p), out);
   }
 };
 
 template <>
 struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
-                                              float* out) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
+  __device__ __forceinline__ static uint4 raw(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ static void widen(const uint4& u, float* out) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -42,6 +50,10 @@ struct Vec<__nv_bfloat16> {
       out[2 * i] = f.x;
       out[2 * i + 1] = f.y;
     }
+  }
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
+                                              float* out) {
+    widen(raw(p), out);
   }
 };
 

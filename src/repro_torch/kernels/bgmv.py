@@ -43,15 +43,21 @@ def _lib(name: str, n_ptr: int, n_int: int):
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i, i] + [p] * n_ptr + [i] * n_int + [p]
         fn.restype = ctypes.c_int
-        getattr(lib, f"{name}_threads").restype = ctypes.c_int
+        threads = getattr(lib, f"{name}_threads", None)
+        if threads is not None:
+            threads.restype = ctypes.c_int
+        splits = getattr(lib, f"{name}_splits", None)
+        if splits is not None:
+            splits.argtypes = [i, i, i]
+            splits.restype = ctypes.c_int
     return lib
 
 
 def _check_factors(name, A, B, r: int, d_out: int,
                    threads: Optional[int] = None) -> None:
     """What the kernels' 16-byte factor loads need; with ``threads``, also
-    that the r / VEC column groups divide the block's threads (bgmv.cu and
-    bgmv_expert.cu split them so; sgmv.cu takes any group count)."""
+    that the r / VEC column groups divide the block's threads (bgmv.cu
+    splits them so; sgmv.cu and bgmv_expert.cu take any group count)."""
     if A.dtype != B.dtype:
         raise TypeError(f"{name}: A and B differ in dtype")
     vec = VEC_BYTES // A.element_size()
@@ -146,17 +152,22 @@ def bgmv_expert(x, A, B, ids, eids, ranks: Optional[torch.Tensor] = None,
                          f"{tuple(A.shape)}, B {tuple(B.shape)} disagree")
     if any(tuple(t.shape) != (T,) for t in operands[3:]):
         raise ValueError(f"{name}: ids, eids and ranks must be (T,)")
-    lib = _lib(name, 7, 7)
-    _check_factors(name, A, B, r, d_out, lib.bgmv_expert_threads())
+    lib = _lib(name, 9, 7)
+    _check_factors(name, A, B, r, d_out)
     r_mod = int(r_mod) or r
     out = torch.empty((T, d_out), dtype=torch.float32, device=dev)
     if T == 0:
         return out
+    # the kernel's d_in splits (csrc/bgmv_expert.cu plans them); the active
+    # rows are found on the card, so part has room for all T rows
+    splits = lib.bgmv_expert_splits(dtype_code(name, A), d_in, r)
+    meta = torch.empty((T + 1, 4), dtype=torch.int32, device=dev)
+    part = torch.empty((T, splits, r), dtype=torch.float32, device=dev)
     err = lib.bgmv_expert_launch(
         dtype_code(name, x), dtype_code(name, A), x.data_ptr(), A.data_ptr(),
         B.data_ptr(), ids.data_ptr(), eids.data_ptr(),
-        ranks.data_ptr() if ranks is not None else None, out.data_ptr(),
-        T, N, E, d_in, r, d_out, r_mod,
+        ranks.data_ptr() if ranks is not None else None, meta.data_ptr(),
+        part.data_ptr(), out.data_ptr(), T, N, E, d_in, r, d_out, r_mod,
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(name, err)
     bgmv_expert.launches += 1

@@ -7,8 +7,8 @@
   int32 (-1 = unallocated) | pos (B,) int32 -> (B, KV, G, hd) f32
 
 The page axis is split over blocks (flash-decoding) and merged by a second
-kernel; ``split_plan`` sizes the split so that the (row, kv-head, split)
-blocks fill the card.
+kernel; a split past a row's last valid key exits at once, so
+``split_plan`` needs neither ``pos`` nor a host sync.
 """
 from __future__ import annotations
 
@@ -25,9 +25,11 @@ N_SM = 132  # streaming multiprocessors of an H100 SXM
 
 
 def split_plan(B: int, KV: int, nb: int):
-    """(pages per split, number of splits): about two blocks per SM."""
-    want = max(1, -(-2 * N_SM // max(B * KV, 1)))
-    pps = max(1, -(-nb // want))
+    """(pages per split, number of splits): 8 pages (two 16-key units for
+    each of a block's four warps at pages of 16) where the grid still gets
+    two blocks a SM, else 4 (one unit a warp)."""
+    pps = 8 if B * KV * -(-nb // 8) >= 2 * N_SM else 4
+    pps = max(1, min(pps, nb))
     return pps, max(1, -(-nb // pps))
 
 
