@@ -15,22 +15,26 @@ port only. Phases, each of which fails the run with a non-zero exit:
    function (CUDA events, L2 flushed before each run, median of 30 after
    warm-up), beside the least time the card could take: paged attention
    at the serving cell's tables and at 2048-token contexts, ``bgmv_expert``
-   at both server hooks and the coupled plane's three expert deltas;
+   at both server hooks and the coupled plane's three expert deltas,
+   ``bgmv`` at the coupled plane's q/k/v/o, ``gmm`` at a prefill chunk's
+   dispatch (beside one ``torch.bmm`` over all experts);
 3. serve 6 requests at the full width of Qwen3-235B-A22B (depth cut to 4
    of 94 layers, bf16, random weights from a seed) through each plane of
    the slot engine over the paged pool: the disaggregated plane (LoRA
    Server hooks) and the coupled plane (the S-LoRA baseline, adapters on
-   all seven targets inside the model). For each: check from the launch
-   counters that every decode step went through the plane's kernels;
+   all seven targets inside the model); both run their base expert GEMMs
+   through ``gmm``. For each: check from the launch counters that every
+   decode step and prefill chunk went through the plane's kernels;
    profile a few decode steps (kernel time by name, every port kernel's
    ms/step, the device's busy share); serve the same requests again
    through the kernels with the plain versions run on a copy of the same
    state at every step, and hold the two steps' logits together; then
    serve them through the plain versions alone and compare the greedy
    tokens;
-4. paged == dense: the coupled plane at depth 2 over the paged pool and
-   over the dense slab in lock step (the dense layout's attention is plain
-   torch), holding each step's logits together;
+4. the invariants at depth 2, engines in lock step, each step's logits
+   held together: paged == dense on the coupled plane (the dense layout's
+   attention is plain torch), and coupled == disagg on a pool of the
+   expert-FFN targets (the LoRA Server's adapters);
 5. the LoRA-kernel path (``repro_torch.launch.kernels.run``) at full width
    with its counters set to 0 just before: its invariants, its launch
    counts, each of its kernels held against its plain twin on the same
@@ -56,6 +60,7 @@ BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core peak
 PAGED_TOL = 1e-4               # f32 accumulation order, bf16 inputs
 HOOK_TOL = 1e-4
 BGMV_TOL = 1e-4
+GMM_TOL = 1e-4                 # f32 sums over d <= 4096, bf16 inputs
 LORA_TOL = 1e-4                # the LoRA-kernel path: the same reason
 # decode logits, kernels vs plain versions on the same state. The kernels
 # sum in another order, which flips single bf16 roundings of activations
@@ -67,7 +72,7 @@ LOGIT_TOL = 1e-2
 ARGMAX_AGREE = 0.9
 SPIN_CYCLES = 2_000_000         # ~1 ms at the H100's 1.98 GHz boost clock
 ARCH, LAYERS, SEED = "qwen3-moe-235b-a22b", 4, 0
-DENSE_LAYERS = 2               # paged == dense runs twice: kept shallow
+CHECK_LAYERS = 2               # the invariants run two engines: shallow
 RANKS = (8, 16, 32, 32)        # true ranks of the 4 adapters, pool rank 32
 
 
@@ -142,6 +147,10 @@ def paged_case(torch, paged, ref, flush, g, nb, pos, holes, windows):
         check(bool(torch.all(got[inactive] == 0)), "inactive row not 0")
         check(bool(torch.equal(got, again)), "paged_attention: two runs "
               "differ")
+        # where paged and dense part: the layers round attention to bf16,
+        # so a last-bit f32 difference can move an element by one bf16 step
+        act = ~inactive
+        flips = (got[act].bfloat16() != want[act].bfloat16()).float().mean()
         # work this run's data needs: pages with a valid key, valid keys
         kp = (torch.arange(nb, device=dev)[:, None] * ps
               + torch.arange(ps, device=dev)[None, :])[None]
@@ -172,10 +181,12 @@ def paged_case(torch, paged, ref, flush, g, nb, pos, holes, windows):
         cases[window] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
                          "bound_ms": b_ms, "bound_by": b_by,
                          "library_ms": lib, "pages_read": pages,
+                         "bf16_flip_share": flips.item(),
                          "keys": keys, "nb": nb, "pages_per_split": pps,
                          "splits": n_split}
         print(f"paged_attention nb={nb} window={window}: err {err:.3g} "
-              f"kernel {ms:.4f} ms plain {plain:.4f} ms sdpa {lib:.4f} ms "
+              f"(bf16 outputs that differ: {flips.item():.3g}) kernel "
+              f"{ms:.4f} ms plain {plain:.4f} ms sdpa {lib:.4f} ms "
               f"bound {b_ms:.4f} ms ({b_by})", flush=True)
     return cases
 
@@ -335,6 +346,62 @@ def bgmv_phase(torch, bgmv, ref, flush):
     return out
 
 
+def gmm_phase(torch, gmm, ref, flush, tokens=64):
+    """gmm at the base expert GEMMs' shapes for the dispatch of ``tokens``
+    tokens (top-8 of 128 experts, dropless C = tokens * 8; 64 = a prefill
+    chunk of the main paths): gate and up (4096 -> 1536) and down (1536 ->
+    4096), bf16, each held against the plain version, checked to repeat
+    bit for bit, and timed beside one torch.bmm over all experts and the
+    bound (the used experts' weights, the rows that hold data, the f32
+    output)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 3)
+    E, K, d, ff = 128, 8, 4096, 1536
+    C = tokens * K
+    picks = torch.stack([torch.randperm(E, generator=g, device=dev)[:K]
+                         for _ in range(tokens)]).reshape(-1)
+    sizes = torch.bincount(picks, minlength=E).to(torch.int32)
+    n_rows, n_used = int(sizes.sum()), int((sizes > 0).sum())
+    live = (torch.arange(C, device=dev)[None, :] < sizes[:, None])[..., None]
+    xe = torch.randn(E, C, d, generator=g, device=dev)
+    xe = torch.where(live, xe, 0.0).bfloat16()
+    out, plain_out = {}, {}
+    for name, d_in, d_out in (("gate", d, ff), ("up", d, ff),
+                              ("down", ff, d)):
+        w = (torch.randn(E, d_in, d_out, generator=g, device=dev)
+             * d_in ** -0.5).bfloat16()
+        a = xe if name != "down" else (torch.nn.functional.silu(
+            plain_out["gate"]) * plain_out["up"]).bfloat16()
+        got = gmm.gmm(a, w, sizes)
+        again = gmm.gmm(a, w, sizes)
+        want = ref.gmm_ref(a, w, sizes)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(err <= GMM_TOL, f"gmm {name} ({tokens} tokens): max abs err "
+              f"{err} > {GMM_TOL}")
+        check(bool(torch.equal(got, again)), f"gmm {name}: two runs differ")
+        check(bool(torch.all(got[~live.expand_as(got)] == 0)),
+              f"gmm {name}: rows past group_sizes not 0")
+        n_bytes = (n_rows * d_in * 2 + n_used * d_in * d_out * 2 + E * 4
+                   + got.numel() * 4)
+        b_ms, b_by = bound_ms(n_bytes, 2 * n_rows * d_in * d_out)
+        ms = cuda_ms(torch, lambda a=a, w=w: gmm.gmm(a, w, sizes), flush)
+        plain = cuda_ms(torch, lambda a=a, w=w: ref.gmm_ref(a, w, sizes),
+                        flush)
+        lib = cuda_ms(torch, lambda a=a, w=w: torch.bmm(a, w), flush)
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                     "tokens": tokens, "C": C, "rows": n_rows,
+                     "experts_used": n_used, "d_in": d_in, "d_out": d_out,
+                     "max_abs_out": want.abs().max().item()}
+        print(f"gmm {name} ({tokens} tokens, {n_used} experts): err "
+              f"{err:.3g} kernel {ms:.4f} ms plain {plain:.4f} ms bmm "
+              f"{lib:.4f} ms bound {b_ms:.4f} ms ({b_by})", flush=True)
+        plain_out[name] = want
+    return out
+
+
 # ------------------------------ phase 5 ------------------------------ #
 # name in the kernels line -> (path cases timed together, source, replaces)
 LORA_ROWS = {
@@ -415,14 +482,17 @@ def lora_path_phase(torch, ops, ref, counters, flush):
     return launches, cases, counts
 
 
-def lora_rows(lora, plane_launches):
-    """Rows 4-9 of the kernels line."""
+def lora_rows(lora, plane_launches, gm_prefill):
+    """Rows 4-9 of the kernels line; ``gmm``'s launches are the coupled
+    plane's (it carries both planes' base expert GEMMs), its times the
+    LoRA-kernel path's decode dispatch, with the prefill chunk's beside."""
     launches, cases, counts = lora
     rows = []
     for name, (parts, source, replaces) in LORA_ROWS.items():
         got = [cases[c] for c in parts]
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
-                   launches=launches[name], launches_by_plane={
+                   launches=(plane_launches["coupled"][name] if name == "gmm"
+                             else launches[name]), launches_by_plane={
                        **{p: n[name] for p, n in plane_launches.items()},
                        "lora_kernels": launches[name]},
                    max_abs_err=max(c["max_abs_err"] for c in got),
@@ -441,6 +511,8 @@ def lora_rows(lora, plane_launches):
                                        launches=counts["rank_buckets"])
         if name == "fused_sgmv":
             row["cross_check"] = cases["fused_sgmv_down"]
+        if name == "gmm":
+            row["prefill"] = gm_prefill
         rows.append(row)
     return rows
 
@@ -449,20 +521,23 @@ def lora_rows(lora, plane_launches):
 @contextlib.contextmanager
 def plain_versions(ops, ref):
     """Route the port's kernel calls to their plain versions (on the card)."""
-    saved = ops.paged_attention, ops.bgmv_expert, ops.bgmv
+    names = ("paged_attention", "bgmv_expert", "bgmv", "gmm")
+    saved = [getattr(ops, n) for n in names]
     ops.paged_attention = (lambda q, k, v, bt, pos, *, window=0:
                            ref.paged_attention_ref(q, k, v, bt, pos, window))
     ops.bgmv_expert = ref.bgmv_expert_ref
     ops.bgmv = ref.bgmv_ref
+    ops.gmm = ref.gmm_ref
     try:
         yield
     finally:
-        ops.paged_attention, ops.bgmv_expert, ops.bgmv = saved
+        for n, fn in zip(names, saved):
+            setattr(ops, n, fn)
 
 
 CSRC = pathlib.Path(__file__).resolve().parent / "src/repro_torch/csrc"
-GLOBAL_FN = re.compile(
-    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+GLOBAL_FN = re.compile(   # skips __launch_bounds__(...), __cluster_dims__(...)
+    r"__global__\s+void\s+(?:__\w+__\([^)]*\)\s+)*(\w+)\s*\(")
 
 
 def port_kernels(csrc=CSRC) -> dict:
@@ -554,7 +629,8 @@ def serve_path(torch, ops, ref, counters, cfg, engine, requests, traffic,
                step_mod, step_name, per_layer):
     """One plane's main path: ``engine()`` makes a fresh engine whose decode
     step is ``step_mod.<step_name>``; ``per_layer`` maps each counter to
-    its launches per layer per decode step."""
+    its launches per layer per decode step and per layer per prefill chunk
+    (prefill skips the last layer's MoE)."""
     from repro_torch.launch import serve
 
     # 1. the main path, through the kernels, counted
@@ -569,15 +645,20 @@ def serve_path(torch, ops, ref, counters, cfg, engine, requests, traffic,
                       "tokens_per_s": res["tokens_per_s"],
                       "generated_tokens": res["generated_tokens"],
                       "prefill_s": res["prefill_s"],
+                      "prefill_chunks": res["prefill_chunks"],
                       "rows_per_step": res["rows_per_step"],
                       "launches": launches,
                       "kv_stats": eng.kv_stats(),
                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}),
           flush=True)
-    for name, n in per_layer.items():
-        check(launches[name] == n * cfg.n_layers * steps,
+    chunks = res["prefill_chunks"]
+    for name, (n, n_pre) in per_layer.items():
+        want = n * cfg.n_layers * steps + n_pre * (cfg.n_layers - 1) * chunks
+        check(launches[name] == want,
               f"{step_name}: {name} launched {launches[name]} times, not "
-              f"{n} x {cfg.n_layers} layers x {steps} decode steps")
+              f"{n} x {cfg.n_layers} layers x {steps} decode steps + "
+              f"{n_pre} x {cfg.n_layers - 1} layers x {chunks} prefill "
+              f"chunks")
     check(all(len(t) == traffic.new_tokens for t in res["tokens"].values()),
           "a request did not get all its tokens")
     check(all(0 <= x < cfg.vocab_size for t in res["tokens"].values()
@@ -630,18 +711,22 @@ def serve_path(torch, ops, ref, counters, cfg, engine, requests, traffic,
     return launches, res, prof
 
 
-def paged_vs_dense(torch, transformer, cfg, engines, requests, traffic):
-    """Drive the engines (paged first, then dense) through the same
-    requests in the same two waves, in lock step: after each step every
-    engine is fed the first one's greedy tokens, and each step's logits of
-    the active rows are held against the first engine's."""
+def lock_step(torch, steps_to_watch, cfg, engines, requests, traffic,
+              what: str):
+    """Drive the engines through the same requests in the same two waves,
+    in lock step: after each step every engine is fed the first one's
+    greedy tokens, and each step's logits of the active rows are held
+    against the first engine's. ``steps_to_watch``: the (module, name) of
+    each decode-step function the engines call."""
     captured = []
-    orig = transformer.decode_step_slots
+    saved = [(mod, name, getattr(mod, name)) for mod, name in steps_to_watch]
 
-    def capture(*args, **kw):
-        out = orig(*args, **kw)
-        captured.append((out[0], args[5]))
-        return out
+    def capture(orig):
+        def step(*args, **kw):
+            out = orig(*args, **kw)
+            captured.append((out[0], args[5]))
+            return out
+        return step
 
     steps_seen, free_equal = [], 0
     pending = list(requests)
@@ -653,7 +738,8 @@ def paged_vs_dense(torch, transformer, cfg, engines, requests, traffic):
             for eng in engines:
                 eng.add_request(rid, prompt, aid)
 
-    transformer.decode_step_slots = capture
+    for mod, name, orig in saved:
+        setattr(mod, name, capture(orig))
     try:
         admit(pending[: traffic.first_wave])
         pending = pending[traffic.first_wave:]
@@ -678,12 +764,14 @@ def paged_vs_dense(torch, transformer, cfg, engines, requests, traffic):
                     for eng in engines:
                         eng.evict_request(rid)
     finally:
-        transformer.decode_step_slots = orig
-    held = hold_steps(steps_seen, "paged vs dense")
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+    held = hold_steps(steps_seen, what)
     out = {"layers": cfg.n_layers, "decode_steps": steps, **held,
+           "logit_tol": LOGIT_TOL, "argmax_agree_min": ARGMAX_AGREE,
            "step_tokens_equal": free_equal,
            "step_tokens_total": sum(done.values())}
-    print("paged == dense: " + json.dumps(out), flush=True)
+    print(f"{what}: " + json.dumps(out), flush=True)
     return out
 
 
@@ -704,16 +792,17 @@ def main_paths(torch, ops, paged, bgmv, ref, counters):
           f"layers={cfg.n_layers} vocab={cfg.vocab_size}; prompts "
           f"{[len(p) for _, p, _ in requests]}; weights+server "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
-    off = {name: 0 for name in counters
-           if name not in ("paged_attention", "bgmv_expert", "bgmv")}
+    # launches per layer: (each decode step, each prefill chunk)
+    off = {name: (0, 0) for name in counters
+           if name not in ("paged_attention", "bgmv_expert", "bgmv", "gmm")}
 
     # the disaggregated plane (slice 1): attention + two server hooks
     d_launch, d_res, d_prof = serve_path(
         torch, ops, ref, counters, cfg,
         lambda: Engine(cfg, params, ecfg, device="cuda", **lora), requests,
         traffic, disagg, "disagg_decode_step_slots",
-        {"paged_attention": 1, "bgmv_expert": 2, "bgmv": 0, **off})
-    del lora
+        {"paged_attention": (1, 0), "bgmv_expert": (2, 0), "bgmv": (0, 0),
+         "gmm": (3, 3), **off})
 
     # the coupled plane: q/k/v/o deltas (bgmv) and three expert deltas
     pool = serve.build_lora(cfg, "coupled", RANKS, seed=SEED,
@@ -722,7 +811,8 @@ def main_paths(torch, ops, paged, bgmv, ref, counters):
         torch, ops, ref, counters, cfg,
         lambda: Engine(cfg, params, ecfg, device="cuda", pool=pool),
         requests, traffic, transformer, "decode_step_slots",
-        {"paged_attention": 1, "bgmv_expert": 3, "bgmv": 4, **off})
+        {"paged_attention": (1, 0), "bgmv_expert": (3, 0), "bgmv": (4, 0),
+         "gmm": (3, 3), **off})
     print("coupled vs disagg (same traffic, same card): " + json.dumps({
         "decode_ms_per_step": {"coupled": c_res["decode_ms_per_step"],
                                "disagg": d_res["decode_ms_per_step"]},
@@ -732,16 +822,32 @@ def main_paths(torch, ops, paged, bgmv, ref, counters):
                               "disagg": d_prof["device_busy_share"]}}),
           flush=True)
 
-    # paged == dense on the coupled plane, at depth DENSE_LAYERS
-    cfg2 = dataclasses.replace(cfg, n_layers=DENSE_LAYERS)
+    # the two invariants at depth CHECK_LAYERS: paged == dense on the
+    # coupled plane; coupled == disagg on a pool of the expert-FFN targets
+    # only (the disaggregated plane serves no attention target), the same
+    # adapters as the LoRA Server's (build_lora draws both from one seed)
+    cfg2 = dataclasses.replace(cfg, n_layers=CHECK_LAYERS)
     params2 = dict(params, layers=_first_layers(params["layers"],
-                                                DENSE_LAYERS))
+                                                CHECK_LAYERS))
     pool2 = dataclasses.replace(pool, cfg=cfg2, tensors=_first_layers(
-        pool.tensors, DENSE_LAYERS))
-    paged_vs_dense(torch, transformer, cfg2, [
+        pool.tensors, CHECK_LAYERS))
+    lock_step(torch, [(transformer, "decode_step_slots")], cfg2, [
         Engine(cfg2, params2, dataclasses.replace(ecfg, paged=p),
                device="cuda", pool=pool2) for p in (True, False)],
-        requests, traffic)
+        requests, traffic, "paged == dense")
+    del pool, pool2
+    ffn = serve.build_lora(dataclasses.replace(cfg, lora_targets=serve.
+                                               FFN_TARGETS), "coupled",
+                           RANKS, seed=SEED, dtype=torch.bfloat16,
+                           device="cuda")["pool"]
+    ffn2 = dataclasses.replace(ffn, cfg=cfg2, tensors=_first_layers(
+        ffn.tensors, CHECK_LAYERS))
+    check(ffn.scale == lora["lora_scale"], "the FFN pool is not the server's")
+    lock_step(torch, [(transformer, "decode_step_slots"),
+                      (disagg, "disagg_decode_step_slots")], cfg2, [
+        Engine(cfg2, params2, ecfg, device="cuda", pool=ffn2),
+        Engine(cfg2, params2, ecfg, device="cuda", server=lora["server"],
+               pool=ffn2)], requests, traffic, "coupled == disagg")
     return {"disagg": d_launch, "coupled": c_launch}
 
 
@@ -782,6 +888,7 @@ def main() -> int:
     pa = paged_phase(torch, paged, ref, flush)
     hk = hook_phase(torch, bgmv, ref, flush)
     bg = bgmv_phase(torch, bgmv, ref, flush)
+    gm = gmm_phase(torch, gmm, ref, flush)
     counters = {"paged_attention": paged.paged_attention,
                 "bgmv_expert": bgmv.bgmv_expert, "bgmv": bgmv.bgmv,
                 "bgmv_ranked": bgmv.bgmv_ranked, "sgmv": sgmv.sgmv,
@@ -791,8 +898,8 @@ def main() -> int:
     lora = lora_path_phase(torch, ops, ref, counters, flush)
     launches = main_paths(torch, ops, paged, bgmv, ref, counters)
 
-    # "launches": the coupled plane's decode for rows 1-3, the LoRA-kernel
-    # path's run for rows 4-9; each path's counted run in
+    # "launches": the coupled plane's run for rows 1-3 and gmm, the
+    # LoRA-kernel path's run for rows 4-8; each path's counted run in
     # "launches_by_plane"
     def launch_counts(name):
         return {"launches": launches["coupled"][name],
@@ -830,7 +937,7 @@ def main() -> int:
                                      for t in bg.values()) else "operations",
              library_ms=None, per_layer="q + k + v + o deltas",
              targets=bg),
-        *lora_rows(lora, launches),
+        *lora_rows(lora, launches, gm),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.models import layers as ll
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer
@@ -37,23 +38,24 @@ def _moe_hooks_layer(x, lp, cfg, l: int, server, adapter_ids,
     # the coupled path's dropless threshold: both paths drop alike
     C = moe_mod.capacity(T, K, E, cfg.capacity_factor,
                          dropless=(T * K <= 4096))
-    xe, slot_tok, pair_slot = moe_mod.local_dispatch(xf, ids, C, E)
+    xe, slot_tok, pair_slot, sizes = moe_mod.dispatch(xf, ids, C, E)
     rows = xe.reshape(E * C, d)
     row_expert = torch.arange(E * C, dtype=torch.int32, device=x.device) // C
     row_adapter = torch.where(slot_tok < T,
                               adapter_ids[slot_tok.clamp(max=T - 1)], -1)
 
-    # hook 1: up/gate, base GEMMs on the client + server delta
+    # hook 1: up/gate, base GEMMs on the client + server delta; the base
+    # GEMMs skip each expert's pad rows (ops.gmm, as moe.expert_ffn)
     mp = lp["moe"]
-    g = ll.mm_f32(xe, mp["gate"])
-    u = ll.mm_f32(xe, mp["up"])
+    g = ops.gmm(xe, mp["gate"], sizes)
+    u = ops.gmm(xe, mp["up"], sizes)
     d_up = server.compute("up", l, rows, row_adapter, row_expert)
     d_up = d_up.reshape(E, C, -1) * lora_scale
     dg, du = d_up.chunk(2, dim=-1)
     act = (F.silu(g + dg) * (u + du)).to(x.dtype)
 
     # hook 2: down
-    y = ll.mm_f32(act, mp["down"])
+    y = ops.gmm(act, mp["down"], sizes)
     d_dn = server.compute("down", l, act.reshape(E * C, -1), row_adapter,
                           row_expert)
     y = y + d_dn.reshape(E, C, -1) * lora_scale

@@ -36,8 +36,9 @@
 //     beside the one scan block.
 //  2. shrink: a fixed grid of two blocks a SM whose warps stride over the
 //     (active row, d_in split) items, one warp an item: lane (dl, g) owns
-//     column group g of VEC rank columns and walks the split's rows dl,
-//     dl + 32/(r/VEC), ..., kLoads 16-byte A loads in flight before it uses
+//     column group g of VEC rank columns (any r: when VEC does not divide
+//     r, A is read one value at a time) and walks the split's rows dl,
+//     dl + 32/ceil(r/VEC), ..., kLoads A loads in flight before it uses
 //     any (kBatches batches a split, at most kMaxSplits splits: this file's
 //     bgmv_expert_splits, which the wrapper asks to size part); a group that
 //     the rank
@@ -168,7 +169,10 @@ __global__ void __launch_bounds__(kThreads) bgmv_expert_shrink_kernel(
   __shared__ float red[kWarps][32 * VEC];
   const int n_items = meta[0].x * S;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int groups = r / VEC;
+  // any r: a group past r's last multiple of VEC, or every group when VEC
+  // does not divide r, is read one value at a time
+  const int groups = (r + VEC - 1) / VEC;
+  const bool full = r % VEC == 0;
   // lane (dl, g) owns column group g and rows d0 + dl + k * dlanes; with 32
   // groups or more, one lane walks all rows of groups lane, lane + 32, ...
   const int dlanes = groups >= 32 ? 1 : 32 / groups;
@@ -187,10 +191,11 @@ __global__ void __launch_bounds__(kThreads) bgmv_expert_shrink_kernel(
     for (int g = groups >= 32 ? lane : lane % groups; g < groups; g += 32) {
       // lanes past dlanes * groups, and groups the mask zeroes, read nothing
       const bool mine = dl < dlanes;
+      const int nv = min(VEC, r - g * VEC);
       float acc[VEC];
 #pragma unroll
       for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
-      if (mine && group_kept(g * VEC, VEC, r_mod, rank)) {
+      if (mine && group_kept(g * VEC, nv, r_mod, rank)) {
         const TW* ap = ab + g * VEC;
         for (int d = d0 + dl; d < d_end; d += kLoads * dlanes) {
           uint4 av[kLoads];
@@ -201,7 +206,8 @@ __global__ void __launch_bounds__(kThreads) bgmv_expert_shrink_kernel(
             av[u] = make_uint4(0u, 0u, 0u, 0u);  // the bits of +0.0
             xv[u] = 0.f;
             if (du < d_end) {
-              av[u] = Vec<TW>::raw(ap + (size_t)du * r);
+              av[u] = full ? Vec<TW>::raw(ap + (size_t)du * r)
+                           : Vec<TW>::raw_n(ap + (size_t)du * r, nv);
               xv[u] = to_f32(xr[du]);
             }
           }
@@ -216,7 +222,8 @@ __global__ void __launch_bounds__(kThreads) bgmv_expert_shrink_kernel(
       }
       if (dlanes == 1) {
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) p[g * VEC + k] = acc[k];
+        for (int k = 0; k < VEC; ++k)
+          if (k < nv) p[g * VEC + k] = acc[k];
         continue;
       }
       // the dlanes sums of a column, added in lane order
@@ -225,7 +232,7 @@ __global__ void __launch_bounds__(kThreads) bgmv_expert_shrink_kernel(
       __syncwarp();
       if (dl == 0) {
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) {
+        for (int k = 0; k < nv; ++k) {
           float h = 0.f;
           for (int j = 0; j < dlanes; ++j) h += rw[(j * groups + g) * VEC + k];
           p[g * VEC + k] = h;
@@ -326,11 +333,11 @@ __global__ void __launch_bounds__(kThreads) bgmv_expert_expand_kernel(
 }
 
 // Splits of d_in for the shrink, where one warp contracts one split of one
-// row: 32 / (r / vec) lanes walk the split's rows (one lane if r / vec >=
+// row: 32 / ceil(r / vec) lanes walk the split's rows (one lane if r / vec >=
 // 32), kBatches batches of kLoads loads each, at most kMaxSplits splits.
 // Split s holds rows [s * chunk, (s + 1) * chunk), chunk = ceil(d_in / S).
 int shrink_splits(int d_in, int r, int vec) {
-  const int groups = r / vec;
+  const int groups = (r + vec - 1) / vec;
   const int lanes = groups >= 32 ? 1 : 32 / (groups > 0 ? groups : 1);
   const int rows = kLoads * kBatches * lanes;  // rows of one split
   const int splits = (d_in + rows - 1) / rows;

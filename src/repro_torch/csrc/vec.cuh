@@ -18,12 +18,20 @@ template <typename T>
 struct Vec;
 
 // raw() reads the 16 bytes without widening them (4 registers, where the
-// widened values take N), widen() converts them later.
+// widened values take N), widen() converts them later. raw_n() reads the
+// first n <= N values one at a time, from any address, and gives the rest
+// the bits of +0.0.
 template <>
 struct Vec<float> {
   static constexpr int N = 4;
   __device__ __forceinline__ static uint4 raw(const float* p) {
     return *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ static uint4 raw_n(const float* p, int n) {
+    return make_uint4(n > 0 ? __float_as_uint(p[0]) : 0u,
+                      n > 1 ? __float_as_uint(p[1]) : 0u,
+                      n > 2 ? __float_as_uint(p[2]) : 0u,
+                      n > 3 ? __float_as_uint(p[3]) : 0u);
   }
   __device__ __forceinline__ static void widen(const uint4& u, float* out) {
     out[0] = __uint_as_float(u.x);
@@ -41,6 +49,18 @@ struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
   __device__ __forceinline__ static uint4 raw(const __nv_bfloat16* p) {
     return *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ static uint4 raw_n(const __nv_bfloat16* p,
+                                                int n) {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const unsigned lo = 2 * i < n ? __bfloat16_as_ushort(p[2 * i]) : 0u;
+      const unsigned hi =
+          2 * i + 1 < n ? __bfloat16_as_ushort(p[2 * i + 1]) : 0u;
+      w[i] = lo | (hi << 16);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
   }
   __device__ __forceinline__ static void widen(const uint4& u, float* out) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);

@@ -2,7 +2,9 @@
 ``csrc/bgmv_expert.cu``.
 
 ``bgmv`` ports the TPU kernel ``repro.kernels.bgmv.bgmv`` (plain twin:
-``ref.bgmv_ref``); the coupled plane's q/k/v/o deltas run through it.
+``ref.bgmv_ref``) at any rank, in one launch a call below
+``bgmv_pair_rows()`` rows (128) and a shrink/expand pair from there on; the
+coupled plane's q/k/v/o deltas run through it.
 
   x (T, d_in) | A (N, d_in, r) | B (N, r, d_out) | ids (T,) int32
   -> (T, d_out) f32
@@ -29,7 +31,6 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels._launch import (check_cuda, check_int32, dtype_code,
                                          raise_on_error)
-from repro_torch.kernels.paged import N_SM
 
 VEC_BYTES = 16  # the kernels stream the factors in 16-byte vectors
 
@@ -43,39 +44,35 @@ def _lib(name: str, n_ptr: int, n_int: int):
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i, i] + [p] * n_ptr + [i] * n_int + [p]
         fn.restype = ctypes.c_int
-        threads = getattr(lib, f"{name}_threads", None)
-        if threads is not None:
-            threads.restype = ctypes.c_int
         splits = getattr(lib, f"{name}_splits", None)
         if splits is not None:
             splits.argtypes = [i, i, i]
             splits.restype = ctypes.c_int
+        pair = getattr(lib, f"{name}_pair_rows", None)
+        if pair is not None:
+            pair.restype = ctypes.c_int
+        cluster = getattr(lib, f"{name}_cluster_size", None)
+        if cluster is not None:
+            cluster.argtypes = [i] * 5
+            cluster.restype = ctypes.c_int
     return lib
 
 
 def _check_factors(name, A, B, r: int, d_out: int,
-                   threads: Optional[int] = None) -> None:
-    """What the kernels' 16-byte factor loads need; with ``threads``, also
-    that the r / VEC column groups divide the block's threads (bgmv.cu
-    splits them so; sgmv.cu and bgmv_expert.cu take any group count)."""
+                   any_rank: bool = False) -> None:
+    """What the kernels' 16-byte factor loads need: d_out a multiple of the
+    vector, aligned factors and, unless ``any_rank`` (bgmv.cu and
+    bgmv_expert.cu read a rank's odd columns one at a time; sgmv.cu does
+    not), a rank that is a multiple of the vector."""
     if A.dtype != B.dtype:
         raise TypeError(f"{name}: A and B differ in dtype")
     vec = VEC_BYTES // A.element_size()
-    groups = r // vec if r % vec == 0 else 0
-    if not groups or (threads and threads % groups) or d_out % vec:
-        raise ValueError(f"{name}: r={r} and d_out={d_out} must be multiples "
-                         f"of {vec}" + (f", with r/{vec} dividing {threads}"
-                                        if threads else ""))
+    if r < 1 or (r % vec and not any_rank) or d_out % vec:
+        raise ValueError(f"{name}: " + (f"d_out={d_out}" if any_rank else
+                                        f"r={r} and d_out={d_out}")
+                         + f" must be multiples of {vec}")
     if A.data_ptr() % VEC_BYTES or B.data_ptr() % VEC_BYTES:
         raise ValueError(f"{name}: A and B must be 16-byte aligned")
-
-
-def split_plan(T: int, d_in: int, stride: int) -> int:
-    """Splits of d_in for the shrink: about two blocks per SM over the T
-    rows, with at least 2 * ``stride`` rows of A (two loads a thread) in
-    each split."""
-    want = max(1, -(-2 * N_SM // max(T, 1)))
-    return max(1, min(want, -(-d_in // (2 * stride))))
 
 
 def _bgmv(name, x, A, B, ids, ranks: Optional[torch.Tensor]):
@@ -94,20 +91,20 @@ def _bgmv(name, x, A, B, ids, ranks: Optional[torch.Tensor]):
         raise ValueError(f"{name}: ids must be (T,)")
     if ranks is not None and tuple(ranks.shape) != (N,):
         raise ValueError(f"{name}: ranks must be (N,), one per adapter")
-    lib = _lib("bgmv", 7, 6)
-    threads = lib.bgmv_threads()
-    _check_factors(name, A, B, r, d_out, threads)
+    lib = _lib("bgmv", 7, 5)
+    _check_factors(name, A, B, r, d_out, any_rank=True)
     out = torch.empty((T, d_out), dtype=torch.float32, device=dev)
     if T == 0:
         return out
-    splits = split_plan(T, d_in, threads * VEC_BYTES // A.element_size() // r)
-    part = torch.empty((T, splits, r), dtype=torch.float32, device=dev)
+    # the shrink/expand pair's h (csrc/bgmv.cu takes it from this many rows)
+    h_g = (torch.empty((T, r), dtype=torch.float32, device=dev)
+           if T >= lib.bgmv_pair_rows() else None)
     err = lib.bgmv_launch(
         dtype_code(name, x), dtype_code(name, A), x.data_ptr(), A.data_ptr(),
         B.data_ptr(), ids.data_ptr(),
-        ranks.data_ptr() if ranks is not None else None, part.data_ptr(),
-        out.data_ptr(), T, N, d_in, r, d_out, splits,
-        torch.cuda.current_stream(dev).cuda_stream)
+        ranks.data_ptr() if ranks is not None else None,
+        h_g.data_ptr() if h_g is not None else None, out.data_ptr(), T, N,
+        d_in, r, d_out, torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(name, err)
     return out
 
@@ -153,7 +150,7 @@ def bgmv_expert(x, A, B, ids, eids, ranks: Optional[torch.Tensor] = None,
     if any(tuple(t.shape) != (T,) for t in operands[3:]):
         raise ValueError(f"{name}: ids, eids and ranks must be (T,)")
     lib = _lib(name, 9, 7)
-    _check_factors(name, A, B, r, d_out)
+    _check_factors(name, A, B, r, d_out, any_rank=True)
     r_mod = int(r_mod) or r
     out = torch.empty((T, d_out), dtype=torch.float32, device=dev)
     if T == 0:

@@ -1,5 +1,7 @@
 """Grouped expert GEMM on Hopper: the wrapper of ``csrc/gmm.cu``, the port
 of the TPU kernel ``repro.kernels.gmm.gmm`` (plain twin: ``ref.gmm_ref``).
+Both serving planes' base expert GEMMs (gate, up, down) run through it,
+with the dispatch's group sizes (``models.moe.dispatch``).
 
   xe (E, C, d) | w (E, d, f) | group_sizes (E,) int32 or None
   -> (E, C, f) f32; rows at or past group_sizes[e] are exact zeros, and a

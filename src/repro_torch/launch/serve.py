@@ -124,6 +124,7 @@ def serve(engine: Engine, requests, traffic: Traffic) -> Dict:
     n_tok = sum(len(v) for v in tokens.values())
     return {"tokens": tokens, "decode_steps": steps, "rows_per_step":
             bucket_rows, "generated_tokens": n_tok, "prefill_s": prefill_s,
+            "prefill_chunks": engine.prefill_chunks,
             "decode_s": decode_s,
             "decode_ms_per_step": 1e3 * decode_s / max(steps, 1),
             "tokens_per_s": n_tok / decode_s if decode_s else 0.0}

@@ -21,16 +21,15 @@ NEG_INF = -1e30
 
 
 def mm_f32(a, b):
-    """a @ b with an f32 result (a: (..., k) or (E, n, k) batched with b:
-    (k, m) or (E, k, m)). f32 operands multiply as they are; bf16 operands on
-    the card accumulate in f32 and return f32 (cuBLAS ``out_dtype``), as the
-    reference's ``preferred_element_type=f32``."""
+    """a @ b with an f32 result (a: (..., k), b: (k, m)). f32 operands
+    multiply as they are; bf16 operands on the card accumulate in f32 and
+    return f32 (cuBLAS ``out_dtype``), as the reference's
+    ``preferred_element_type=f32``. The batched expert GEMMs go to
+    ``ops.gmm``."""
     if a.dtype == F32 and b.dtype == F32:
         return a @ b
     if a.device.type != "cuda":
         return a.to(F32) @ b.to(F32)
-    if b.dim() == 3:
-        return torch.bmm(a, b, out_dtype=F32)
     lead = a.shape[:-1]
     return torch.mm(a.reshape(-1, a.shape[-1]), b,
                     out_dtype=F32).reshape(*lead, b.shape[-1])

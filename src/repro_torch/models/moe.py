@@ -46,6 +46,14 @@ def local_dispatch(x_flat, ids, C: int, n_experts: int):
 
     Returns (xe (E, C, d), slot_tok (E*C,) token per slot with T = empty,
     pair_slot (T*K,) slot of each (token, k) pair with E*C = dropped)."""
+    return dispatch(x_flat, ids, C, n_experts)[:3]
+
+
+def dispatch(x_flat, ids, C: int, n_experts: int):
+    """``local_dispatch`` and, fourth, the group sizes (E,) int32 =
+    min(tokens routed to e, C), on the device: expert e's rows sit at
+    0..group_sizes[e]-1 and every other row is the zero pad row, so
+    ``ops.gmm`` may skip them (its rows past group_sizes are exact 0)."""
     T, d = x_flat.shape
     K = ids.shape[1]
     dev = x_flat.device
@@ -67,7 +75,7 @@ def local_dispatch(x_flat, ids, C: int, n_experts: int):
     slot_tok = slot_tok[:-1]
     x_pad = torch.cat([x_flat, x_flat.new_zeros((1, d))], dim=0)
     xe = x_pad[slot_tok].reshape(n_experts, C, d)
-    return xe, slot_tok, pair_slot
+    return xe, slot_tok, pair_slot, counts.clamp(max=C).to(torch.int32)
 
 
 def combine(y_slots, pair_slot, wts):
@@ -88,9 +96,12 @@ def combine(y_slots, pair_slot, wts):
 
 
 def expert_ffn(xe, wg, wu, wd, lora=None, row_adapter=None,
-               lora_scale: float = 1.0):
+               lora_scale: float = 1.0, group_sizes=None):
     """Gated expert FFN. xe: (E, C, d); wg/wu: (E, d, f); wd: (E, f, d) ->
-    (E, C, d) f32.
+    (E, C, d) f32. The base GEMMs run through ``ops.gmm``; with
+    ``group_sizes`` (E,) int32 (``dispatch``) it skips each expert's rows
+    at or past its group size, which are pad rows (their output is 0, as
+    the reference's einsum over the zero rows gives).
 
     With ``lora`` holding expert-specific adapter factors ({gate/up/down:
     {A (N, E_total, d_in, r), B (N, E_total, r, d_out)}}, the coupled
@@ -110,15 +121,15 @@ def expert_ffn(xe, wg, wu, wd, lora=None, row_adapter=None,
             rows_in.reshape(E * C, -1), lora[name]["A"], lora[name]["B"],
             row_adapter, row_e).reshape(E, C, -1) * lora_scale
 
-    g = mm_f32(xe, wg)
-    u = mm_f32(xe, wu)
+    g = ops.gmm(xe, wg, group_sizes)
+    u = ops.gmm(xe, wu, group_sizes)
     dg, du = dl("gate", xe), dl("up", xe)
     if dg is not None:
         g = g + dg
     if du is not None:
         u = u + du
     h = (F.silu(g) * u).to(xe.dtype)
-    y = mm_f32(h, wd)
+    y = ops.gmm(h, wd, group_sizes)
     dd = dl("down", h)
     if dd is not None:
         y = y + dd
@@ -151,12 +162,12 @@ def _dispatch_compute_combine(xf, ids, wts, wg, wu, wd, cfg, C, lora=None,
     one device). A dispatch row takes its token's adapter, or -1 when the
     row is empty (the reference's ``row_adapter`` rule). -> (T, d) f32."""
     T, d = xf.shape
-    xe, slot_tok, pair_slot = local_dispatch(xf, ids, C, cfg.n_experts)
+    xe, slot_tok, pair_slot, sizes = dispatch(xf, ids, C, cfg.n_experts)
     row_adapter = None
     if lora is not None and token_ads is not None:
         row_adapter = torch.where(slot_tok < T,
                                   token_ads[slot_tok.clamp(max=T - 1)],
                                   -1).to(torch.int32)
     y = expert_ffn(xe, wg, wu, wd, lora=lora, row_adapter=row_adapter,
-                   lora_scale=lora_scale)
+                   lora_scale=lora_scale, group_sizes=sizes)
     return combine(y.reshape(-1, d), pair_slot, wts)

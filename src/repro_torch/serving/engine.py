@@ -60,19 +60,25 @@ class SlotState:
 
 class Engine:
     """Slot engine. Disaggregated when ``server`` (the LoRA Server's
-    ``compute`` contract) is given, its deltas multiplied by
-    ``lora_scale`` (an AdapterPool's ``scale``). Coupled otherwise, with
-    the adapters of ``pool`` (an AdapterPool; None serves the base
-    model)."""
+    ``compute`` contract) is given, its deltas multiplied by the scale of
+    the ``pool`` its adapters come from (the reference's rule), or by
+    ``lora_scale`` without a pool (default 1.0); a ``lora_scale`` that
+    disagrees with the pool's is refused. Coupled otherwise, with the
+    adapters of ``pool`` (an AdapterPool; None serves the base model)."""
 
     def __init__(self, cfg, params, ecfg: EngineConfig, server=None,
-                 lora_scale: float = 1.0, device=None, pool=None):
+                 lora_scale: Optional[float] = None, device=None, pool=None):
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg
         self.server = server
         self.pool = pool
-        self.lora_scale = float(lora_scale)
+        if pool is not None and lora_scale is not None \
+                and float(lora_scale) != float(pool.scale):
+            raise ValueError(f"lora_scale {lora_scale} disagrees with the "
+                             f"pool's scale {pool.scale}")
+        self.lora_scale = float(pool.scale if pool is not None else
+                                1.0 if lora_scale is None else lora_scale)
         self.device = resolve_device(device)
         self.slots: List[Optional[SlotState]] = [None] * ecfg.n_slots
         self._by_rid: Dict[int, int] = {}
@@ -96,6 +102,7 @@ class Engine:
                                       device=self.device)
         self._chunk = min(chunk, ecfg.max_len)
         self._k, self._v = kv["k"], kv["v"]
+        self.prefill_chunks = 0   # chunks run since the engine was made
 
     # ----------------------- slot bookkeeping ----------------------- #
     @property
@@ -185,6 +192,7 @@ class Engine:
             else:
                 k_ctx = self._k[:, slot:slot + 1, :c]
                 v_ctx = self._v[:, slot:slot + 1, :c]
+            self.prefill_chunks += 1
             k_c, v_c = transformer.prefill_chunk(
                 self.params, self.cfg, torch.as_tensor(chunk, device=dev),
                 k_ctx, v_ctx)

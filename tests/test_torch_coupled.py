@@ -11,6 +11,7 @@ a pool of expert-FFN targets only (the disaggregated plane serves no
 attention target), and paged == dense, in greedy tokens.
 """
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +22,7 @@ import torch
 from repro.configs import get_config
 from repro.core import adapter as jadapter
 from repro.core import lora_math
+from repro.core import lora_server as jls
 from repro.kernels import ops as jops
 from repro.models import cache as jcache
 from repro.models import model as jmodel
@@ -140,16 +142,6 @@ def test_ops_bgmv_takes_the_plain_version_on_the_cpu():
     assert tbgmv.bgmv.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         tbgmv.bgmv(x, A, B, ids)
-
-
-def test_bgmv_split_plan_fills_the_card():
-    for T, d_in, stride in [(8, 4096, 64), (8, 8192, 64), (1, 4096, 64),
-                            (5, 24, 256), (64, 4096, 32)]:
-        S = tbgmv.split_plan(T, d_in, stride)
-        assert S >= 1
-        assert S == 1 or -(-d_in // S) >= 2 * stride
-        assert T * S <= max(2 * tbgmv.N_SM + T, T)
-    assert tbgmv.split_plan(8, 4096, 64) == 32
 
 
 # ------------------------------- modules -------------------------------- #
@@ -307,6 +299,69 @@ def test_paged_equals_dense_in_port(setup, disagg):
         _drive(_port_engine(setup, False, disagg), prompts)
 
 
+def test_engine_takes_the_pool_scale_with_a_server(setup):
+    """Engine(server=..., pool=...) serves the deltas at the pool's scale, as
+    the reference's engine does (its cluster builds engines so); a
+    lora_scale that disagrees with the pool is refused; a server without a
+    pool keeps lora_scale (default 1.0)."""
+    _, _, _, tcfg, tparams, tpool, prompts = setup
+    ffn = _ffn_pool(tpool)
+    by_scale = _port_engine(setup, True, disagg=True)
+    ecfg = tengine.EngineConfig(paged=True, **ENGINE)
+    by_pool = tengine.Engine(tcfg, tparams, ecfg, by_scale.server,
+                             device="cpu", pool=ffn)
+    assert by_pool.lora_scale == ffn.scale != 1.0
+    assert _drive(by_pool, prompts) == _drive(by_scale, prompts)
+    assert tengine.Engine(tcfg, tparams, ecfg, by_scale.server,
+                          lora_scale=ffn.scale, pool=ffn,
+                          device="cpu").lora_scale == ffn.scale
+    with pytest.raises(ValueError, match="disagrees"):
+        tengine.Engine(tcfg, tparams, ecfg, by_scale.server, lora_scale=1.0,
+                       pool=ffn, device="cpu")
+    assert tengine.Engine(tcfg, tparams, ecfg, by_scale.server,
+                          device="cpu").lora_scale == 1.0
+
+
+@pytest.mark.parametrize("disagg", [False, True], ids=["coupled", "disagg"])
+def test_rank4_bf16_pool_serves_reference_tokens(disagg):
+    """A bf16 pool of rank 4 (half a 16-byte vector of bf16) on a bf16 model
+    serves through the port's engine with the JAX engine's greedy tokens:
+    the coupled plane on all seven targets, the disaggregated one through a
+    rank-4 LoRA Server (the engines take the pool's scale)."""
+    targets = FFN if disagg else ("q", "k", "v", "o") + FFN
+    jcfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b").reduced(),
+                               lora_targets=targets, lora_rank=4)
+    key = jax.random.PRNGKey(3)
+    params = jmodel.init_params(jcfg, key, dtype="bfloat16")
+    pool = jadapter.init_adapter_pool(jcfg, 4, jax.random.fold_in(key, 1),
+                                      rank=4, dtype=jnp.bfloat16)
+    tcfg = bridge.config_from(jcfg)
+    bf16 = torch.bfloat16
+    tparams = bridge.tree_to_tensors(
+        jax.tree_util.tree_map(np.asarray, params), dtype=bf16)
+    tpool = bridge.adapter_pool(
+        tcfg, jax.tree_util.tree_map(np.asarray, pool.tensors), pool.rank,
+        pool.scale, dtype=bf16)
+    jserver = tserver = None
+    if disagg:
+        scfg = dict(m=1, x=1, y=1, cache_slots=4, rank=4)
+        jserver = jls.LoRAServer(jcfg, jls.ServerConfig(**scfg),
+                                 dtype=jnp.bfloat16)
+        tserver = tls.LoRAServer(tcfg, tls.ServerConfig(**scfg), dtype=bf16,
+                                 device="cpu")
+        for aid in range(pool.n):
+            jserver.insert(aid, jls.pool_tensors_from_adapter(pool, aid))
+            tserver.insert(aid, tls.pool_tensors_from_adapter(tpool, aid))
+    rng = np.random.default_rng(1)
+    prompts = {rid: rng.integers(0, jcfg.vocab_size, n).tolist()
+               for rid, n, _, _ in REQUESTS}
+    want = _drive(jengine.Engine(jcfg, params, jengine.EngineConfig(
+        paged=True, **ENGINE), pool=pool, server=jserver), prompts)
+    got = _drive(tengine.Engine(tcfg, tparams, tengine.EngineConfig(
+        paged=True, **ENGINE), tserver, device="cpu", pool=tpool), prompts)
+    assert got == want
+
+
 @pytest.mark.parametrize("extra", [[], ["--dense"]], ids=["paged", "dense"])
 def test_serve_coupled_entry_point_runs_on_cpu(capsys, extra):
     assert tserve.main(["--reduced", "--layers", "1", "--requests", "3",
@@ -354,3 +409,116 @@ def test_bgmv_kernel_matches_plain_on_card(cuda_device, dtype):
                                    atol=1e-5)
         assert torch.all(got[ids < 0] == 0)
         assert torch.equal(got, tbgmv.bgmv(x, A, B, ids))  # same bits
+
+
+def _any_rank_inputs(r, device, seed=12):
+    """A bf16 pool of rank r with true ranks 1, r // 2, r and 3 (+0.0 past
+    each), d_in = 200 and d_out = 48; rows of every adapter, two padding
+    rows and an id past the pool."""
+    rng = np.random.default_rng(seed)
+    T, N, d_in, d_out = 9, 4, 200, 48
+    ranks = np.array([1, r // 2, r, min(3, r)], np.int32)
+    A = (rng.standard_normal((N, d_in, r)) / r).astype(np.float32)
+    B = (rng.standard_normal((N, r, d_out)) * 0.1).astype(np.float32)
+    for n, k in enumerate(ranks):
+        A[n, :, k:] = 0.0
+        B[n, k:] = 0.0
+    x = rng.standard_normal((T, d_in)).astype(np.float32)
+    ids = np.array([0, -1, 3, 1, 2, -1, 3, 0, 9], np.int32)
+    x, A, B = (torch.from_numpy(a).to(device, torch.bfloat16)
+               for a in (x, A, B))
+    return x, A, B, torch.from_numpy(ids).to(device), \
+        torch.from_numpy(ranks).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [4, 24])
+def test_bgmv_kernels_take_any_rank_on_card(cuda_device, r):
+    """bf16 ranks that are not a multiple of the 8-value vector (4) or
+    whose 3 vector groups do not divide the block (24): bgmv and
+    bgmv_ranked against their twins, padding rows exact 0, the same bits
+    twice, and ranked == padded on the prefix-zero pool; at 9 rows (the
+    clusters) and at 144 (the shrink/expand pair)."""
+    x, A, B, ids, ranks = _any_rank_inputs(r, cuda_device)
+    for reps in (1, 16):
+        x, ids = x[:9].repeat(reps, 1), ids[:9].repeat(reps)
+        got = tbgmv.bgmv(x, A, B, ids)
+        torch.testing.assert_close(got, tref.bgmv_ref(x, A, B, ids), rtol=0,
+                                   atol=1e-5)
+        ranked = tbgmv.bgmv_ranked(x, A, B, ids, ranks)
+        torch.testing.assert_close(ranked, tref.bgmv_ranked_ref(
+            x, A, B, ids, ranks), rtol=0, atol=1e-5)
+        assert torch.all(got[ids < 0] == 0)
+        assert torch.equal(got, tbgmv.bgmv(x, A, B, ids))
+        assert torch.equal(ranked, got)
+
+
+@pytest.mark.gpu
+def test_bgmv_is_one_launch_a_call_on_card(cuda_device):
+    """One kernel a call below 128 rows, by the launch counter and by the
+    profiler, at the coupled plane's q shape (T = 8, d 4096 -> r 32 -> 8192:
+    clusters of 16 blocks a row) and at T = 40 (clusters of 2); at T = 200
+    the shrink/expand pair, one call by the counter; padding rows in
+    each."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(13)
+    cases = []
+    for T, d_in, r, d_out in ((8, 4096, 32, 8192), (40, 256, 16, 128),
+                              (200, 512, 24, 1024)):
+        A = torch.from_numpy((rng.standard_normal((4, d_in, r)) / r)
+                             .astype(np.float32)).to(cuda_device).bfloat16()
+        B = torch.from_numpy((rng.standard_normal((4, r, d_out)) * 0.01)
+                             .astype(np.float32)).to(cuda_device).bfloat16()
+        x = torch.randn(T, d_in, device=cuda_device).bfloat16()
+        ids = torch.from_numpy(rng.integers(-1, 4, T).astype(np.int32)
+                               ).to(cuda_device)
+        cases.append((x, A, B, ids))
+    for args in cases:
+        tbgmv.bgmv(*args)
+    torch.cuda.synchronize()
+    before = tbgmv.bgmv.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for args in cases + cases:
+            got = tbgmv.bgmv(*args)
+            torch.testing.assert_close(got, tref.bgmv_ref(*args), rtol=0,
+                                       atol=1e-4)
+        torch.cuda.synchronize()
+    assert tbgmv.bgmv.launches - before == 6
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    count = {k: sum(bool(re.search(rf"\bbgmv_{k}_kernel\b", n))
+                    for n in names)
+             for k in ("cluster", "shrink", "expand")}
+    assert count == {"cluster": 4, "shrink": 2, "expand": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [32, 1024])
+def test_bgmv_cluster_plan_fills_the_card(cuda_device, dtype, r):
+    """csrc/bgmv.cu plans the clusters: about one block an SM (T * kc <= SMs,
+    and twice kc would not fit) up to 16 blocks a row, 8 where a 16-block
+    cluster does not fit; rank 1024 takes 68 KiB of dynamic shared memory,
+    past the default limit, and the kernel still matches its twin there."""
+    lib = tbgmv._lib("bgmv", 7, 5)
+    code = 1 if dtype == torch.bfloat16 else 0
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    top = lib.bgmv_cluster_size(code, code, 1, r, 1 << 20)
+    assert top in (8, 16)
+    for T in (1, 8, 40, 127):
+        kc = lib.bgmv_cluster_size(code, code, T, r, n_sm)
+        assert kc in (1, 2, 4, 8, 16) and kc <= top
+        assert kc == 1 or T * kc <= n_sm
+        assert kc == top or 2 * kc * T > n_sm
+    rng = np.random.default_rng(14)
+    T, d_in, d_out = 8, 256, 128
+    A = torch.from_numpy((rng.standard_normal((3, d_in, r)) / r)
+                         .astype(np.float32)).to(cuda_device, dtype)
+    B = torch.from_numpy((rng.standard_normal((3, r, d_out)) * 0.01)
+                         .astype(np.float32)).to(cuda_device, dtype)
+    x = torch.randn(T, d_in, device=cuda_device).to(dtype)
+    ids = torch.tensor([0, 2, -1, 1, 1, 0, 2, -1], dtype=torch.int32,
+                       device=cuda_device)
+    torch.testing.assert_close(tbgmv.bgmv(x, A, B, ids),
+                               tref.bgmv_ref(x, A, B, ids), rtol=0,
+                               atol=1e-4)

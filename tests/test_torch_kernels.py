@@ -168,22 +168,25 @@ def test_profile_names_every_kernel_of_a_source(source):
                    if other != source)
 
 
-@pytest.mark.parametrize("r, dtype, threads, ok", [
-    (24, torch.bfloat16, None, True), (512, torch.bfloat16, None, True),
-    (20, torch.float32, None, True), (20, torch.bfloat16, None, False),
-    (24, torch.bfloat16, 256, False)])
-def test_factor_check_takes_any_whole_vector_rank(r, dtype, threads, ok):
-    """bgmv_expert.cu takes any whole number of 16-byte rank column groups
-    (3 of bf16 at r 24, 64 at r 512, 5 of f32 at r 20); r 20 in bf16 is not
-    whole, and bgmv.cu (``threads``) still needs the groups to divide its
-    256 threads."""
+@pytest.mark.parametrize("r, dtype, any_rank, ok", [
+    (24, torch.bfloat16, False, True), (512, torch.bfloat16, False, True),
+    (20, torch.float32, False, True), (20, torch.bfloat16, False, False),
+    (24, torch.bfloat16, True, True), (4, torch.bfloat16, True, True),
+    (6, torch.float32, True, True)])
+def test_factor_check_takes_any_whole_vector_rank(r, dtype, any_rank, ok):
+    """sgmv.cu takes any whole number of 16-byte rank column groups (3 of
+    bf16 at r 24, 64 at r 512, 5 of f32 at r 20), not r 20 in bf16;
+    bgmv.cu and bgmv_expert.cu (``any_rank``) take any rank, reading the
+    odd columns one at a time."""
     A = torch.zeros((1, 1, 8, r), dtype=dtype)
     B = torch.zeros((1, 1, r, 16), dtype=dtype)
     if ok:
-        tbgmv._check_factors("bgmv_expert", A, B, r, 16, threads)
+        tbgmv._check_factors("bgmv_expert", A, B, r, 16, any_rank)
     else:
         with pytest.raises(ValueError, match="multiples"):
-            tbgmv._check_factors("bgmv_expert", A, B, r, 16, threads)
+            tbgmv._check_factors("bgmv_expert", A, B, r, 16, any_rank)
+    with pytest.raises(ValueError, match="d_out=10"):
+        tbgmv._check_factors("bgmv", A, B, r, 10, any_rank)
 
 
 # ------------------------------ on the card ----------------------------- #
@@ -305,10 +308,14 @@ def test_bgmv_expert_kernel_at_the_hook_widths(cuda_device, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("r, dtype", [(24, torch.bfloat16),
                                       (512, torch.bfloat16),
-                                      (20, torch.float32)])
+                                      (20, torch.float32),
+                                      (4, torch.bfloat16),
+                                      (6, torch.float32)])
 def test_bgmv_expert_kernel_takes_any_rank_width(cuda_device, r, dtype):
     """A rank whose r / VEC column groups do not divide a warp (24 in bf16,
-    20 in f32), and one with more groups than a warp has lanes (512)."""
+    20 in f32), one with more groups than a warp has lanes (512), and ranks
+    that are not a whole number of 16-byte vectors (4 in bf16, 6 in f32:
+    read one value at a time)."""
     rng = np.random.default_rng(5)
     T, N, E, d_in, d_out = 96, 2, 3, 200, 48
     x = rng.standard_normal((T, d_in)).astype(np.float32)

@@ -259,8 +259,10 @@ def test_sgmv_takes_rank_groups_that_do_not_divide_the_threads(dtype, vec,
     A = torch.zeros((2, 16, 24), dtype=dtype)
     B = torch.zeros((2, 24, 40), dtype=dtype)
     tbgmv._check_factors("sgmv", A, B, cols, 40)
-    with pytest.raises(ValueError, match="dividing 256"):
-        tbgmv._check_factors("bgmv", A, B, cols, 40, 256)
+    # bgmv.cu no longer splits its threads by the groups: any rank
+    tbgmv._check_factors("bgmv", A, B, cols - 1, 40, any_rank=True)
+    with pytest.raises(ValueError, match="multiples"):
+        tbgmv._check_factors("sgmv", A, B, cols - 1, 40)
 
 
 @pytest.mark.parametrize("windows,d_out,tile,want", [
