@@ -39,7 +39,11 @@ port only. Phases, each of which fails the run with a non-zero exit:
    with its counters set to 0 just before: its invariants, its launch
    counts, each of its kernels held against its plain twin on the same
    bf16 inputs and timed beside its twin, its bound and, for ``gmm``, one
-   ``torch.bmm`` over all experts.
+   ``torch.bmm`` over all experts; then the segment kernels' repairs at
+   full width, each held to its twin: a rank-20 pool (not a whole 16-byte
+   vector of bf16 columns) through the four forms, and
+   ``sgmv_rank_grouped`` over segments whose ranks are interleaved, one
+   launch per distinct rank.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -476,16 +480,90 @@ def lora_path_phase(torch, ops, ref, counters, flush):
             print(f"{case}: err {err:.3g} (|out| <= "
                   f"{row['max_abs_out']:.3g})", flush=True)
         cases[case] = row
+    up, dn = cases["fused_sgmv"], cases["fused_sgmv_down"]
+    print(f"fused_sgmv: up hook {up['ms']:.4f} ms (bound "
+          f"{up['bound_ms']:.4f}); down hook, the padded cross-check of "
+          f"fused_sgmv_ranked, {dn['ms']:.4f} ms (bound "
+          f"{dn['bound_ms']:.4f})", flush=True)
     counts = res["counts"]
     del res
     torch.cuda.empty_cache()
     return launches, cases, counts
 
 
-def lora_rows(lora, plane_launches, gm_prefill):
+def repair_phase(torch, sgmv, fused, ref):
+    """The segment kernels at a pool rank of 20 columns (not a whole
+    16-byte vector of bf16) and d = 4096, over 64 segments of cap 16 in
+    adapter order (true ranks 4/8/16/20 interleaved, one segment in five
+    inactive, 1-16 rows with data each): sgmv, sgmv_ranked, fused_sgmv,
+    fused_sgmv_ranked and sgmv_rank_grouped, each held to its twin at
+    LORA_TOL, run twice for the same bits, inactive segments exact zeros;
+    sgmv_rank_grouped launches once per distinct rank."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 5)
+    S, cap, d, r, M, E = 64, 16, 4096, 20, 16, 4
+    seg = torch.arange(S, device=dev)
+    slot = (seg % M).to(torch.int32)
+    slot[4::5] = -1
+    true_rank = torch.tensor((4, 8, 16, 20), dtype=torch.int32,
+                             device=dev)[torch.arange(M, device=dev) % 4]
+    seg_rank = torch.where(slot >= 0, true_rank[slot.long().clamp(min=0)],
+                           0).to(torch.int32)
+    eid = (seg % E).to(torch.int32)
+    x = torch.randn(S, cap, d, generator=g, device=dev)
+    x = torch.where(torch.arange(cap, device=dev)[None, :, None]
+                    <= (seg % cap)[:, None, None], x, 0.0).bfloat16()
+    keep = torch.arange(r, device=dev)[None, :] < true_rank[:, None]
+    A = torch.randn(M, E, d, r, generator=g, device=dev) * d ** -0.5
+    Bm = torch.randn(M, E, r, d, generator=g, device=dev) * 0.01
+    A = torch.where(keep[:, None, None, :], A, 0.0).bfloat16()
+    Bm = torch.where(keep[:, None, :, None], Bm, 0.0).bfloat16()
+    A1, B1 = A[:, 0].contiguous(), Bm[:, 0].contiguous()
+    cases = {
+        "sgmv": (sgmv.sgmv, ref.sgmv_ref, (x, slot, A1, B1)),
+        "sgmv_ranked": (sgmv.sgmv_ranked, ref.sgmv_ranked_ref,
+                        (x, slot, seg_rank, A1, B1)),
+        "fused_sgmv": (fused.fused_sgmv, ref.fused_sgmv_ref,
+                       (x, slot, eid, A, Bm)),
+        "fused_sgmv_ranked": (fused.fused_sgmv_ranked,
+                              ref.fused_sgmv_ranked_ref,
+                              (x, slot, eid, seg_rank, A, Bm)),
+        "sgmv_rank_grouped": (sgmv.sgmv_rank_grouped,
+                              ref.sgmv_rank_grouped_ref,
+                              (x, slot, seg_rank, A1, B1)),
+    }
+    out = {}
+    for name, (fn, twin, args) in cases.items():
+        before = sgmv.sgmv.launches
+        got = fn(*args)
+        launched = sgmv.sgmv.launches - before
+        again = fn(*args)
+        want = twin(*args)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(err <= LORA_TOL, f"repair {name} (rank-20 pool): max abs err "
+              f"{err} > {LORA_TOL}")
+        check(torch.equal(got, again), f"repair {name}: two runs differ")
+        check(bool(torch.all(got[slot < 0] == 0)),
+              f"repair {name}: inactive segments not exact zeros")
+        if name == "sgmv_rank_grouped":
+            check(launched == 4, f"repair {name}: {launched} launches for "
+                  f"4 distinct ranks")
+        out[name] = {"max_abs_err": err}
+        print(f"repair {name} (pool rank {r}, d {d}, ranks interleaved): "
+              f"err {err:.3g}" + (f", {launched} launches"
+                                  if name == "sgmv_rank_grouped" else ""),
+              flush=True)
+    return out
+
+
+def lora_rows(lora, plane_launches, gm_prefill, repairs):
     """Rows 4-9 of the kernels line; ``gmm``'s launches are the coupled
     plane's (it carries both planes' base expert GEMMs), its times the
-    LoRA-kernel path's decode dispatch, with the prefill chunk's beside."""
+    LoRA-kernel path's decode dispatch, with the prefill chunk's beside.
+    Rows 5-8 (csrc/sgmv.cu) are marked redesigned, with the repairs'
+    check."""
     launches, cases, counts = lora
     rows = []
     for name, (parts, source, replaces) in LORA_ROWS.items():
@@ -506,9 +584,14 @@ def lora_rows(lora, plane_launches, gm_prefill):
                    calls={c: cases[c] for c in parts})
         if name == "bgmv_ranked":   # padded bgmv at the same shape
             row["padded"] = cases["bgmv"]
+        if source.endswith("sgmv.cu"):
+            row["redesigned"] = True
+            row["launch_unit"] = ("one sgmv_kernel a call, after a memset "
+                                  "of its completion counts")
         if name == "sgmv":
             row["rank_grouped"] = dict(cases["sgmv_rank_grouped"],
                                        launches=counts["rank_buckets"])
+            row["repairs"] = repairs
         if name == "fused_sgmv":
             row["cross_check"] = cases["fused_sgmv_down"]
         if name == "gmm":
@@ -896,6 +979,7 @@ def main() -> int:
                 "fused_sgmv": fused.fused_sgmv,
                 "fused_sgmv_ranked": fused.fused_sgmv_ranked, "gmm": gmm.gmm}
     lora = lora_path_phase(torch, ops, ref, counters, flush)
+    repairs = repair_phase(torch, sgmv, fused, ref)
     launches = main_paths(torch, ops, paged, bgmv, ref, counters)
 
     # "launches": the coupled plane's run for rows 1-3 and gmm, the
@@ -937,7 +1021,7 @@ def main() -> int:
                                      for t in bg.values()) else "operations",
              library_ms=None, per_layer="q + k + v + o deltas",
              targets=bg),
-        *lora_rows(lora, launches, gm),
+        *lora_rows(lora, launches, gm, repairs),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

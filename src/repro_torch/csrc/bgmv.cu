@@ -178,7 +178,10 @@ __device__ __forceinline__ void shrink_rows(const TX* __restrict__ xr,
   }
 }
 
-template <typename TX, typename TW>
+// kFull: d_out is a whole number of B's 16-byte vectors (every serving
+// shape), so B is read and out written in vectors; else one value at a
+// time. The launch picks the instantiation.
+template <typename TX, typename TW, bool kFull>
 __global__ void __launch_bounds__(kThreads)
     bgmv_cluster_kernel(const TX* __restrict__ x, const TW* __restrict__ A,
                 const TW* __restrict__ Bm, const int* __restrict__ ids,
@@ -221,7 +224,8 @@ __global__ void __launch_bounds__(kThreads)
         const int c = warp + (ub + u) * kWarps;
         bv[i][u] = make_uint4(0u, 0u, 0u, 0u);  // the bits of +0.0
         if (on && c < rank)
-          bv[i][u] = Vec<TW>::raw(bb + (size_t)c * d_out + tile0);
+          bv[i][u] = repro::raw_at(bb + (size_t)c * d_out + tile0,
+                                   d_out - tile0 - lane * VEC, kFull);
       }
     }
   };
@@ -294,7 +298,8 @@ __global__ void __launch_bounds__(kThreads)
         v.z += u.z;
         v.w += u.w;
       }
-      *reinterpret_cast<float4*>(out + (size_t)t * d_out + tile0 + c4) = v;
+      repro::store4(out + (size_t)t * d_out + tile0 + c4, v,
+                    d_out - tile0 - c4, kFull);
     }
     __syncthreads();  // red is reused by the next tiles
   }
@@ -318,7 +323,7 @@ __global__ void __launch_bounds__(kThreads) bgmv_shrink_kernel(
 
 // The pair's expand: block (t, j) writes d_out tile j of row t; warp w
 // takes the rank rows c = w, w + 8, ..., one load in flight a lane.
-template <typename TW>
+template <typename TW, bool kFull>
 __global__ void __launch_bounds__(kThreads) bgmv_expand_kernel(
     const TW* __restrict__ Bm, const int* __restrict__ ids,
     const int* __restrict__ ranks, const float* __restrict__ h_g,
@@ -329,7 +334,7 @@ __global__ void __launch_bounds__(kThreads) bgmv_expand_kernel(
   extern __shared__ float h_s[];  // r
   const int t = blockIdx.x, tile0 = blockIdx.y * kTile;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int width = min(kTile, d_out - tile0);  // a multiple of VEC
+  const int width = min(kTile, d_out - tile0);
   float* o = out + (size_t)t * d_out + tile0;
   const int slot = min(ids[t], N - 1);
   if (slot < 0) {
@@ -348,7 +353,8 @@ __global__ void __launch_bounds__(kThreads) bgmv_expand_kernel(
   if (on)
     for (int c = warp; c < rank; c += kWarps) {
       float wv[VEC];
-      Vec<TW>::load(b + (size_t)c * d_out, wv);
+      Vec<TW>::widen(
+          repro::raw_at(b + (size_t)c * d_out, width - lane * VEC, kFull), wv);
       const float hv = h_s[c];
 #pragma unroll
       for (int k = 0; k < VEC; ++k) y[k] = fmaf(hv, wv[k], y[k]);
@@ -356,7 +362,7 @@ __global__ void __launch_bounds__(kThreads) bgmv_expand_kernel(
 #pragma unroll
   for (int k = 0; k < VEC; ++k) red[warp * kTile + lane * VEC + k] = y[k];
   __syncthreads();
-  for (int i = tid; i < width / 4; i += kThreads) {
+  for (int i = tid; i < (width + 3) / 4; i += kThreads) {
     float4 v = reinterpret_cast<const float4*>(red)[i];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) {
@@ -366,7 +372,7 @@ __global__ void __launch_bounds__(kThreads) bgmv_expand_kernel(
       v.z += u.z;
       v.w += u.w;
     }
-    reinterpret_cast<float4*>(o)[i] = v;
+    repro::store4(o + 4 * i, v, width - 4 * i, kFull);
   }
 }
 
@@ -399,7 +405,7 @@ size_t cluster_smem(int r) {
 // kc for T rows of rank r on n_sm SMs of the current device: the power of
 // two at most kMaxCluster that puts about one block on each SM, 8 where a
 // 16-block cluster does not fit. The fit is asked once a device and rank.
-template <typename TX, typename TW>
+template <typename TX, typename TW, bool kFull>
 cudaError_t cluster_size(int T, int r, int n_sm, int* kc_out) {
   int kc = 1;
   while (kc < kMaxCluster && 2 * kc * T <= n_sm) kc *= 2;
@@ -414,7 +420,7 @@ cudaError_t cluster_size(int T, int r, int n_sm, int* kc_out) {
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (cache[dev].r != r) {
-    auto kern = bgmv_cluster_kernel<TX, TW>;
+    auto kern = bgmv_cluster_kernel<TX, TW, kFull>;
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err == cudaSuccess) err = allow_smem(kern, cluster_smem(r));
@@ -440,7 +446,7 @@ cudaError_t cluster_size(int T, int r, int n_sm, int* kc_out) {
   return cudaSuccess;
 }
 
-template <typename TX, typename TW>
+template <typename TX, typename TW, bool kFull>
 cudaError_t launch_cluster(const void* x, const void* A, const void* B,
                            const int* ids, const int* ranks, float* out,
                            int T, int N, int d_in, int r, int d_out,
@@ -448,10 +454,10 @@ cudaError_t launch_cluster(const void* x, const void* A, const void* B,
   int dev = 0, n_sm = 0, kc = 1;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = sm_count(dev, &n_sm);
-  if (err == cudaSuccess) err = cluster_size<TX, TW>(T, r, n_sm, &kc);
+  if (err == cudaSuccess) err = cluster_size<TX, TW, kFull>(T, r, n_sm, &kc);
   if (err != cudaSuccess) return err;
   const size_t smem = cluster_smem(r);
-  auto kern = bgmv_cluster_kernel<TX, TW>;
+  auto kern = bgmv_cluster_kernel<TX, TW, kFull>;
   err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
@@ -474,13 +480,13 @@ cudaError_t launch_cluster(const void* x, const void* A, const void* B,
   return cudaGetLastError();
 }
 
-template <typename TX, typename TW>
+template <typename TX, typename TW, bool kFull>
 int launch(const void* x, const void* A, const void* B, const int* ids,
            const int* ranks, float* h_g, float* out, int T, int N, int d_in,
            int r, int d_out, cudaStream_t stream) {
   if (T < kPairRows)
-    return (int)launch_cluster<TX, TW>(x, A, B, ids, ranks, out, T, N, d_in,
-                                       r, d_out, stream);
+    return (int)launch_cluster<TX, TW, kFull>(x, A, B, ids, ranks, out, T, N,
+                                              d_in, r, d_out, stream);
   constexpr int kTile = 32 * Vec<TW>::N;
   bgmv_shrink_kernel<TX, TW><<<T, kThreads, 0, stream>>>(
       static_cast<const TX*>(x), static_cast<const TW*>(A), ids, ranks, h_g,
@@ -488,12 +494,23 @@ int launch(const void* x, const void* A, const void* B, const int* ids,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t smem = sizeof(float) * (size_t)r;
-  auto kern = bgmv_expand_kernel<TW>;
+  auto kern = bgmv_expand_kernel<TW, kFull>;
   err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(T, (d_out + kTile - 1) / kTile), kThreads, smem, stream>>>(
       static_cast<const TW*>(B), ids, ranks, h_g, out, N, r, d_out);
   return (int)cudaGetLastError();
+}
+
+template <typename TX, typename TW>
+int launch_any(const void* x, const void* A, const void* B, const int* ids,
+               const int* ranks, float* h_g, float* out, int T, int N,
+               int d_in, int r, int d_out, cudaStream_t stream) {
+  if (d_out % Vec<TW>::N == 0)
+    return launch<TX, TW, true>(x, A, B, ids, ranks, h_g, out, T, N, d_in, r,
+                                d_out, stream);
+  return launch<TX, TW, false>(x, A, B, ids, ranks, h_g, out, T, N, d_in, r,
+                               d_out, stream);
 }
 
 }  // namespace
@@ -510,20 +527,20 @@ extern "C" int bgmv_cluster_size(int x_dtype, int w_dtype, int T, int r,
   int kc = 0;
   cudaError_t err = cudaErrorInvalidValue;
   if (x_dtype == 0 && w_dtype == 0)
-    err = cluster_size<float, float>(T, r, n_sm, &kc);
+    err = cluster_size<float, float, true>(T, r, n_sm, &kc);
   if (x_dtype == 0 && w_dtype == 1)
-    err = cluster_size<float, __nv_bfloat16>(T, r, n_sm, &kc);
+    err = cluster_size<float, __nv_bfloat16, true>(T, r, n_sm, &kc);
   if (x_dtype == 1 && w_dtype == 0)
-    err = cluster_size<__nv_bfloat16, float>(T, r, n_sm, &kc);
+    err = cluster_size<__nv_bfloat16, float, true>(T, r, n_sm, &kc);
   if (x_dtype == 1 && w_dtype == 1)
-    err = cluster_size<__nv_bfloat16, __nv_bfloat16>(T, r, n_sm, &kc);
+    err = cluster_size<__nv_bfloat16, __nv_bfloat16, true>(T, r, n_sm, &kc);
   return err == cudaSuccess ? kc : -(int)err;
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16; ranks is null (padded) or N
-// per-adapter true ranks (ranked); d_out is a multiple of the 16-byte
-// vector. From bgmv_pair_rows() rows on, h_g holds T * r floats of
-// scratch; below, it may be null. Returns a cudaError_t (0 = ok).
+// per-adapter true ranks (ranked); any r and d_out. From bgmv_pair_rows()
+// rows on, h_g holds T * r floats of scratch; below, it may be null.
+// Returns a cudaError_t (0 = ok).
 extern "C" int bgmv_launch(int x_dtype, int w_dtype, const void* x,
                            const void* A, const void* B, const int* ids,
                            const int* ranks, float* h_g, float* out, int T,
@@ -532,13 +549,13 @@ extern "C" int bgmv_launch(int x_dtype, int w_dtype, const void* x,
 #define REPRO_BGMV_ARGS \
   x, A, B, ids, ranks, h_g, out, T, N, d_in, r, d_out, st
   if (x_dtype == 0 && w_dtype == 0)
-    return launch<float, float>(REPRO_BGMV_ARGS);
+    return launch_any<float, float>(REPRO_BGMV_ARGS);
   if (x_dtype == 0 && w_dtype == 1)
-    return launch<float, __nv_bfloat16>(REPRO_BGMV_ARGS);
+    return launch_any<float, __nv_bfloat16>(REPRO_BGMV_ARGS);
   if (x_dtype == 1 && w_dtype == 0)
-    return launch<__nv_bfloat16, float>(REPRO_BGMV_ARGS);
+    return launch_any<__nv_bfloat16, float>(REPRO_BGMV_ARGS);
   if (x_dtype == 1 && w_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(REPRO_BGMV_ARGS);
+    return launch_any<__nv_bfloat16, __nv_bfloat16>(REPRO_BGMV_ARGS);
 #undef REPRO_BGMV_ARGS
   return (int)cudaErrorInvalidValue;
 }

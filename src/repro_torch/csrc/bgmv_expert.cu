@@ -77,7 +77,7 @@ constexpr int kItemBlocksPerSm = 4;
 
 // Block zb stores the zeros of zero tile zb, 64 rows x 32 * VEC columns,
 // at the tile's inactive rows, in float4 stores that nothing waits on.
-template <int VEC>
+template <int VEC, bool kFull>
 __device__ __forceinline__ void store_zeros(int zb,
                                             const int* __restrict__ ids,
                                             float* __restrict__ out, int T,
@@ -88,15 +88,16 @@ __device__ __forceinline__ void store_zeros(int zb,
   const int col_tiles = (d_out + kTile - 1) / kTile;
   const int row0 = (zb / col_tiles) * kRowTile;
   const int tile0 = (zb % col_tiles) * kTile;
-  const int n4 = min(kTile, d_out - tile0) / 4;
+  const int width = min(kTile, d_out - tile0), n4 = (width + 3) / 4;
   const int n_rows = min(kRowTile, T - row0);
   if (tid < n_rows) act_s[tid] = ids[row0 + tid] >= 0;
   __syncthreads();
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int i = tid; i < n_rows * n4; i += blockDim.x)
     if (!act_s[i / n4])
-      *reinterpret_cast<float4*>(out + (size_t)(row0 + i / n4) * d_out +
-                                 tile0 + (i % n4) * 4) = zero;
+      repro::store4(out + (size_t)(row0 + i / n4) * d_out + tile0 +
+                        (i % n4) * 4,
+                    zero, width - (i % n4) * 4, kFull);
 }
 
 // Block 0: meta[0].x = n, the number of active rows (ids >= 0); meta[1 + a]
@@ -105,13 +106,17 @@ __device__ __forceinline__ void store_zeros(int zb,
 // a run of ids. Block 1 + zb stores the zeros of zero tile zb
 // (store_zeros): the zero stores, most of the kernel's bytes, run beside the
 // scan, whose one block holds few registers.
-template <int VEC>
+//
+// kFull (this kernel and the expand): d_out is a whole number of B's
+// 16-byte vectors (every serving shape), so B is read and out written in
+// vectors; else one value at a time. The launch picks the instantiation.
+template <int VEC, bool kFull>
 __global__ void __launch_bounds__(kScanThreads) bgmv_expert_scan_kernel(
     const int* __restrict__ ids, const int* __restrict__ eids,
     const int* __restrict__ ranks, int4* __restrict__ meta,
     float* __restrict__ out, int T, int N, int E, int r_mod, int d_out) {
   if (blockIdx.x > 0) {
-    store_zeros<VEC>(blockIdx.x - 1, ids, out, T, d_out);
+    store_zeros<VEC, kFull>(blockIdx.x - 1, ids, out, T, d_out);
     return;
   }
   __shared__ int warp_s[32];
@@ -245,7 +250,7 @@ __global__ void __launch_bounds__(kThreads) bgmv_expert_shrink_kernel(
 
 // out at the active rows: each block strides over the (active row, d_out
 // tile of 32 * VEC columns) items.
-template <typename TW>
+template <typename TW, bool kFull>
 __global__ void __launch_bounds__(kThreads) bgmv_expert_expand_kernel(
     const TW* __restrict__ Bm, const int4* __restrict__ meta,
     const float* __restrict__ part, float* __restrict__ out, int r,
@@ -261,7 +266,7 @@ __global__ void __launch_bounds__(kThreads) bgmv_expert_expand_kernel(
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     const int a = item / col_tiles;
     const int tile0 = (item % col_tiles) * kTile;
-    const int width = min(kTile, d_out - tile0);  // a multiple of VEC
+    const int width = min(kTile, d_out - tile0);
     const int4 m = meta[1 + a];
     const int t = m.x, slice = m.y, rank = m.z;
     // h = part[a, :, c] summed over s in ascending order, then masked
@@ -299,7 +304,8 @@ __global__ void __launch_bounds__(kThreads) bgmv_expert_expand_kernel(
           hv[u] = 0.f;
           // a column the mask zeroes is not read: h is 0 there
           if (cu < r && (cu % r_mod) < rank) {
-            bv[u] = Vec<TW>::raw(b + (size_t)cu * d_out);
+            bv[u] = repro::raw_at(b + (size_t)cu * d_out, width - lane * VEC,
+                                  kFull);
             hv[u] = h_s[cu];
           }
         }
@@ -316,7 +322,7 @@ __global__ void __launch_bounds__(kThreads) bgmv_expert_expand_kernel(
     for (int k = 0; k < VEC; ++k) red[warp * kTile + lane * VEC + k] = y[k];
     __syncthreads();
     float* o = out + (size_t)t * d_out + tile0;
-    for (int i = tid; i < width / 4; i += kThreads) {
+    for (int i = tid; i < (width + 3) / 4; i += kThreads) {
       float4 v = reinterpret_cast<const float4*>(red)[i];
 #pragma unroll
       for (int w = 1; w < kWarps; ++w) {
@@ -326,7 +332,7 @@ __global__ void __launch_bounds__(kThreads) bgmv_expert_expand_kernel(
         v.z += u.z;
         v.w += u.w;
       }
-      reinterpret_cast<float4*>(o)[i] = v;
+      repro::store4(o + 4 * i, v, width - 4 * i, kFull);
     }
     __syncthreads();  // h_s and red are reused by the next item
   }
@@ -359,8 +365,11 @@ int launch(const void* x, const void* A, const void* B, const int* ids,
   int4* m4 = reinterpret_cast<int4*>(meta);
   const int col_tiles = (d_out + 32 * VEC - 1) / (32 * VEC);
   const int zeros = (T + kRowTile - 1) / kRowTile * col_tiles;
-  bgmv_expert_scan_kernel<VEC><<<1 + zeros, kScanThreads, 0, stream>>>(
-      ids, eids, ranks, m4, out, T, N, E, r_mod, d_out);
+  const bool full = d_out % VEC == 0;
+  auto scan = full ? bgmv_expert_scan_kernel<VEC, true>
+                   : bgmv_expert_scan_kernel<VEC, false>;
+  scan<<<1 + zeros, kScanThreads, 0, stream>>>(ids, eids, ranks, m4, out, T,
+                                               N, E, r_mod, d_out);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   bgmv_expert_shrink_kernel<TX, TW>
@@ -370,7 +379,8 @@ int launch(const void* x, const void* A, const void* B, const int* ids,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t smem = sizeof(float) * (size_t)r;
-  auto kern = bgmv_expert_expand_kernel<TW>;
+  auto kern = full ? bgmv_expert_expand_kernel<TW, true>
+                   : bgmv_expert_expand_kernel<TW, false>;
   err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

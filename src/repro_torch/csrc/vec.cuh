@@ -1,5 +1,6 @@
-// Loads shared by the port's LoRA kernels: a value or a 16-byte vector of
-// float32 or bfloat16, widened to float32.
+// Loads and stores shared by the port's LoRA kernels: a value or a 16-byte
+// vector of float32 or bfloat16, widened to float32; float4 stores that
+// take a row's last partial vector.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -76,5 +77,27 @@ struct Vec<__nv_bfloat16> {
     widen(raw(p), out);
   }
 };
+
+// The vector of the n values at p: raw() when full (all N wanted, p 16-byte
+// aligned: the caller knows it for a whole launch), else raw_n().
+template <typename T>
+__device__ __forceinline__ uint4 raw_at(const T* p, int n, bool full) {
+  return full ? Vec<T>::raw(p)
+              : Vec<T>::raw_n(p, n < Vec<T>::N ? n : Vec<T>::N);
+}
+
+// The first n values of v at p: one float4 when vec (n >= 4 and p 16-byte
+// aligned), else one value at a time.
+__device__ __forceinline__ void store4(float* p, const float4& v, int n,
+                                       bool vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(p) = v;
+    return;
+  }
+  if (n > 0) p[0] = v.x;
+  if (n > 1) p[1] = v.y;
+  if (n > 2) p[2] = v.z;
+  if (n > 3) p[3] = v.w;
+}
 
 }  // namespace repro

@@ -58,19 +58,12 @@ def _lib(name: str, n_ptr: int, n_int: int):
     return lib
 
 
-def _check_factors(name, A, B, r: int, d_out: int,
-                   any_rank: bool = False) -> None:
-    """What the kernels' 16-byte factor loads need: d_out a multiple of the
-    vector, aligned factors and, unless ``any_rank`` (bgmv.cu and
-    bgmv_expert.cu read a rank's odd columns one at a time; sgmv.cu does
-    not), a rank that is a multiple of the vector."""
+def _check_factors(name, A, B) -> None:
+    """What the kernels' factor loads need: one dtype and 16-byte aligned
+    factors. Any rank and any d_out: a 16-byte piece of a row that is not
+    whole or not aligned is read one value at a time."""
     if A.dtype != B.dtype:
         raise TypeError(f"{name}: A and B differ in dtype")
-    vec = VEC_BYTES // A.element_size()
-    if r < 1 or (r % vec and not any_rank) or d_out % vec:
-        raise ValueError(f"{name}: " + (f"d_out={d_out}" if any_rank else
-                                        f"r={r} and d_out={d_out}")
-                         + f" must be multiples of {vec}")
     if A.data_ptr() % VEC_BYTES or B.data_ptr() % VEC_BYTES:
         raise ValueError(f"{name}: A and B must be 16-byte aligned")
 
@@ -92,7 +85,7 @@ def _bgmv(name, x, A, B, ids, ranks: Optional[torch.Tensor]):
     if ranks is not None and tuple(ranks.shape) != (N,):
         raise ValueError(f"{name}: ranks must be (N,), one per adapter")
     lib = _lib("bgmv", 7, 5)
-    _check_factors(name, A, B, r, d_out, any_rank=True)
+    _check_factors(name, A, B)
     out = torch.empty((T, d_out), dtype=torch.float32, device=dev)
     if T == 0:
         return out
@@ -150,7 +143,7 @@ def bgmv_expert(x, A, B, ids, eids, ranks: Optional[torch.Tensor] = None,
     if any(tuple(t.shape) != (T,) for t in operands[3:]):
         raise ValueError(f"{name}: ids, eids and ranks must be (T,)")
     lib = _lib(name, 9, 7)
-    _check_factors(name, A, B, r, d_out, any_rank=True)
+    _check_factors(name, A, B)
     r_mod = int(r_mod) or r
     out = torch.empty((T, d_out), dtype=torch.float32, device=dev)
     if T == 0:

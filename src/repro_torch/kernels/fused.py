@@ -9,10 +9,11 @@ over (slot, expert) segments.
   | seg_eid (S,) int32 | seg_rank (S,) int32 (ranked) | A (M, E, d_in, r)
   | B (M, E, r, d_out) -> (S, cap, d_out) f32
 
-One launch per call; the (cap, r) shrink result stays in shared memory.
-The ranked form masks h at ``col < seg_rank[s]``. The LoRA Server's fused
-gate|up hook is block-diagonal (two r_pool-wide blocks) and masks at
-``col % r_pool < rank``, which this mask does not express: on the up hook
+One launch of ``csrc/sgmv.cu`` (one kernel) per call; the shrink items'
+partial h goes through the wrapper's scratch. The ranked form
+masks h at ``col < seg_rank[s]``. The LoRA Server's fused gate|up hook is
+block-diagonal (two r_pool-wide blocks) and masks at ``col % r_pool <
+rank``, which this mask does not express: on the up hook
 the path runs the padded ``fused_sgmv`` over a prefix-zero pool, where the
 two agree.
 """

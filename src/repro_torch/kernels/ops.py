@@ -68,8 +68,8 @@ def sgmv_ranked(seg_rows, seg_adapter, seg_rank, A, B):
 
 
 def sgmv_rank_grouped(seg_rows, seg_adapter, seg_rank, A, B):
-    """Rank-bucketed SGMV: one ``sgmv`` launch per distinct active rank
-    (feed it ``build_segments_ranked``'s layout)."""
+    """Rank-bucketed SGMV: one ``sgmv`` launch per distinct active rank,
+    over segments in any order (see kernels/sgmv.py)."""
     if seg_rows.device.type == "cpu":
         return _ref.sgmv_rank_grouped_ref(seg_rows, seg_adapter, seg_rank,
                                           A, B)

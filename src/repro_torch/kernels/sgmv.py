@@ -11,7 +11,8 @@ wrappers of ``csrc/sgmv.cu`` for the single-index forms.
 
 ``sgmv_rank_grouped`` (the reference's ``repro.kernels.ops
 .sgmv_rank_grouped``) launches ``sgmv`` once per distinct active rank, each
-bucket reading only its rank's columns of the pool in place.
+bucket a list of segment indices in any order, reading only its rank's
+columns of the pool in place.
 
 ``build_segments`` and ``build_segments_ranked`` turn a flat batch of rows
 with one adapter id each into that layout, on the rows' device and without
@@ -19,6 +20,7 @@ a host sync.
 """
 from __future__ import annotations
 
+import bisect
 import ctypes
 from typing import List, Tuple
 
@@ -27,8 +29,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels._launch import (check_cuda, check_int32, dtype_code,
                                          raise_on_error)
-from repro_torch.kernels.bgmv import VEC_BYTES, _check_factors
-from repro_torch.kernels.paged import N_SM
+from repro_torch.kernels.bgmv import _check_factors
 
 INT32_MAX = 2**31 - 1
 
@@ -38,32 +39,32 @@ def _lib():
     fn = lib.sgmv_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i, i] + [p] * 7 + [i] * 9 + [p]
+        fn.argtypes = [i, i, i] + [p] * 9 + [i] * 10 + [p]
         fn.restype = ctypes.c_int
-        for name in ("sgmv_max_rank", "sgmv_tile_cols", "sgmv_window_rows"):
+        for name in ("sgmv_max_rank", "sgmv_max_splits"):
             getattr(lib, name).restype = ctypes.c_int
-        lib.sgmv_tile_cols.argtypes = [i]
+        lib.sgmv_part_floats.argtypes = [i, i, i]
+        lib.sgmv_part_floats.restype = ctypes.c_longlong
     return lib
 
 
-def tile_plan(windows: int, d_out: int, tile_cols: int) -> int:
-    """d_out tiles per block: all of d_out in one block when the row
-    windows (segments x cap / 8) fill the card (about two blocks per SM),
-    else d_out split across blocks."""
-    n_tiles = -(-d_out // tile_cols)
-    blocks_y = min(n_tiles, max(1, -(-2 * N_SM // max(windows, 1))))
-    return -(-n_tiles // blocks_y)
+SPLIT_ROWS = 1024   # d_in rows of a shrink item, up to the most splits
 
 
-def launch(name: str, seg_rows, A, B, slots, eids, ranks, out, r: int):
-    """One launch of ``csrc/sgmv.cu`` over the first ``r`` rank columns of
-    the pool. A: (M, E, d_in, r_pool), B: (M, E, r_pool, d_out); ``eids``
-    None means E = 1; ``ranks`` None means the padded form. ``out`` is
-    (S, cap, d_out) f32 and contiguous. The caller counts the launch."""
-    operands = [seg_rows, A, B, slots, out] + [t for t in (eids, ranks)
-                                               if t is not None]
-    dev = check_cuda(name, *operands)
-    check_int32(name, slots, *[t for t in (eids, ranks) if t is not None])
+def split_plan(d_in: int, max_splits: int = 16) -> int:
+    """Splits of d_in for ``csrc/sgmv.cu``'s shrink items: enough that an
+    item contracts at most SPLIT_ROWS rows (4 at d_in = 4096, 2 at 1536),
+    at most ``max_splits``; the items then fill the card and balance its
+    persistent grid."""
+    return max(1, min(max_splits, -(-d_in // SPLIT_ROWS)))
+
+
+def _operands(name: str, seg_rows, A, B, slots, eids, ranks, out):
+    """Checks of one call of ``csrc/sgmv.cu``; returns the library and
+    (S, cap, d_in, M, E, r_pool, d_out)."""
+    extra = [t for t in (eids, ranks) if t is not None]
+    check_cuda(name, seg_rows, A, B, slots, out, *extra)
+    check_int32(name, slots, *extra)
     if seg_rows.dim() != 3 or A.dim() != 4 or B.dim() != 4:
         raise ValueError(f"{name}: seg_rows (S,cap,d_in), A (M,E,d_in,r), "
                          f"B (M,E,r,d_out)")
@@ -79,31 +80,49 @@ def launch(name: str, seg_rows, A, B, slots, eids, ranks, out, r: int):
         raise ValueError(f"{name}: segment ids and ranks must be (S,)")
     if tuple(out.shape) != (S, cap, d_out) or out.dtype != torch.float32:
         raise ValueError(f"{name}: out must be (S, cap, d_out) float32")
-    lib = _lib()
+    _check_factors(name, A, B)
+    return _lib(), (S, cap, d_in, M, E, r_pool, d_out)
+
+
+def _check_rank(name: str, lib, r: int, r_pool: int) -> None:
     if not 0 < r <= min(r_pool, lib.sgmv_max_rank()):
         raise ValueError(f"{name}: rank columns r={r} must lie in "
                          f"1..min(r_pool={r_pool}, {lib.sgmv_max_rank()})")
-    _check_factors(name, A, B, r, d_out)
-    if r_pool % (VEC_BYTES // A.element_size()):
-        raise ValueError(f"{name}: the pool's rank r_pool={r_pool} must be a "
-                         f"multiple of the 16-byte vector")
-    xvec = VEC_BYTES // seg_rows.element_size()
-    if d_in % xvec or seg_rows.data_ptr() % VEC_BYTES:
-        raise ValueError(f"{name}: d_in={d_in} must be a multiple of {xvec} "
-                         f"and seg_rows 16-byte aligned")
-    if S == 0 or cap == 0:
-        return out
-    windows = S * -(-cap // lib.sgmv_window_rows())
-    tpb = tile_plan(windows, d_out, lib.sgmv_tile_cols(dtype_code(name, A)))
+
+
+def _call(name, lib, dims, seg_rows, A, B, slots, eids, ranks, index, out,
+          r: int) -> None:
+    """One launch of ``csrc/sgmv.cu`` on checked operands (``dims`` from
+    ``_operands``) over the segments ``index`` (None: all S in order)."""
+    S, cap, d_in, M, E, r_pool, d_out = dims
+    _check_rank(name, lib, r, r_pool)
+    n_seg = S if index is None else index.shape[0]
+    if n_seg == 0 or cap == 0:
+        return
+    splits = split_plan(d_in, lib.sgmv_max_splits())
+    part = torch.empty(n_seg * lib.sgmv_part_floats(cap, r, splits),
+                       dtype=torch.float32, device=out.device)
     err = lib.sgmv_launch(
         dtype_code(name, seg_rows), dtype_code(name, A),
         int(ranks is not None), seg_rows.data_ptr(), A.data_ptr(),
         B.data_ptr(), slots.data_ptr(),
         eids.data_ptr() if eids is not None else None,
-        ranks.data_ptr() if ranks is not None else None, out.data_ptr(),
-        S, cap, M, E, d_in, r, r_pool, d_out, tpb,
-        torch.cuda.current_stream(dev).cuda_stream)
+        ranks.data_ptr() if ranks is not None else None,
+        index.data_ptr() if index is not None else None,
+        out.data_ptr(), part.data_ptr(), S, n_seg, cap, M, E, d_in, r,
+        r_pool, d_out, splits,
+        torch.cuda.current_stream(out.device).cuda_stream)
     raise_on_error(name, err)
+
+
+def launch(name: str, seg_rows, A, B, slots, eids, ranks, out, r: int):
+    """One launch of ``csrc/sgmv.cu`` over all segments and the first ``r``
+    rank columns of the pool. A: (M, E, d_in, r_pool), B: (M, E, r_pool,
+    d_out); ``eids`` None means E = 1; ``ranks`` None means the padded
+    form. ``out`` is (S, cap, d_out) f32 and contiguous. The caller counts
+    the launch."""
+    lib, dims = _operands(name, seg_rows, A, B, slots, eids, ranks, out)
+    _call(name, lib, dims, seg_rows, A, B, slots, eids, ranks, None, out, r)
     return out
 
 
@@ -136,49 +155,52 @@ def sgmv_ranked(seg_rows, seg_adapter, seg_rank, A, B):
 sgmv_ranked.launches = 0
 
 
-def rank_buckets(seg_adapter, seg_rank, r: int, vec: int
-                 ) -> List[Tuple[int, int, int]]:
-    """The launches of ``sgmv_rank_grouped``: (first segment, end, rank
-    columns) for each distinct rank of the active segments, the columns
-    being the rank rounded up to the kernel's 16-byte vector ``vec`` (8
-    bf16, 4 f32) and at most the pool rank ``r``. Each bucket must be one
-    contiguous run of segments, as ``build_segments_ranked`` lays them out.
-    Reads the ranks on the host (one sync, as the reference's loop)."""
-    ad = seg_adapter.tolist()
-    rk = seg_rank.tolist()
-    runs: List[Tuple[int, int, int]] = []
-    for s, (a, k) in enumerate(zip(ad, rk)):
-        if a < 0:
-            continue
-        if runs and runs[-1][1] == s and runs[-1][2] == k:
-            runs[-1] = (runs[-1][0], s + 1, k)
-        else:
-            runs.append((s, s + 1, k))
-    if len({k for _, _, k in runs}) != len(runs):
-        raise ValueError("sgmv_rank_grouped: the segments of one rank are "
-                         "not contiguous (lay them out with "
-                         "build_segments_ranked)")
-    return [(lo, hi, min(r, max(vec, -(-int(k) // vec) * vec)))
-            for lo, hi, k in runs]
+def rank_buckets(seg_adapter, seg_rank, r: int
+                 ) -> Tuple[torch.Tensor, List[Tuple[int, torch.Tensor]]]:
+    """The launches of ``sgmv_rank_grouped``, for segments in any order:
+    the inactive segments, and for each distinct rank of the active ones
+    in ascending order (its rank columns, at most the pool rank ``r``; its
+    segments in ascending order). The index lists are int32 slices of one
+    tensor on the segments' device, sorted there; the host reads the
+    sorted ranks once (one sync, as the reference's loop reads them)."""
+    act = seg_adapter >= 0
+    key = torch.where(act, seg_rank.clamp(min=0), -1)
+    order = torch.argsort(key, stable=True).to(torch.int32)
+    keys = key[order.long()].tolist()
+    n_idle = lo = bisect.bisect_right(keys, -1)
+    buckets = []
+    while lo < len(keys):
+        hi = bisect.bisect_right(keys, keys[lo], lo)
+        buckets.append((min(r, int(keys[lo])), order[lo:hi]))
+        lo = hi
+    return order[:n_idle], buckets
 
 
 def sgmv_rank_grouped(seg_rows, seg_adapter, seg_rank, A, B):
     """Rank-bucketed SGMV: one ``sgmv`` launch per distinct active rank,
-    over that bucket's segments and the first columns of the pool that
-    cover its rank (read in place, no copy). The segments outside every
-    bucket (inactive) are set to zeros. On a prefix-zero pool it gives the
-    values of ``sgmv_ranked``."""
-    check_cuda("sgmv_rank_grouped", seg_rows, seg_adapter, seg_rank, A, B)
+    over that bucket's segments (any order: the kernel takes their
+    indices) and the pool's first rank columns (read in place, no copy).
+    The inactive segments ride with the first launch, which stores their
+    zeros; an active segment of rank 0 gets zeros. On a prefix-zero pool it
+    gives the values of ``sgmv_ranked``."""
+    name = "sgmv_rank_grouped"
     out = _out(seg_rows, B)
-    vec = VEC_BYTES // A.element_size()
-    done = 0
-    for lo, hi, cols in rank_buckets(seg_adapter, seg_rank, A.shape[-1], vec):
-        out[done:lo].zero_()
-        launch("sgmv", seg_rows[lo:hi], A[:, None], B[:, None],
-               seg_adapter[lo:hi], None, None, out[lo:hi], cols)
-        sgmv.launches += 1
-        done = hi
-    out[done:].zero_()
+    A, B = A[:, None], B[:, None]
+    lib, dims = _operands(name, seg_rows, A, B, seg_adapter, None, seg_rank,
+                          out)
+    idle, buckets = rank_buckets(seg_adapter, seg_rank, A.shape[-1])
+    runs = [(cols, idx) for cols, idx in buckets if cols > 0]
+    if not runs or seg_rows.shape[1] == 0:
+        return out.zero_()
+    for cols, idx in buckets:
+        if cols <= 0:
+            out[idx.long()] = 0.0
+    for b, (cols, idx) in enumerate(runs):
+        if b == 0 and idle.shape[0]:
+            idx = torch.cat((idle, idx))
+        _call(name, lib, dims, seg_rows, A, B, seg_adapter, None, None, idx,
+              out, cols)
+    sgmv.launches += len(runs)
     return out
 
 

@@ -168,25 +168,22 @@ def test_profile_names_every_kernel_of_a_source(source):
                    if other != source)
 
 
-@pytest.mark.parametrize("r, dtype, any_rank, ok", [
-    (24, torch.bfloat16, False, True), (512, torch.bfloat16, False, True),
-    (20, torch.float32, False, True), (20, torch.bfloat16, False, False),
-    (24, torch.bfloat16, True, True), (4, torch.bfloat16, True, True),
-    (6, torch.float32, True, True)])
-def test_factor_check_takes_any_whole_vector_rank(r, dtype, any_rank, ok):
-    """sgmv.cu takes any whole number of 16-byte rank column groups (3 of
-    bf16 at r 24, 64 at r 512, 5 of f32 at r 20), not r 20 in bf16;
-    bgmv.cu and bgmv_expert.cu (``any_rank``) take any rank, reading the
-    odd columns one at a time."""
-    A = torch.zeros((1, 1, 8, r), dtype=dtype)
-    B = torch.zeros((1, 1, r, 16), dtype=dtype)
-    if ok:
-        tbgmv._check_factors("bgmv_expert", A, B, r, 16, any_rank)
-    else:
-        with pytest.raises(ValueError, match="multiples"):
-            tbgmv._check_factors("bgmv_expert", A, B, r, 16, any_rank)
-    with pytest.raises(ValueError, match="d_out=10"):
-        tbgmv._check_factors("bgmv", A, B, r, 10, any_rank)
+@pytest.mark.parametrize("r, dtype, d_out", [
+    (24, torch.bfloat16, 16), (512, torch.bfloat16, 16),
+    (20, torch.float32, 16), (20, torch.bfloat16, 16),
+    (24, torch.bfloat16, 10), (4, torch.bfloat16, 44),
+    (6, torch.float32, 45)])
+def test_factor_check_takes_any_whole_vector_rank(r, dtype, d_out):
+    """bgmv.cu, bgmv_expert.cu and sgmv.cu take any rank and any d_out (a
+    piece of a row that is not a whole 16-byte vector is read one value at
+    a time): the check asks only for one dtype and aligned factors."""
+    A = torch.zeros((1, 1, 8, r + 8), dtype=dtype)
+    B = torch.zeros((1, 1, r, d_out + 8), dtype=dtype)
+    tbgmv._check_factors("bgmv_expert", A[..., :r], B[..., :d_out])
+    with pytest.raises(TypeError, match="differ in dtype"):
+        tbgmv._check_factors("bgmv", A, B.to(torch.float16))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tbgmv._check_factors("bgmv", A.reshape(-1)[1:9], B)
 
 
 # ------------------------------ on the card ----------------------------- #

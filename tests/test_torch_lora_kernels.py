@@ -233,46 +233,96 @@ def test_sgmv_rank_grouped_matches_reference(monkeypatch):
     assert torch.equal(got, tref.sgmv_ranked_ref(*seg[:3], *_t((A, B))))
 
 
+def _bucket_plan(ad, rank, r):
+    idle, buckets = tsgmv.rank_buckets(ad, rank, r)
+    assert all(i.dtype == torch.int32 for _, i in buckets)
+    return idle.tolist(), [(cols, i.tolist()) for cols, i in buckets]
+
+
 def test_rank_buckets_plan():
     ad = torch.tensor([3, 0, 5, 1, 2, -1, -1], dtype=torch.int32)
     rank = torch.tensor([2, 4, 4, 16, 64, 0, 0], dtype=torch.int32)
-    assert tsgmv.rank_buckets(ad, rank, 64, 8) == [
-        (0, 1, 8), (1, 3, 8), (3, 4, 16), (4, 5, 64)]
-    assert tsgmv.rank_buckets(ad, rank, 64, 4) == [
-        (0, 1, 4), (1, 3, 4), (3, 4, 16), (4, 5, 64)]
-    assert tsgmv.rank_buckets(ad, rank, 32, 8)[-1] == (4, 5, 32)
-    assert tsgmv.rank_buckets(ad[5:], rank[5:], 64, 8) == []
-    with pytest.raises(ValueError, match="contiguous"):
-        tsgmv.rank_buckets(torch.tensor([0, 1, 2], dtype=torch.int32),
-                           torch.tensor([4, 8, 4], dtype=torch.int32), 64, 8)
+    assert _bucket_plan(ad, rank, 64) == (
+        [5, 6], [(2, [0]), (4, [1, 2]), (16, [3]), (64, [4])])
+    # a bucket's columns are its rank, at most the pool rank: no rounding
+    assert _bucket_plan(ad, rank, 32)[1][-1] == (32, [4])
+    assert _bucket_plan(ad[5:], rank[5:], 64) == ([0, 1], [])
+    # the segments of one rank need not be contiguous: any order is taken
+    assert _bucket_plan(torch.tensor([0, 1, 2], dtype=torch.int32),
+                        torch.tensor([4, 8, 4], dtype=torch.int32), 64) == (
+        [], [(4, [0, 2]), (8, [1])])
+
+
+def _rank_grouped_by_plan(seg, ad, rank, A, B):
+    """sgmv_rank_grouped's launches as csrc/sgmv.cu runs them (each bucket
+    through the padded twin over its index list and first rank columns;
+    the inactive segments zeros), on the CPU."""
+    out = torch.full((seg.shape[0], seg.shape[1], B.shape[-1]), float("nan"))
+    idle, buckets = tsgmv.rank_buckets(ad, rank, A.shape[-1])
+    out[idle.long()] = 0.0
+    for cols, idx in buckets:
+        i = idx.long()
+        out[i] = tref.sgmv_ref(seg[i], ad[i], A[..., :cols], B[:, :cols])
+    return out
+
+
+def test_sgmv_rank_grouped_takes_any_bucket_order(monkeypatch):
+    """build_segments' layout (adapter order, ranks interleaved) against
+    the reference's Pallas dispatch, which gathers each bucket by index."""
+    rng = np.random.default_rng(11)
+    ranks = np.array([8, 4, 16, 4, 32, 8, 4], np.int32)
+    A = (rng.standard_normal((7, 16, 32)) * 0.05).astype(np.float32)
+    B = (rng.standard_normal((7, 32, 24)) * 0.05).astype(np.float32)
+    for n, rank in enumerate(ranks):
+        A[n, :, rank:] = 0.0
+        B[n, rank:, :] = 0.0
+    rows = rng.standard_normal((41, 16)).astype(np.float32)
+    ids = rng.integers(-1, 7, 41).astype(np.int32)
+    seg, ad, _ = tops.build_segments(torch.from_numpy(rows),
+                                     torch.from_numpy(ids), 7, 8)
+    rank = torch.where(ad >= 0, torch.from_numpy(ranks)[ad.long().clamp(
+        min=0)], 0).to(torch.int32)
+    act = rank[ad >= 0].tolist()
+    assert act != sorted(act)            # the buckets are interleaved
+    got = tops.sgmv_rank_grouped(seg, ad, rank, *_t((A, B)))
+    monkeypatch.setenv("REPRO_USE_PALLAS", "1")
+    want = np.asarray(jops.sgmv_rank_grouped(
+        jnp.asarray(seg.numpy()), jnp.asarray(ad.numpy()),
+        jnp.asarray(rank.numpy()), jnp.asarray(A), jnp.asarray(B)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
+    np.testing.assert_allclose(
+        _rank_grouped_by_plan(seg, ad, rank, *_t((A, B))).numpy(), want,
+        rtol=0, atol=TOL)
 
 
 @pytest.mark.parametrize("dtype,vec,cols", [(torch.bfloat16, 8, 24),
                                             (torch.float32, 4, 20)])
 def test_sgmv_takes_rank_groups_that_do_not_divide_the_threads(dtype, vec,
                                                                 cols):
-    # a rank-20 bucket is 24 bf16 columns (3 groups of 8) or 20 f32 columns
-    # (5 groups of 4); neither count divides the kernel's 256 threads
+    # a bucket of rank cols - 1 (23 bf16 or 19 f32 columns, not a whole
+    # number of the 16-byte vector) reads exactly its rank's columns
     ad = torch.tensor([0, 1], dtype=torch.int32)
-    rank = torch.tensor([4, 20], dtype=torch.int32)
-    assert tsgmv.rank_buckets(ad, rank, 24, vec)[-1] == (1, 2, cols)
+    rank = torch.tensor([4, cols - 1], dtype=torch.int32)
+    assert (cols - 1) % vec
+    assert _bucket_plan(ad, rank, 24)[1] == [(4, [0]), (cols - 1, [1])]
     A = torch.zeros((2, 16, 24), dtype=dtype)
-    B = torch.zeros((2, 24, 40), dtype=dtype)
-    tbgmv._check_factors("sgmv", A, B, cols, 40)
-    # bgmv.cu no longer splits its threads by the groups: any rank
-    tbgmv._check_factors("bgmv", A, B, cols - 1, 40, any_rank=True)
-    with pytest.raises(ValueError, match="multiples"):
-        tbgmv._check_factors("sgmv", A, B, cols - 1, 40)
+    B = torch.zeros((2, 24, 41), dtype=dtype)
+    # sgmv.cu, bgmv.cu and bgmv_expert.cu take any rank and any d_out
+    tbgmv._check_factors("sgmv", A, B)
+    with pytest.raises(TypeError, match="differ in dtype"):
+        tbgmv._check_factors("sgmv", A, B.to(torch.float16))
 
 
-@pytest.mark.parametrize("windows,d_out,tile,want", [
-    (4096, 4096, 256, 16), (30, 4096, 256, 2), (1, 4096, 256, 1),
-    (4, 40, 128, 1), (264, 3072, 256, 12)])
-def test_sgmv_tile_plan(windows, d_out, tile, want):
-    tpb = tsgmv.tile_plan(windows, d_out, tile)
-    assert tpb == want
-    n_tiles = -(-d_out // tile)
-    assert windows * -(-n_tiles // tpb) >= min(windows * n_tiles, tsgmv.N_SM)
+@pytest.mark.parametrize("d_in,max_splits,want", [
+    (4096, 16, 4), (1536, 16, 2), (24, 16, 1), (1024, 16, 1), (1025, 16, 2),
+    (100_000, 16, 16), (8192, 4, 4)])
+def test_sgmv_split_plan(d_in, max_splits, want):
+    splits = tsgmv.split_plan(d_in, max_splits)
+    assert splits == want
+    # each item contracts at most SPLIT_ROWS rows unless the splits run out,
+    # and the plan takes the fewest splits that do
+    assert -(-d_in // splits) <= tsgmv.SPLIT_ROWS or splits == max_splits
+    assert splits == 1 or -(-d_in // (splits - 1)) > tsgmv.SPLIT_ROWS
 
 
 # ------------------------------ dispatch ------------------------------- #
@@ -456,3 +506,131 @@ def test_kernel_path_on_card(cuda_device):
     assert all(i["ok"] for i in res["invariants"]), res["invariants"]
     assert {k: fn.launches for k, fn in counters.items()} == \
         res["expected_launches"]
+
+
+# ---------------------- any width and any order, on the card ---------------- #
+# (pool rank, d_in, d_out): odd ranks, d_in and d_out that are not whole
+# 16-byte vectors in bf16 or f32
+ODD_SHAPES = [(4, 24, 40), (6, 37, 44), (20, 24, 44), (24, 37, 45)]
+SEGMENT_OPS = ["sgmv", "sgmv_ranked", "fused_sgmv", "fused_sgmv_ranked",
+               "sgmv_rank_grouped"]
+ODD_OPS = SEGMENT_OPS + ["bgmv", "bgmv_ranked", "bgmv_expert"]
+
+
+def _odd_inputs(name, r, d_in, d_out, seed=13):
+    """Numpy arguments of one op at pool rank r, d_in and d_out; true ranks
+    r, r - 3 (at least 1), 1 and r in a prefix-zero pool; padding rows of
+    the segments all zero, one inactive segment."""
+    rng = np.random.default_rng(seed)
+    ranks = np.array([r, max(1, r - 3), 1, r], np.int32)
+    fused = name.startswith("fused") or name == "bgmv_expert"
+    lead = (4, 3) if fused else (4,)
+    A = (rng.standard_normal(lead + (d_in, r)) / np.sqrt(d_in)
+         ).astype(np.float32)
+    B = (rng.standard_normal(lead + (r, d_out)) * 0.1).astype(np.float32)
+    for n, k in enumerate(ranks):
+        A[n, ..., k:] = 0.0
+        B[n, ..., k:, :] = 0.0
+    if name.startswith("bgmv"):
+        x = rng.standard_normal((9, d_in)).astype(np.float32)
+        ids = np.array([0, -1, 3, 1, 2, -1, 3, 0, 2], np.int32)
+        if name == "bgmv":
+            return x, A, B, ids
+        if name == "bgmv_ranked":
+            return x, A, B, ids, ranks
+        eids = rng.integers(0, 3, 9).astype(np.int32)
+        return (x, A, B, ids, eids,
+                np.where(ids >= 0, ranks[np.maximum(ids, 0)], 0
+                         ).astype(np.int32))
+    seg = rng.standard_normal((5, 6, d_in)).astype(np.float32)
+    seg[1, 2:] = 0.0
+    seg[3, :4] = 0.0                  # data rows not at the segment's start
+    slot = np.array([3, 1, -1, 0, 2], np.int32)
+    rank = np.where(slot >= 0, ranks[np.maximum(slot, 0)], 0
+                    ).astype(np.int32)
+    if not fused:
+        return ((seg, slot, A, B) if name == "sgmv"
+                else (seg, slot, rank, A, B))
+    eid = np.array([2, 0, 1, 1, 2], np.int32)
+    return ((seg, slot, eid, A, B) if name == "fused_sgmv"
+            else (seg, slot, eid, rank, A, B))
+
+
+ODD_KERNELS = {**KERNELS, "bgmv": tbgmv.bgmv,
+               "bgmv_expert": tbgmv.bgmv_expert}
+ODD_TWINS = {"bgmv": tref.bgmv_ref, "bgmv_expert": tref.bgmv_expert_ref}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ODD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ODD_OPS)
+def test_lora_kernels_take_any_width_on_card(cuda_device, dtype, name,
+                                             shape):
+    args = _t(_odd_inputs(name, *shape), cuda_device, dtype)
+    got = ODD_KERNELS[name](*args)
+    want = ODD_TWINS.get(name, getattr(tref, f"{name}_ref", None))(*args)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(got, ODD_KERNELS[name](*args))    # same bits
+    if name not in ("bgmv", "bgmv_ranked", "bgmv_expert"):
+        assert torch.all(got[args[1] < 0] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["full", "late_rows", "all_inactive",
+                                  "all_padding", "splits"])
+@pytest.mark.parametrize("name", SEGMENT_OPS[:4])
+def test_segment_kernel_edge_cases_on_card(cuda_device, dtype, case, name):
+    """A full segment (cap rows with data, 80: two row groups), data rows
+    at a segment's end, every segment inactive, every row padding (exact
+    zeros), and a d_in that splits a segment's shrink into three items."""
+    d_in = 3000 if case == "splits" else 40
+    cap = 80 if case == "full" else 16
+    args = list(_t(_odd_inputs(name, 24, d_in, 72), cuda_device, dtype))
+    S = args[0].shape[0]
+    seg = torch.randn((S, cap, d_in), generator=torch.Generator(
+        device=cuda_device).manual_seed(3), device=cuda_device).to(dtype)
+    if case == "late_rows":
+        seg[:, :cap - 3] = 0.0
+    if case == "all_padding":
+        seg.zero_()
+    args[0] = seg
+    if case == "all_inactive":
+        args[1] = torch.full_like(args[1], -1)
+    if case == "splits":
+        assert tsgmv.split_plan(d_in) == 3
+    got = KERNELS[name](*args)
+    torch.testing.assert_close(got, getattr(tref, f"{name}_ref")(*args),
+                               rtol=0, atol=1e-5)
+    assert torch.equal(got, KERNELS[name](*args))
+    if case in ("all_inactive", "all_padding"):
+        assert torch.all(got == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sgmv_rank_grouped_any_order_on_card(cuda_device, dtype):
+    """Segments in adapter order, ranks interleaved: one launch per
+    distinct nonzero rank, equal to sgmv_ranked; inactive segments and an
+    active one of rank 0 exact zeros."""
+    rng = np.random.default_rng(17)
+    ranks = np.array([4, 20, 6, 24, 4, 20, 0], np.int32)
+    A = (rng.standard_normal((7, 48, 24)) / 7).astype(np.float32)
+    B = (rng.standard_normal((7, 24, 44)) * 0.1).astype(np.float32)
+    for n, k in enumerate(ranks[:6]):
+        A[n, :, k:] = 0.0
+        B[n, k:] = 0.0
+    seg = rng.standard_normal((9, 8, 48)).astype(np.float32)
+    ad = np.array([0, 1, -1, 2, 6, 3, 4, -1, 5], np.int32)
+    rank = np.where(ad >= 0, ranks[np.maximum(ad, 0)], 0).astype(np.int32)
+    args = _t((seg, ad, rank, A, B), cuda_device, dtype)
+    before = tsgmv.sgmv.launches
+    got = tsgmv.sgmv_rank_grouped(*args)
+    assert tsgmv.sgmv.launches - before == 4        # ranks 4, 6, 20, 24
+    torch.testing.assert_close(got, tsgmv.sgmv_ranked(*args), rtol=0,
+                               atol=1e-5)
+    torch.testing.assert_close(got, tref.sgmv_ranked_ref(*args), rtol=0,
+                               atol=1e-5)
+    assert torch.all(got[args[1] < 0] == 0) and torch.all(got[4] == 0)
+    assert torch.equal(got, tsgmv.sgmv_rank_grouped(*args))
