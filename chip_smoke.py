@@ -43,7 +43,21 @@ port only. Phases, each of which fails the run with a non-zero exit:
    full width, each held to its twin: a rank-20 pool (not a whole 16-byte
    vector of bf16 columns) through the four forms, and
    ``sgmv_rank_grouped`` over segments whose ranks are interleaved, one
-   launch per distinct rank.
+   launch per distinct rank;
+6. the transport planes at the serving cell (depth 4, the same traffic):
+   a pool of R = 1 and R = 2 LoRA-Server replicas, paged, and R = 1 dense,
+   each through the host plane (per-hook dispatch) and the fused plane
+   (one CUDA graph a decode step), each plane served 4 times by one engine
+   (the fused plane captures in the first run): fused tokens == host
+   tokens bit for bit, one dispatch and no hook call a fused step, each
+   capture holding one step's kernels (counted at capture: a replay moves
+   no Python counter), decode ms/step and tokens/s of the last 3 runs,
+   capture time per bucket and the graph pool's bytes; a churn run (2
+   slots a replica, adapters brought in by a LoRA cache between steps:
+   tokens equal, > 2 table uploads, no new capture); the fused plane's
+   profile (device ms/step, busy share) and one replay's device time
+   against a whole step's host time. The kernels of the host plane are
+   held against their plain versions in phase 3.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -629,7 +643,7 @@ def port_kernels(csrc=CSRC) -> dict:
             for src in sorted(csrc.glob("*.cu"))}
 
 
-def profile_steps(torch, engine, requests, n_steps=4):
+def profile_steps(torch, engine, requests, n_steps=4, plane=None):
     """Device kernel time by name over a few decode steps of all requests,
     and the device's busy share of the window (torch.profiler)."""
     from torch.autograd import DeviceType
@@ -661,7 +675,8 @@ def profile_steps(torch, engine, requests, n_steps=4):
             if re.search(rf"(?<!\w){k}(?!\w)", name):
                 ms, cnt = port.get(k, (0.0, 0))
                 port[k] = [ms + t / 1e3 / n_steps, cnt + n]
-    out = {"steps": n_steps, "rows": len(requests),
+    out = {**({"plane": plane} if plane else {}),
+           "steps": n_steps, "rows": len(requests),
            "wall_ms_per_step": wall_us / 1e3 / n_steps,
            "device_ms_per_step": busy_us / 1e3 / n_steps,
            "device_busy_share": busy_us / wall_us if wall_us else 0.0,
@@ -906,9 +921,9 @@ def main_paths(torch, ops, paged, bgmv, ref, counters):
           flush=True)
 
     # the two invariants at depth CHECK_LAYERS: paged == dense on the
-    # coupled plane; coupled == disagg on a pool of the expert-FFN targets
-    # only (the disaggregated plane serves no attention target), the same
-    # adapters as the LoRA Server's (build_lora draws both from one seed)
+    # coupled plane; coupled == disagg on the pool of the expert-FFN
+    # targets only (the disaggregated plane serves no attention target)
+    # whose adapters the server pool holds
     cfg2 = dataclasses.replace(cfg, n_layers=CHECK_LAYERS)
     params2 = dict(params, layers=_first_layers(params["layers"],
                                                 CHECK_LAYERS))
@@ -919,19 +934,286 @@ def main_paths(torch, ops, paged, bgmv, ref, counters):
                device="cuda", pool=pool2) for p in (True, False)],
         requests, traffic, "paged == dense")
     del pool, pool2
-    ffn = serve.build_lora(dataclasses.replace(cfg, lora_targets=serve.
-                                               FFN_TARGETS), "coupled",
-                           RANKS, seed=SEED, dtype=torch.bfloat16,
-                           device="cuda")["pool"]
+    ffn = lora["pool"]
     ffn2 = dataclasses.replace(ffn, cfg=cfg2, tensors=_first_layers(
         ffn.tensors, CHECK_LAYERS))
-    check(ffn.scale == lora["lora_scale"], "the FFN pool is not the server's")
     lock_step(torch, [(transformer, "decode_step_slots"),
                       (disagg, "disagg_decode_step_slots")], cfg2, [
         Engine(cfg2, params2, ecfg, device="cuda", pool=ffn2),
         Engine(cfg2, params2, ecfg, device="cuda", server=lora["server"],
                pool=ffn2)], requests, traffic, "coupled == disagg")
-    return {"disagg": d_launch, "coupled": c_launch}
+    return {"disagg": d_launch, "coupled": c_launch}, (cfg, params, ecfg)
+
+
+# ------------------------------ phase 6 ------------------------------ #
+TIMED_RUNS = 3          # repeated runs of each plane on one engine
+
+
+def slot_bytes(cfg, r: int) -> int:
+    """Bytes of one LoRA-Server slot (bf16): gate|up at rank 2r, down at r,
+    every expert of every layer."""
+    E, d, ff = cfg.n_experts, cfg.d_model, cfg.d_ff
+    return 2 * cfg.n_layers * E * (d * 2 * r + 2 * r * 2 * ff + ff * r
+                                   + r * d)
+
+
+def plane_runs(torch, ops, cfg, params, ecfg, lora, transport, requests,
+               traffic, runs, residency=None):
+    """``runs`` serves of the same requests by one engine of ``transport``
+    (so the fused plane captures in the first and replays after); each
+    run's tokens, ms/step, tokens/s and kernel launches, and the engine's
+    transport stats after the first run and after all."""
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import Engine
+
+    eng = Engine(cfg, params, ecfg, device="cuda", transport=transport,
+                 **lora)
+    out = {"runs": []}
+    for i in range(runs):
+        before = ops.launch_counts()
+        res = serve.serve(eng, requests, traffic,
+                          residency() if residency else None)
+        after = ops.launch_counts()
+        out["runs"].append({
+            "tokens": res["tokens"], "decode_steps": res["decode_steps"],
+            "prefill_chunks": res["prefill_chunks"],
+            "rows_per_step": res["rows_per_step"],
+            "decode_ms_per_step": res["decode_ms_per_step"],
+            "tokens_per_s": res["tokens_per_s"],
+            "launches": {n: after[n] - before[n] for n in after
+                         if after[n] != before[n]}})
+        if i == 0:
+            out["stats_first_run"] = eng.transport_stats()
+    out["stats"] = eng.transport_stats()
+    out["captures"] = list(getattr(eng.transport, "captures", []))
+    return eng, out
+
+
+def check_planes(cfg, host, fused, what: str, per_step: dict,
+                 replicas: int) -> dict:
+    """Hold the fused plane to the host plane: the same tokens in every
+    run, one dispatch and no hook call a step, each capture holding one
+    step's kernels (the host plane's per step; with R > 1 the host plane
+    launches the hook once per engaged replica), no Python launch on a
+    replay; host: 2 x L hook calls a step."""
+    L = cfg.n_layers
+    want = host["runs"][0]["tokens"]
+    for plane in (host, fused):
+        for run in plane["runs"]:
+            check(run["tokens"] == want, f"{what}: fused tokens differ from "
+                  f"the host plane's")
+            check(all(len(t) and all(0 <= x < cfg.vocab_size for x in t)
+                      for t in run["tokens"].values()),
+                  f"{what}: empty request or token out of the vocabulary")
+    hs, fs = host["stats_first_run"], fused["stats_first_run"]
+    steps = host["runs"][0]["decode_steps"]
+    check(hs["steps"] == fs["steps"] == steps, f"{what}: step counts differ")
+    check(hs["hook_dispatches"] == 2 * L * steps,
+          f"{what}: host hook dispatches {hs['hook_dispatches']} != 2 x "
+          f"{L} x {steps}")
+    check(fs["host_dispatches"] == steps and fs["hook_dispatches"] == 0,
+          f"{what}: fused plane is not one dispatch a step: {fs}")
+    for cap in fused["captures"]:
+        check(cap["launches"] == per_step, f"{what}: a capture holds "
+              f"{cap['launches']}, one step launches {per_step}")
+    chunks = host["runs"][0]["prefill_chunks"]
+    prefill = 3 * (L - 1) * chunks
+    host_run = host["runs"][0]["launches"]
+    for name, n in per_step.items():
+        if name != "bgmv_expert" or replicas == 1:
+            pre = prefill if name == "gmm" else 0
+            check(host_run.get(name, 0) == n * steps + pre,
+                  f"{what}: host plane launched {name} "
+                  f"{host_run.get(name, 0)} times, not {n} x {steps} + "
+                  f"{pre}")
+    n_cap = len(fused["captures"])
+    fused_run = fused["runs"][0]["launches"]
+    for name, n in per_step.items():
+        pre = prefill if name == "gmm" else 0
+        check(fused_run.get(name, 0) == 2 * n * n_cap + pre,
+              f"{what}: fused plane launched {name} "
+              f"{fused_run.get(name, 0)} times from Python, not (warm-up + "
+              f"capture) x {n_cap} graphs x {n} + {pre}: a replay launched "
+              f"from the host")
+    for later in fused["runs"][1:]:
+        check(later["launches"] == {"gmm": prefill}, f"{what}: a replay "
+              f"launched from Python: {later['launches']}")
+    return {"tokens_equal": True, "decode_steps": steps,
+            "captures": n_cap, "per_step_launches": per_step}
+
+
+def summary(plane) -> dict:
+    later = plane["runs"][1:] or plane["runs"]
+    return {"decode_ms_per_step": [r["decode_ms_per_step"] for r in later],
+            "tokens_per_s": [r["tokens_per_s"] for r in later],
+            "first_run_decode_ms_per_step":
+                plane["runs"][0]["decode_ms_per_step"],
+            "stats": plane["stats_first_run"]}
+
+
+def transport_phase(torch, ops, smi, cfg, params, ecfg):
+    """The transport planes at the serving cell: the same traffic through
+    a pool of R = 1 and R = 2 LoRA-Server replicas, host plane then fused
+    plane (one CUDA graph a step), paged, and R = 1 dense, each plane
+    served TIMED_RUNS + 1 times by one engine (the fused plane captures in
+    the first run); then a churn run (2 slots a replica, so residency
+    changes mid-run); then the fused plane's profile."""
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import Engine
+
+    traffic = serve.Traffic(adapter_ranks=RANKS)
+    requests = serve.make_requests(cfg, traffic, SEED)
+    L, n_ad = cfg.n_layers, len(RANKS)
+    per_slot = slot_bytes(cfg, max(RANKS))
+    free, total = torch.cuda.mem_get_info()
+    need = 2 * 2 * n_ad * per_slot          # R = 2: replicas + the view
+    print(f"transport: a slot holds {per_slot / 2**30:.3f} GiB at depth "
+          f"{L}; R = 2 needs {need / 2**30:.2f} GiB (replicas + stacked "
+          f"view), free {free / 2**30:.2f} of {total / 2**30:.2f} GiB; "
+          f"card {smi}", flush=True)
+    check(need < free, "transport: R = 2 does not fit the card")
+    cells = {}
+    for R, paged in ((1, True), (2, True), (1, False)):
+        name = f"R={R} {'paged' if paged else 'dense'}"
+        lora = serve.build_pool(cfg, RANKS, R, seed=SEED,
+                                dtype=torch.bfloat16, device="cuda")
+        ec = dataclasses.replace(ecfg, paged=paged)
+        per_step = {"gmm": 3 * L, "bgmv_expert": 2 * L,
+                    **({"paged_attention": L} if paged else {})}
+        planes, refresh = {}, {}
+        for transport in ("host", "fused"):
+            eng, planes[transport] = plane_runs(
+                torch, ops, cfg, params, ec, lora, transport, requests,
+                traffic, TIMED_RUNS + 1)
+            if R > 1 and transport == "fused":
+                refresh = {"refresh": refresh_cost(torch, eng, lora)}
+            del eng
+        held = check_planes(cfg, planes["host"], planes["fused"], name,
+                            per_step, R)
+        caps = planes["fused"]["captures"]
+        cells[name] = {
+            **held, "host": summary(planes["host"]),
+            "fused": summary(planes["fused"]),
+            "capture_s": {c["bucket"]: c["capture_s"] for c in caps},
+            "warmup_s": {c["bucket"]: c["warmup_s"] for c in caps},
+            "graph_pool_bytes": sum(c["pool_bytes_added"] for c in caps),
+            **refresh}
+        print(f"transport {name}: " + json.dumps(cells[name])
+              + f"; card {smi}", flush=True)
+        del lora, planes
+        torch.cuda.empty_cache()
+
+    # churn: 2 slots a replica, the cache brings adapters in as requests
+    # need them, the server pool follows before every step (a fresh pool
+    # of the same adapters for each plane)
+    planes, evictions = {}, {}
+    for t in ("host", "fused"):
+        lora = serve.build_pool(cfg, RANKS, 2, cache_slots=2, seed=SEED,
+                                dtype=torch.bfloat16, device="cuda")
+        planes[t] = plane_runs(
+            torch, ops, cfg, params, ecfg, lora, t, requests, traffic, 1,
+            lambda: serve.Residency(lora["server"], lora["pool"], 2))[1]
+        evictions[t] = lora["server"].sync_evictions
+        del lora
+    held = check_planes(cfg, planes["host"], planes["fused"], "churn",
+                        {"gmm": 3 * L, "bgmv_expert": 2 * L,
+                         "paged_attention": L}, 2)
+    fs = planes["fused"]["stats"]
+    buckets = {c["bucket"] for c in planes["fused"]["captures"]}
+    check(fs["lut_uploads"] > 2, f"churn: {fs['lut_uploads']} uploads")
+    check(len(planes["fused"]["captures"]) == len(buckets),
+          "churn: a residency change recaptured a graph")
+    churn = {**held, "lut_uploads": fs["lut_uploads"],
+             "evictions": evictions,
+             "host_stats": planes["host"]["stats"], "fused_stats": fs}
+    print("transport churn (R=2, 2 slots a replica): " + json.dumps(churn)
+          + f"; card {smi}", flush=True)
+    del planes
+
+    # the fused plane's device time and busy share, and one replay's time
+    lora = serve.build_pool(cfg, RANKS, 1, seed=SEED, dtype=torch.bfloat16,
+                            device="cuda")
+    eng = Engine(cfg, params, ecfg, device="cuda", transport="fused", **lora)
+    prof = profile_steps(torch, eng, requests, plane="fused R=1 paged")
+    replay = replay_vs_step(torch, eng)
+    print("transport fused plane, all 6 requests: " + json.dumps({
+        **{k: prof[k] for k in ("device_ms_per_step", "wall_ms_per_step",
+                                "device_busy_share")}, **replay})
+          + f"; card {smi}", flush=True)
+    del eng, lora
+    torch.cuda.empty_cache()
+    return cells, churn, prof, replay
+
+
+def refresh_cost(torch, eng, lora, n=5) -> dict:
+    """What a residency change costs the fused plane's next step at R > 1:
+    adapter 1 is evicted and inserted again on its home replica (its slot's
+    weights written anew), then the view's ``refresh`` copies that one
+    slot into the stacked pools; against a refresh that copies every
+    replica whole. Median ms between CUDA events around ``refresh``
+    (host issue and copies) and the bytes it copied."""
+    from repro_torch.core.lora_server import pool_tensors_from_adapter
+
+    sp, tr, pool = lora["server"], eng.transport, lora["pool"]
+    aid = 1
+    rep = sp.replicas[sp.replica_for(aid)]
+    tensors = pool_tensors_from_adapter(pool, aid)
+    out = {}
+    for what in ("one_slot", "whole_view"):
+        times, copied = [], set()
+        for _ in range(n):
+            rep.evict(aid)
+            rep.insert(aid, tensors, rank=pool.rank_of(aid))
+            if what == "whole_view":
+                tr._copied = []         # forget what the stack holds
+            before = tr.copied_bytes
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            check(tr.refresh(), "refresh: no upload after a slot write")
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            copied.add(tr.copied_bytes - before)
+        check(len(copied) == 1, f"refresh {what}: copied {copied} bytes")
+        out[what] = {"ms": statistics.median(times), "bytes": copied.pop()}
+    slots = len(sp.replicas) * rep.M
+    check(out["one_slot"]["bytes"] * slots == out["whole_view"]["bytes"],
+          f"refresh: one slot's copy is not 1/{slots} of the view's: {out}")
+    return out
+
+
+def replay_vs_step(torch, eng, n=20) -> dict:
+    """Median device time of one replay of the engine's graph for its
+    running batch (CUDA events around ``replay``, inputs left as they are,
+    so it rewrites the same KV cells with the same values) against the
+    median host time of a whole ``Engine.step`` (inputs staged, replay,
+    tokens read back, slots updated) of the same batch."""
+    from repro_torch.obs.clock import wall_time
+
+    graph = None
+    steps = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = wall_time()
+        eng.step()
+        steps.append(1e3 * (wall_time() - t0))
+        graph = graph or next(iter(eng.transport._graphs.values()))
+    pairs = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        graph.graph.replay()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return {"bucket": graph.B, "graphs": len(eng.transport._graphs),
+            "replay_device_ms": statistics.median(
+                s.elapsed_time(e) for s, e in pairs),
+            "step_host_ms": statistics.median(steps)}
 
 
 def _first_layers(tree, n: int):
@@ -980,7 +1262,9 @@ def main() -> int:
                 "fused_sgmv_ranked": fused.fused_sgmv_ranked, "gmm": gmm.gmm}
     lora = lora_path_phase(torch, ops, ref, counters, flush)
     repairs = repair_phase(torch, sgmv, fused, ref)
-    launches = main_paths(torch, ops, paged, bgmv, ref, counters)
+    launches, model = main_paths(torch, ops, paged, bgmv, ref, counters)
+    transport_phase(torch, ops, smi, *model)
+    del model
 
     # "launches": the coupled plane's run for rows 1-3 and gmm, the
     # LoRA-kernel path's run for rows 4-8; each path's counted run in

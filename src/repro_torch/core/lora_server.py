@@ -11,8 +11,11 @@ Slot pools are layer-major within a pipeline stage, (y, L_stage, M, E, ...),
 as in the reference; each slot carries its adapter's true rank, and the
 hook bounds every row's contraction at it through the mask
 (col % r) < rank. ``compute`` runs the hook kernel (``kernels.ops``).
-The id -> slot table and the slot ranks live on the device, so a hook
-call needs no round trip to the host.
+The id -> slot table and the slot ranks live on the device in buffers of
+fixed address, written in place on every insert and evict (a table that
+must grow gets a new buffer), so a hook call needs no round trip to the
+host. ``mutations`` counts residency and weight changes: the fused
+transport re-reads the slot tables only when it moved.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ import torch
 from repro_torch.core.adapter import AdapterPool
 from repro_torch.kernels import ops
 from repro_torch.models.model import resolve_device
+
+_LUT_MIN = 64   # initial id -> slot table length
 
 
 @dataclasses.dataclass
@@ -66,10 +71,32 @@ class LoRAServer:
         self.free_slots = list(range(M))
         # per-slot TRUE rank (0 = empty slot), host copy and device copy
         self.slot_ranks = [0] * M
-        self._ranks_dev: Optional[torch.Tensor] = None
-        self._lut: Optional[torch.Tensor] = None  # id -> slot, on device
+        self._ranks_dev = torch.zeros(M, dtype=torch.int32,
+                                      device=self.device)
+        # id -> slot on the device, -1 = not resident; grown by doubling
+        self._lut = torch.full((_LUT_MIN,), -1, dtype=torch.int32,
+                               device=self.device)
+        # False pins the padded pool-rank path (the bit-identity baseline)
+        self.rank_aware = True
+        # monotone residency/weight mutation counter (fused transport's
+        # fingerprint), and per slot the number of weight writes (the
+        # fused transport copies only the slots whose count moved)
+        self.mutations = 0
+        self.slot_writes = [0] * M
+
+    @property
+    def pool_rank(self) -> int:
+        return self.r
 
     # ------------------------- residency --------------------------- #
+    def is_resident(self, adapter_id: int) -> bool:
+        return adapter_id in self.slot_of
+
+    def true_rank(self, adapter_id: int) -> int:
+        """TRUE rank of a resident adapter (0 = not resident)."""
+        slot = self.slot_of.get(adapter_id)
+        return self.slot_ranks[slot] if slot is not None else 0
+
     def insert(self, adapter_id: int, tensors=None,
                rank: Optional[int] = None) -> int:
         """Claim a slot for ``adapter_id`` and write ``tensors`` into it
@@ -82,7 +109,17 @@ class LoRAServer:
         slot = self.free_slots.pop(0)
         self.slot_of[adapter_id] = slot
         self.slot_ranks[slot] = int(rank) if rank else self.r
-        self._lut = self._ranks_dev = None
+        if adapter_id >= self._lut.shape[0]:
+            n = self._lut.shape[0]
+            while n <= adapter_id:
+                n *= 2
+            grown = torch.full((n,), -1, dtype=torch.int32,
+                               device=self.device)
+            grown[: self._lut.shape[0]] = self._lut
+            self._lut = grown
+        self._lut[adapter_id] = slot
+        self._ranks_dev[slot] = self.slot_ranks[slot]
+        self.mutations += 1
         if tensors is not None:
             self._write_slot(slot, tensors)
         return slot
@@ -91,24 +128,22 @@ class LoRAServer:
         slot = self.slot_of.pop(adapter_id)
         self.free_slots.append(slot)
         self.slot_ranks[slot] = 0
-        self._lut = self._ranks_dev = None
+        self._lut[adapter_id] = -1
+        self._ranks_dev[slot] = 0
+        self.mutations += 1
 
     def _write_slot(self, slot: int, tensors) -> None:
         for name, buf in self.pool.items():
             src = tensors[name]
             for l in range(self.L):
                 buf[l % self.y, l // self.y, slot].copy_(src[l])
+        self.slot_writes[slot] += 1
+        self.mutations += 1
 
     # --------------------------- lookup ---------------------------- #
     def resolve_slots(self, adapter_ids: torch.Tensor) -> torch.Tensor:
         """(R,) global adapter ids -> resident slot ids, -1 for absent or
-        inactive rows, on the ids' device."""
-        if self._lut is None or self._lut.device != adapter_ids.device:
-            lut = [-1] * (max(self.slot_of, default=0) + 2)
-            for aid, slot in self.slot_of.items():
-                lut[aid] = slot
-            self._lut = torch.tensor(lut, dtype=torch.int32,
-                                     device=adapter_ids.device)
+        inactive rows (on the server's device)."""
         n = self._lut.shape[0]
         ids = adapter_ids.long()
         ok = (ids >= 0) & (ids < n)
@@ -116,13 +151,16 @@ class LoRAServer:
 
     def row_ranks(self, slots: torch.Tensor) -> torch.Tensor:
         """Per-row true rank of resolved slots; inactive rows get the pool
-        rank (their delta is zero anyway)."""
-        if self._ranks_dev is None or self._ranks_dev.device != slots.device:
-            self._ranks_dev = torch.tensor(self.slot_ranks, dtype=torch.int32,
-                                           device=slots.device)
+        rank (their delta is zero anyway), and every row does when
+        ``rank_aware`` is off."""
+        if not self.rank_aware:
+            return torch.full_like(slots, self.r, dtype=torch.int32)
         ranks = self._ranks_dev[slots.long().clamp_min(0)]
         return torch.where((slots >= 0) & (ranks > 0), ranks,
                            self.r).to(torch.int32)
+
+    def cache_bytes(self) -> int:
+        return sum(a.numel() * a.element_size() for a in self.pool.values())
 
     # --------------------------- compute --------------------------- #
     def compute(self, hook: str, layer: int, rows, adapter_ids, expert_ids):

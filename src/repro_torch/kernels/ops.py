@@ -99,3 +99,12 @@ def gmm(xe, w, group_sizes: Optional[torch.Tensor] = None):
     if xe.device.type == "cpu":
         return _ref.gmm_ref(xe, w, group_sizes)
     return _gmm.gmm(xe, w, group_sizes)
+
+
+def launch_counts() -> dict:
+    """{kernel wrapper: its launch count} of every CUDA kernel wrapper
+    (each counts where it launches its kernel, and nowhere else)."""
+    fns = (_paged.paged_attention, _bgmv.bgmv_expert, _bgmv.bgmv,
+           _bgmv.bgmv_ranked, _sgmv.sgmv, _sgmv.sgmv_ranked,
+           _fused.fused_sgmv, _fused.fused_sgmv_ranked, _gmm.gmm)
+    return {fn.__name__: fn.launches for fn in fns}

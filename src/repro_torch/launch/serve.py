@@ -1,10 +1,15 @@
 """Serving entry point of the port: multi-LoRA decode through the slot
 engine, disaggregated (the LoRA Server computes the MoE hooks' deltas) or
 coupled (the S-LoRA baseline: adapters applied inside the model), over a
-paged KV pool or, with ``--dense``, a dense slab.
+paged KV pool or, with ``--dense``, a dense slab. The disaggregated plane
+runs over a pool of ``--replicas`` LoRA-Server replicas through the
+``--transport`` plane: "host" (per-hook host dispatch) or "fused" (one
+CUDA graph a decode step).
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch qwen3-moe-235b-a22b --layers 4 --requests 6 --mode coupled
+  PYTHONPATH=src python -m repro_torch.launch.serve --transport fused \
+      --replicas 2
 
 Weights and adapters are random, drawn on the device from ``--seed``;
 nothing is downloaded. Requests arrive in two waves, so the second wave is
@@ -16,21 +21,23 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.adapter import init_mixed_rank_pool
-from repro_torch.core.lora_server import (LoRAServer, ServerConfig,
-                                          pool_tensors_from_adapter)
+from repro_torch.core.lora_server import pool_tensors_from_adapter
 from repro_torch.models.model import init_params, resolve_device, resolve_dtype
 from repro_torch.obs.clock import wall_time
+from repro_torch.serving.cache import LoRACache
 from repro_torch.serving.engine import Engine, EngineConfig
+from repro_torch.serving.server_pool import ServerPool
 
 FFN_TARGETS = ("gate", "up", "down")
 MODES = ("disagg", "coupled")
+TRANSPORTS = ("host", "fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,60 +65,124 @@ def make_requests(cfg, traffic: Traffic, seed: int = 0):
 
 
 def build_lora(cfg, mode: str, adapter_ranks: Sequence[int], seed: int = 0,
-               dtype=torch.bfloat16, device=None) -> Dict:
+               dtype=torch.bfloat16, device=None, replicas: int = 1) -> Dict:
     """One mixed-rank pool of adapters (ids 0..N-1), served by one plane;
     returns the Engine's keyword arguments for it.
 
-    disagg : a LoRA Server holding the pool's expert-FFN targets (the
-             hooks it serves) -> {"server", "lora_scale"}
+    disagg : ``build_pool``'s pool of ``replicas`` LoRA-Server replicas
+             holding every adapter of the expert-FFN targets (the hooks
+             they serve) -> {"server", "pool"}
     coupled: the pool over all of the config's targets -> {"pool"}
 
-    The pool rank, and the server's, is the largest true rank."""
+    The pool rank, and the servers', is the largest true rank."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
-    pool_cfg = (dataclasses.replace(cfg, lora_targets=FFN_TARGETS)
-                if mode == "disagg" else cfg)
-    pool = init_mixed_rank_pool(pool_cfg, adapter_ranks, seed=seed + 1,
-                                dtype=dtype, device=device)
-    if mode == "coupled":
-        return {"pool": pool}
-    server = LoRAServer(cfg, ServerConfig(m=1, x=1, y=1,
-                                          cache_slots=len(adapter_ranks),
-                                          rank=pool.rank),
-                        dtype=dtype, device=device)
-    for aid in range(pool.n):
-        server.insert(aid, pool_tensors_from_adapter(pool, aid),
-                      rank=pool.rank_of(aid))
-    return {"server": server, "lora_scale": pool.scale}
+    if mode == "disagg":
+        return build_pool(cfg, adapter_ranks, replicas, seed=seed,
+                          dtype=dtype, device=device)
+    return {"pool": init_mixed_rank_pool(cfg, adapter_ranks, seed=seed + 1,
+                                         dtype=dtype, device=device)}
 
 
-def serve(engine: Engine, requests, traffic: Traffic) -> Dict:
+def build_pool(cfg, adapter_ranks: Sequence[int], replicas: int = 1,
+               cache_slots: Optional[int] = None, seed: int = 0,
+               dtype=torch.bfloat16, device=None) -> Dict:
+    """The disaggregated plane over an elastic pool: ``replicas``
+    LoRA-Server replicas of ``cache_slots`` slots each (default: one per
+    adapter) and the mixed-rank pool of the FFN targets they serve, drawn
+    from ``seed`` as ``build_lora``'s coupled pool is; returns the Engine's
+    keyword arguments {"server", "pool"}. With the default slots every
+    adapter is resident; with fewer none is, and a ``Residency`` over the
+    two brings them in as requests need them."""
+    pool = init_mixed_rank_pool(
+        dataclasses.replace(cfg, lora_targets=FFN_TARGETS), adapter_ranks,
+        seed=seed + 1, dtype=dtype, device=device)
+    slots = cache_slots or pool.n
+    sp = ServerPool.build(cfg, pool, cache_slots=slots, n_replicas=replicas,
+                          dtype=dtype, device=device)
+    if cache_slots is None:
+        res = Residency(sp, pool, slots)
+        for aid in range(pool.n):
+            res.acquire(aid)
+            res.release(aid)
+        res.sync()
+    return {"server": sp, "pool": pool}
+
+
+class Residency:
+    """A LoRA cache (``LoRACache``, LRU among unpinned residents) in front
+    of a ``ServerPool``, the control plane the reference's cluster runs:
+    a request is admitted only once its adapter is resident (pinned while
+    it runs), and before every decode step the replicas' slot tables
+    follow the cache (delta ``ServerPool.sync``). Works over the reference
+    package's cache and pool too: they have the same methods."""
+
+    def __init__(self, server_pool, adapter_pool, capacity: int,
+                 cache=None, tensors_fn: Optional[Callable] = None):
+        self.pool = server_pool
+        self.cache = cache if cache is not None else LoRACache(
+            capacity, adapter_bytes=0, n_layers=adapter_pool.cfg.n_layers,
+            layerwise=False, prefetch=False)
+        self.tensors_fn = tensors_fn or (
+            lambda a: pool_tensors_from_adapter(adapter_pool, a))
+        self.rank_fn = adapter_pool.rank_of
+        self.clock = 0.0        # one tick a decode step (the LRU's time)
+
+    def acquire(self, adapter_id: int) -> bool:
+        if self.cache.admit(adapter_id, self.clock) is None:
+            return False
+        self.cache.pin(adapter_id)
+        return True
+
+    def release(self, adapter_id: int) -> None:
+        self.cache.unpin(adapter_id, self.clock)
+
+    def sync(self) -> int:
+        self.clock += 1.0
+        return self.pool.sync(self.cache, self.tensors_fn, self.rank_fn)
+
+
+def serve(engine: Engine, requests, traffic: Traffic,
+          residency: Optional[Residency] = None) -> Dict:
     """Run ``requests`` through ``engine`` in two waves; every request
-    takes ``traffic.new_tokens`` greedy tokens. Returns tokens per rid and
-    the run's counts and host-clock times (each step ends in a device
+    takes ``traffic.new_tokens`` greedy tokens. With a ``residency``, a
+    request waits (in arrival order) until its adapter is resident, and the
+    server pool follows the cache before every step. Returns tokens per rid
+    and the run's counts and host-clock times (each step ends in a device
     sync: its tokens come back to the host)."""
     tokens: Dict[int, List[int]] = {rid: [] for rid, _, _ in requests}
     pending = list(requests)
+    waiting: List = []
+    adapter_of = {rid: aid for rid, _, aid in requests}
     prefill_s = decode_s = 0.0
     steps = 0
     bucket_rows = []
 
-    def admit(batch):
+    def admit():
         nonlocal prefill_s
         t0 = wall_time()
-        for rid, prompt, aid in batch:
+        while waiting and engine.free_slots() and (
+                residency is None or residency.acquire(waiting[0][2])):
+            rid, prompt, aid = waiting.pop(0)
             engine.add_request(rid, prompt, aid)
         if engine.device.type == "cuda":
             torch.cuda.synchronize()
         prefill_s += wall_time() - t0
 
-    admit(pending[: traffic.first_wave])
+    waiting += pending[: traffic.first_wave]
     pending = pending[traffic.first_wave:]
-    while pending or engine.active_rids():
+    admit()
+    while pending or waiting or engine.active_rids():
         if pending and (steps >= traffic.second_wave_after
                         or not engine.active_rids()):
-            admit(pending)
+            waiting += pending
             pending = []
+        if waiting:
+            admit()
+        if not engine.active_rids():
+            raise RuntimeError("no request could be admitted")
+        if residency is not None:
+            residency.sync()
         bucket_rows.append(len(engine.active_rids()))
         t0 = wall_time()
         out = engine.step()
@@ -121,6 +192,8 @@ def serve(engine: Engine, requests, traffic: Traffic) -> Dict:
             tokens[rid].append(t)
             if len(tokens[rid]) == traffic.new_tokens:
                 engine.evict_request(rid)
+                if residency is not None:
+                    residency.release(adapter_of[rid])
     n_tok = sum(len(v) for v in tokens.values())
     return {"tokens": tokens, "decode_steps": steps, "rows_per_step":
             bucket_rows, "generated_tokens": n_tok, "prefill_s": prefill_s,
@@ -132,11 +205,11 @@ def serve(engine: Engine, requests, traffic: Traffic) -> Dict:
 
 def build(arch: str, *, layers: Optional[int] = None, reduced: bool = False,
           seed: int = 0, device=None, traffic: Traffic = Traffic(),
-          mode: str = "disagg", paged: bool = True):
+          mode: str = "disagg", paged: bool = True, replicas: int = 1):
     """(cfg, params, lora, engine config) for one run, where ``lora`` is
-    the Engine's keyword arguments of the ``mode``'s plane (``build_lora``):
-    8 slots of up to 256 tokens, in pages of 16 or a dense slab, prefill
-    chunks of 64."""
+    the Engine's keyword arguments of the ``mode``'s plane (``build_lora``;
+    disagg: ``replicas`` server replicas): 8 slots of up to 256 tokens, in
+    pages of 16 or a dense slab, prefill chunks of 64."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -145,8 +218,8 @@ def build(arch: str, *, layers: Optional[int] = None, reduced: bool = False,
     dev = resolve_device(device)
     dt = resolve_dtype(cfg.dtype)
     params = init_params(cfg, seed=seed, dtype=dt, device=dev)
-    lora = build_lora(cfg, mode, traffic.adapter_ranks, seed=seed, dtype=dt,
-                      device=dev)
+    lora = build_lora(cfg, mode, traffic.adapter_ranks, seed=seed,
+                      dtype=dt, device=dev, replicas=replicas)
     ecfg = EngineConfig(max_len=256, n_slots=8, paged=paged, page_size=16,
                         prefill_chunk=64)
     return cfg, params, lora, ecfg
@@ -168,6 +241,11 @@ def main(argv=None) -> int:
                          "the model (S-LoRA)")
     ap.add_argument("--dense", action="store_true",
                     help="dense KV slab instead of the paged pool")
+    ap.add_argument("--transport", default="host", choices=TRANSPORTS,
+                    help="disagg: host (per-hook dispatch) or fused (one "
+                         "CUDA graph a decode step)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="disagg: LoRA-Server replicas of the pool")
     args = ap.parse_args(argv)
     traffic = dataclasses.replace(Traffic(), n_requests=args.requests)
     if args.reduced:
@@ -176,12 +254,14 @@ def main(argv=None) -> int:
     cfg, params, lora, ecfg = build(
         args.arch, layers=args.layers, reduced=args.reduced, seed=args.seed,
         device=args.device, traffic=traffic, mode=args.mode,
-        paged=not args.dense)
-    engine = Engine(cfg, params, ecfg, device=args.device, **lora)
+        paged=not args.dense, replicas=args.replicas)
+    engine = Engine(cfg, params, ecfg, device=args.device,
+                    transport=args.transport, **lora)
     res = serve(engine, make_requests(cfg, traffic, args.seed), traffic)
     print(json.dumps({"mode": args.mode, "paged": ecfg.paged,
                       **{k: v for k, v in res.items() if k != "tokens"}}))
-    print(json.dumps({"kv_stats": engine.kv_stats()}))
+    print(json.dumps({"kv_stats": engine.kv_stats(),
+                      "transport": engine.transport_stats()}))
     print("generated:", {rid: t for rid, t in res["tokens"].items()})
     return 0
 

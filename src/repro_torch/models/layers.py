@@ -192,13 +192,14 @@ def decode_attention_update_slots_paged(q, k_new, v_new, k_pool, v_pool,
     # writing row with that row's value: duplicate indices then carry equal
     # values, so the write is exact and deterministic. With no writing row
     # at all, every row rewrites cell 0 with the value it already holds.
+    # ``first`` is a 1-element index: a 0-d one would be read on the host.
     any_ok = ok.any()
-    first = torch.argmax(ok.to(torch.int32))
+    first = torch.argmax(ok.to(torch.int32), dim=0, keepdim=True)
     target = torch.where(ok, cell, torch.where(any_ok, cell[first], 0))
     for pool, new in ((k_pool, k_new), (v_pool, v_new)):
         flat = pool.view(P * ps, KV, hd)
         fill = torch.where(any_ok, new[first].to(pool.dtype), flat[0])
-        vals = torch.where(ok[:, None, None], new.to(pool.dtype), fill[None])
+        vals = torch.where(ok[:, None, None], new.to(pool.dtype), fill)
         flat[target] = vals
     out = ops.paged_attention(q.reshape(B, KV, H // KV, hd), k_pool, v_pool,
                               block_table, pos_vec, window=window)

@@ -1,9 +1,13 @@
 """Slot engine for multi-LoRA decode, the counterpart of
-``repro.serving.engine.Engine`` on the host transport, in both adapter
-planes and both KV layouts:
+``repro.serving.engine.Engine``, in both adapter planes and both KV
+layouts:
 
-  disaggregated : ``server`` given; the model stays LoRA-free and the LoRA
-                  Server computes the MoE hooks' deltas
+  disaggregated : ``server`` given (a ``LoRAServer`` or a ``ServerPool``);
+                  the model stays LoRA-free and the LoRA Server computes
+                  the MoE hooks' deltas. The engine never dispatches hooks
+                  itself: its ``transport`` plane runs the step, "host"
+                  (per-hook host dispatch) or "fused" (the whole step as
+                  one CUDA graph a bucket; see ``transport/``)
   coupled       : ``server=None``; the adapters of a static ``pool`` are
                   applied inside the model (the S-LoRA baseline)
   paged         : one pool of pages shared by all slots, pages allocated
@@ -26,10 +30,10 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import disagg as disagg_mod
 from repro_torch.models import cache as cache_mod
 from repro_torch.models import transformer
 from repro_torch.models.model import resolve_device
+from repro_torch.transport.base import make_transport
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -47,6 +51,7 @@ class EngineConfig:
     # the port's default layout is paged (the reference's is dense)
     paged: bool = True
     page_size: int = 8
+    n_pages: Optional[int] = None  # None -> n_slots * ceil(max_len / page)
     prefill_chunk: int = 16        # rounded up to a page multiple when paged
 
 
@@ -59,20 +64,28 @@ class SlotState:
 
 
 class Engine:
-    """Slot engine. Disaggregated when ``server`` (the LoRA Server's
-    ``compute`` contract) is given, its deltas multiplied by the scale of
-    the ``pool`` its adapters come from (the reference's rule), or by
+    """Slot engine. Disaggregated when ``server`` (a ``LoRAServer`` or a
+    ``ServerPool``) is given, its deltas multiplied by the scale of the
+    ``pool`` its adapters come from (the reference's rule), or by
     ``lora_scale`` without a pool (default 1.0); a ``lora_scale`` that
-    disagrees with the pool's is refused. Coupled otherwise, with the
-    adapters of ``pool`` (an AdapterPool; None serves the base model)."""
+    disagrees with the pool's is refused. The ``transport`` ("host",
+    "fused", or a prebuilt transport shared by several engines) runs its
+    decode steps. Coupled otherwise, with the adapters of ``pool`` (an
+    AdapterPool; None serves the base model), and no transport."""
 
     def __init__(self, cfg, params, ecfg: EngineConfig, server=None,
-                 lora_scale: Optional[float] = None, device=None, pool=None):
+                 lora_scale: Optional[float] = None, device=None, pool=None,
+                 transport="host"):
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg
         self.server = server
         self.pool = pool
+        self.transport = None
+        if server is not None:
+            self.transport = transport if not isinstance(transport, str) \
+                else make_transport(transport, server,
+                                    n_adapters=pool.n if pool else None)
         if pool is not None and lora_scale is not None \
                 and float(lora_scale) != float(pool.scale):
             raise ValueError(f"lora_scale {lora_scale} disagrees with the "
@@ -90,19 +103,26 @@ class Engine:
                                  f"({ecfg.max_len})")
             chunk = -(-chunk // ps) * ps
             self.blocks_per_slot = ecfg.max_len // ps
-            self.total_pages = ecfg.n_slots * self.blocks_per_slot
+            self.total_pages = ecfg.n_pages if ecfg.n_pages is not None \
+                else ecfg.n_slots * self.blocks_per_slot
             self._bt = np.full((ecfg.n_slots, self.blocks_per_slot), -1,
                                np.int32)
             self._free: List[int] = list(range(self.total_pages - 1, -1, -1))
             self.peak_pages = 0
-            kv = cache_mod.init_paged_cache(cfg, self.total_pages, ps,
+        self._chunk = min(chunk, ecfg.max_len)
+        self._k = self._v = None
+        self._alloc_kv()
+        self.prefill_chunks = 0   # chunks run since the engine was made
+
+    def _alloc_kv(self) -> None:
+        if self.ecfg.paged:
+            kv = cache_mod.init_paged_cache(self.cfg, self.total_pages,
+                                            self.ecfg.page_size,
                                             device=self.device)
         else:
-            kv = cache_mod.init_cache(cfg, ecfg.n_slots, ecfg.max_len,
-                                      device=self.device)
-        self._chunk = min(chunk, ecfg.max_len)
+            kv = cache_mod.init_cache(self.cfg, self.ecfg.n_slots,
+                                      self.ecfg.max_len, device=self.device)
         self._k, self._v = kv["k"], kv["v"]
-        self.prefill_chunks = 0   # chunks run since the engine was made
 
     # ----------------------- slot bookkeeping ----------------------- #
     @property
@@ -114,6 +134,20 @@ class Engine:
 
     def active_rids(self) -> List[int]:
         return [s.rid for s in self.slots if s is not None]
+
+    def has_request(self, rid: int) -> bool:
+        return rid in self._by_rid
+
+    def free_pages(self) -> int:
+        """Unallocated pages of the paged pool (the KV admission bound)."""
+        if not self.ecfg.paged:
+            raise RuntimeError("free_pages() requires EngineConfig.paged")
+        return len(self._free)
+
+    def transport_stats(self) -> Dict:
+        """Launch accounting of the disaggregated transport plane (empty on
+        the coupled plane, which has no transport)."""
+        return self.transport.stats.as_dict() if self.transport else {}
 
     def kv_stats(self) -> Dict[str, int]:
         """Slot occupancy, the dense slab's bytes and, when paged, the
@@ -150,6 +184,8 @@ class Engine:
         slot = next((i for i, s in enumerate(self.slots) if s is None), None)
         if slot is None:
             raise RuntimeError("no free decode slot")
+        if self._k is None:
+            self._alloc_kv()
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         plen = int(prompt.shape[0])
         if plen < 1 or plen > self.ecfg.max_len:
@@ -219,6 +255,17 @@ class Engine:
             self._free.extend(int(p) for p in self._bt[slot] if p >= 0)
             self._bt[slot, :] = -1
 
+    def release_kv(self) -> None:
+        """Drop the KV pool or slab of an empty engine (its memory comes
+        back); the next admission allocates it again."""
+        if self._by_rid:
+            raise RuntimeError(
+                f"release_kv with {len(self._by_rid)} requests resident")
+        self._k = self._v = None
+        if self.ecfg.paged:
+            self._bt[:] = -1
+            self._free = list(range(self.total_pages - 1, -1, -1))
+
     # ---------------------------- decode ----------------------------- #
     def step(self) -> Dict[int, int]:
         """Decode one token for every occupied slot; returns {rid: token}.
@@ -232,6 +279,9 @@ class Engine:
         nb = _bucket(len(occupied), self.n_slots)
         sel = np.zeros(nb, np.int64)
         sel[: len(occupied)] = occupied
+        # padding rows scatter past the slab: dropped
+        scatter_idx = np.full(nb, self.n_slots, np.int64)
+        scatter_idx[: len(occupied)] = occupied
         toks = np.zeros((nb, 1), np.int64)
         pos_vec = np.full(nb, -1, np.int32)
         ads = np.full(nb, -1, np.int32)
@@ -251,33 +301,16 @@ class Engine:
             toks[row, 0] = s.last_token
             pos_vec[row] = s.pos
             ads[row] = s.adapter_id
-        dev = self.device
-        toks_t = torch.as_tensor(toks, device=dev)
-        pos_t = torch.as_tensor(pos_vec, device=dev)
-        ads_t = torch.as_tensor(ads, device=dev)
-        if self.ecfg.paged:
-            k, v = self._k, self._v
-            bt = torch.as_tensor(self._bt[sel], device=dev)
+        paged = self.ecfg.paged
+        bt = self._bt[sel] if paged else None
+        if self.transport is not None:
+            tok, _, _ = self.transport.decode_step(
+                self.params, self.cfg, self._k, self._v, toks, pos_vec, ads,
+                self.lora_scale, sel=None if paged else sel,
+                scatter_idx=None if paged else scatter_idx, block_table=bt)
         else:
-            sel_t = torch.as_tensor(sel, device=dev)
-            k, v = self._k[:, sel_t], self._v[:, sel_t]
-            bt = None
-        if self.server is not None:
-            logits, k, v = disagg_mod.disagg_decode_step_slots(
-                self.params, self.cfg, k, v, toks_t, pos_t, self.server,
-                ads_t, self.lora_scale, block_table=bt)
-        else:
-            lora_ctx = (self.pool.lora_ctx(ads_t) if self.pool is not None
-                        else None)
-            logits, k, v = transformer.decode_step_slots(
-                self.params, self.cfg, k, v, toks_t, pos_t, lora_ctx,
-                block_table=bt)
-        if not self.ecfg.paged:
-            # padding rows sit past the occupied ones: they are not written
-            occ = sel_t[: len(occupied)]
-            self._k[:, occ] = k[:, : len(occupied)]
-            self._v[:, occ] = v[:, : len(occupied)]
-        tok = torch.argmax(logits[:, : self.cfg.vocab_size], dim=-1).tolist()
+            tok = self._coupled_step(toks, pos_vec, ads, sel, bt,
+                                     len(occupied))
         out: Dict[int, int] = {}
         for row, i in enumerate(occupied):
             s = self.slots[i]
@@ -285,3 +318,26 @@ class Engine:
             s.last_token = int(tok[row])
             out[s.rid] = s.last_token
         return out
+
+    def _coupled_step(self, toks, pos_vec, ads, sel, bt, n_occ: int):
+        dev = self.device
+        toks_t = torch.as_tensor(toks, device=dev)
+        pos_t = torch.as_tensor(pos_vec, device=dev)
+        ads_t = torch.as_tensor(ads, device=dev)
+        if self.ecfg.paged:
+            k, v = self._k, self._v
+            bt = torch.as_tensor(bt, device=dev)
+        else:
+            sel_t = torch.as_tensor(sel, device=dev)
+            k, v = self._k[:, sel_t], self._v[:, sel_t]
+        lora_ctx = (self.pool.lora_ctx(ads_t) if self.pool is not None
+                    else None)
+        logits, k, v = transformer.decode_step_slots(
+            self.params, self.cfg, k, v, toks_t, pos_t, lora_ctx,
+            block_table=bt)
+        if not self.ecfg.paged:
+            # padding rows sit past the occupied ones: they are not written
+            occ = sel_t[:n_occ]
+            self._k[:, occ] = k[:, :n_occ]
+            self._v[:, occ] = v[:, :n_occ]
+        return torch.argmax(logits[:, : self.cfg.vocab_size], dim=-1).tolist()

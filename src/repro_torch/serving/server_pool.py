@@ -1,0 +1,270 @@
+"""Elastic LoRA-Server pool: N server replicas behind one interface, the
+counterpart of ``repro.serving.server_pool`` on the real plane.
+
+  adapter-affinity routing   : adapter ``a`` lives on (and is computed by)
+                               replica ``a % n_replicas`` only, so replicas
+                               partition the adapter set and the per-layer
+                               hook traffic instead of duplicating it
+  per-replica residency sync : the shared ``LoRACache``'s residency set is
+                               mirrored into each replica's slot table
+                               delta-based (``LoRACache.drain_dirty``), so a
+                               quiet round costs one empty-set check
+  online resize              : ``add_replica``/``remove_replica`` re-route
+                               the affinity map at a round boundary; the
+                               next ``sync`` is forced full, so every
+                               resident adapter lands on its new home
+                               before the next decode step
+
+The compute contract is bit-compatibility: ``compute`` returns exactly what
+a single server holding every adapter would return. Each active row's delta
+comes from its affinity home; the other replicas contribute exact ``0.0``
+rows and are skipped when they own no active row of the step. The engine
+knows the step's adapter ids on the host, so the transport hands them over
+once a step (``route_step``, which ``compute`` requires) and no hook
+reads the device to decide which replicas to launch. The reference
+decides from the dispatch rows' ids; a decode step is dropless
+(T * top_k <= 4096), so every token's adapter has a dispatch row and the
+two rules engage the same replicas.
+
+The reference's analytic plane (``ServerPool.analytic``, slot tables
+without weights for the simulator) is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.serving.cache import LoRACache
+
+
+class ServerPool:
+    """N LoRA-Server replicas with adapter-affinity routing + delta sync."""
+
+    def __init__(self, replicas: Sequence, factory: Optional[Callable] = None):
+        if not replicas:
+            raise ValueError("ServerPool needs at least one replica")
+        self.replicas: List = list(replicas)
+        self._factory = factory
+        # rank-aware compute toggle, mirrored onto every replica (current
+        # and future); False pins the padded pool-rank path
+        self.rank_aware = True
+        self._full_sync = True      # first sync (and any resize) is full
+        self.sync_rounds = 0
+        self.sync_noops = 0
+        self.sync_inserts = 0
+        self.sync_evictions = 0
+        # monotone pool-shape/residency version: bumped on every sync that
+        # changed something and on add/remove/resize (fused transport's
+        # fingerprint)
+        self.version = 0
+        # one server launch per replica engaged by a ``compute`` call
+        self.compute_calls = 0
+        self.replica_launches = 0
+        # replicas the current step engages (route_step); None = not
+        # routed, and compute refuses
+        self._engaged: Optional[Tuple[int, ...]] = None
+
+    # ------------------------------------------------------------------ #
+    # construction                                                        #
+    # ------------------------------------------------------------------ #
+    @classmethod
+    def build(cls, model_cfg, adapter_pool, cache_slots: int,
+              n_replicas: int = 1, dtype=None, device=None) -> "ServerPool":
+        """``n_replicas`` single-device ``LoRAServer``s, each sized to the
+        full cache capacity (affinity partitions load, not worst-case
+        residency), plus a factory for ``add_replica``. The reference's
+        slot-partitioned pools (``partition_slots``) serve its mesh layout,
+        which the port does not run yet."""
+        from repro_torch.core.lora_server import LoRAServer, ServerConfig
+        if dtype is None:
+            dtype = next(iter(adapter_pool.tensors.values()))["A"].dtype
+
+        def factory():
+            scfg = ServerConfig(m=1, x=1, y=1, cache_slots=cache_slots,
+                                rank=adapter_pool.rank)
+            return LoRAServer(model_cfg, scfg, dtype=dtype, device=device)
+
+        return cls([factory() for _ in range(n_replicas)], factory=factory)
+
+    # ------------------------------------------------------------------ #
+    # shape                                                               #
+    # ------------------------------------------------------------------ #
+    @property
+    def n_replicas(self) -> int:
+        return len(self.replicas)
+
+    @property
+    def min_slots(self) -> int:
+        """Smallest per-replica slot capacity: the cache-size bound of a
+        duplicated pool (worst case routes every resident to one replica)."""
+        return min(r.M for r in self.replicas)
+
+    def replica_for(self, adapter_id: int) -> int:
+        """Affinity home of ``adapter_id`` (stable between resizes)."""
+        return int(adapter_id) % len(self.replicas)
+
+    def is_resident(self, adapter_id: int) -> bool:
+        return self.replicas[self.replica_for(adapter_id)].is_resident(
+            adapter_id)
+
+    def set_rank_aware(self, flag: bool) -> None:
+        """Toggle true-rank compute on every replica (and later ones)."""
+        self.rank_aware = bool(flag)
+        for rep in self.replicas:
+            rep.rank_aware = self.rank_aware
+
+    def true_rank(self, adapter_id: int) -> int:
+        """TRUE rank of a resident adapter via its home (0 = absent)."""
+        return self.replicas[self.replica_for(adapter_id)].true_rank(
+            adapter_id)
+
+    @property
+    def pool_rank(self) -> int:
+        """Padded (pool) rank of the replicas' slot pools."""
+        return max(rep.r for rep in self.replicas)
+
+    # ------------------------------------------------------------------ #
+    # elasticity                                                          #
+    # ------------------------------------------------------------------ #
+    def add_replica(self):
+        """Scale out by one replica; the next sync is forced full."""
+        if self._factory is None:
+            raise RuntimeError("ServerPool built without a replica factory")
+        rep = self._factory()
+        rep.rank_aware = self.rank_aware
+        self.replicas.append(rep)
+        self._full_sync = True
+        self.version += 1
+        return rep
+
+    def remove_replica(self):
+        """Scale in by one replica (never below one); its residents are
+        re-homed by the forced full sync that follows."""
+        if len(self.replicas) <= 1:
+            raise RuntimeError("ServerPool cannot drop below one replica")
+        rep = self.replicas.pop()
+        self._full_sync = True
+        self.version += 1
+        return rep
+
+    def resize_slots(self, cache_slots: int) -> None:
+        """Follow an adapter-cache resize: preallocated slot pools keep
+        their size (the caller clamps the cache to ``min_slots``), but the
+        next sync is forced full, since a resize can re-home residency and
+        a stale slot table would route rows to the wrong slot."""
+        self._full_sync = True
+        self.version += 1
+
+    # ------------------------------------------------------------------ #
+    # residency sync (delta-based)                                        #
+    # ------------------------------------------------------------------ #
+    def sync(self, cache: LoRACache,
+             tensors_fn: Optional[Callable[[int], object]] = None,
+             rank_fn: Optional[Callable[[int], int]] = None) -> int:
+        """Mirror ``cache``'s residency set into the replica slot tables:
+        only the ids the cache marked dirty since the last sync, or every
+        id the cache or a replica holds after a resize. ``tensors_fn(aid)``
+        gives an adapter's server tensors, ``rank_fn(aid)`` its TRUE rank.
+        Returns the number of ids reconciled (0 == no-op round)."""
+        self.sync_rounds += 1
+        if self._full_sync:
+            changed = set(cache.resident)
+            for rep in self.replicas:
+                changed |= set(rep.slot_of)
+            cache.drain_dirty()          # superseded by the full pass
+            self._full_sync = False
+            full = True
+        else:
+            full = False
+            changed = cache.drain_dirty()
+            if not changed:
+                self.sync_noops += 1
+                return 0
+        # evictions first so slots free up for the inserts
+        for aid in changed:
+            home = self.replica_for(aid)
+            want = aid in cache.resident
+            for i, rep in enumerate(self.replicas):
+                if rep.is_resident(aid) and (not want or i != home):
+                    rep.evict(aid)
+                    self.sync_evictions += 1
+        for aid in changed:
+            if aid not in cache.resident:
+                continue
+            rep = self.replicas[self.replica_for(aid)]
+            if not rep.is_resident(aid):
+                rep.insert(aid, tensors_fn(aid) if tensors_fn else None,
+                           rank=rank_fn(aid) if rank_fn else None)
+                self.sync_inserts += 1
+        if full:
+            self.check_consistent(cache)
+        if full or changed:
+            self.version += 1
+        return len(changed)
+
+    def check_consistent(self, cache: Optional[LoRACache] = None) -> None:
+        """Each resident adapter sits on exactly its affinity replica, no
+        replica holds a foreign or stale id, and, given the mirrored cache,
+        the union of replica residents equals the cache's residency set."""
+        seen: Dict[int, int] = {}
+        for i, rep in enumerate(self.replicas):
+            for aid in rep.slot_of:
+                if aid in seen:
+                    raise AssertionError(
+                        f"adapter {aid} resident on replicas {seen[aid]} "
+                        f"and {i}")
+                if self.replica_for(aid) != i:
+                    raise AssertionError(
+                        f"adapter {aid} on replica {i}, affinity says "
+                        f"{self.replica_for(aid)}")
+                seen[aid] = i
+        if cache is not None and not self._full_sync and not cache.dirty:
+            if set(seen) != set(cache.resident):
+                raise AssertionError(
+                    f"replica residency {sorted(seen)} != cache residency "
+                    f"{sorted(cache.resident)}")
+
+    # ------------------------------------------------------------------ #
+    # compute routing                                                     #
+    # ------------------------------------------------------------------ #
+    def route_step(self, adapter_ids) -> None:
+        """Fix the replicas the coming step's hooks engage from its
+        host-side adapter ids (-1 = inactive row); ``None`` forgets them."""
+        if adapter_ids is None:
+            self._engaged = None
+            return
+        ids = np.asarray(adapter_ids).reshape(-1)
+        R = len(self.replicas)
+        self._engaged = tuple(sorted({int(a) % R for a in ids if a >= 0}))
+
+    def compute(self, hook: str, layer: int, rows, adapter_ids, expert_ids):
+        """Drop-in for ``LoRAServer.compute`` within a routed step
+        (``route_step``): every active row's delta comes from its affinity
+        replica; replicas owning no active row of the step are skipped.
+        One replica is a passthrough."""
+        engaged = self._engaged
+        if engaged is None:
+            raise RuntimeError("ServerPool.compute needs the step's routing: "
+                               "call route_step(adapter_ids) first")
+        self.compute_calls += 1
+        if len(self.replicas) == 1:
+            self.replica_launches += 1
+            return self.replicas[0].compute(hook, layer, rows, adapter_ids,
+                                            expert_ids)
+        ids = torch.as_tensor(adapter_ids)
+        homes = torch.where(ids >= 0, ids % len(self.replicas), -1)
+        out = None
+        for i in engaged:
+            self.replica_launches += 1
+            delta = self.replicas[i].compute(
+                hook, layer, rows, torch.where(homes == i, ids, -1),
+                expert_ids)
+            out = delta if out is None else out + delta
+        if out is None:     # no active adapters anywhere: exact zero delta
+            self.replica_launches += 1
+            out = self.replicas[0].compute(hook, layer, rows,
+                                           torch.full_like(ids, -1),
+                                           expert_ids)
+        return out

@@ -372,8 +372,9 @@ def test_serve_coupled_entry_point_runs_on_cpu(capsys, extra):
 
 
 def test_build_lora_planes():
-    """disagg: a server of the FFN hooks; coupled: a pool of every
-    target, both with the traffic's true ranks."""
+    """disagg: a server pool of the FFN hooks holding every adapter, with
+    the FFN pool it serves; coupled: a pool of every target; both with the
+    traffic's true ranks."""
     cfg = dataclasses.replace(bridge.config_from(
         get_config("qwen3-moe-235b-a22b").reduced()), n_layers=1)
     ranks = (2, 4)
@@ -383,8 +384,10 @@ def test_build_lora_planes():
     assert set(c["pool"].tensors) == set(cfg.lora_targets)
     d = tserve.build_lora(cfg, "disagg", ranks, dtype=torch.float32,
                           device="cpu")
-    assert set(d) == {"server", "lora_scale"}
-    assert d["server"].slot_ranks == list(ranks)
+    assert set(d) == {"server", "pool"} and d["server"].n_replicas == 1
+    assert [d["server"].true_rank(a) for a in range(2)] == list(ranks)
+    assert set(d["pool"].tensors) == set(tserve.FFN_TARGETS)
+    assert d["pool"].ranks == ranks
     with pytest.raises(ValueError, match="mode"):
         tserve.build_lora(cfg, "fused", ranks, device="cpu")
 
