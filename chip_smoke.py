@@ -52,12 +52,30 @@ port only. Phases, each of which fails the run with a non-zero exit:
    tokens bit for bit, one dispatch and no hook call a fused step, each
    capture holding one step's kernels (counted at capture: a replay moves
    no Python counter), decode ms/step and tokens/s of the last 3 runs,
-   capture time per bucket and the graph pool's bytes; a churn run (2
-   slots a replica, adapters brought in by a LoRA cache between steps:
-   tokens equal, > 2 table uploads, no new capture); the fused plane's
-   profile (device ms/step, busy share) and one replay's device time
-   against a whole step's host time. The kernels of the host plane are
-   held against their plain versions in phase 3.
+   capture time per bucket and the graph pool's bytes; a churn run
+   through the front door (2 replicas of one slot behind a one-adapter
+   cache, requests waiting for their adapter; each plane's launches
+   counted and held as above: tokens equal, each capture one step's
+   kernels, no launch from the host at a replay, > 2 table uploads, no
+   new capture); the fused plane's profile (device ms/step,
+   busy share) and one replay's device time against a whole step's host
+   time. The kernels of the host plane are held against their plain
+   versions in phase 3;
+7. the front door (``ServeSystem`` over the ``Cluster``, the adapter
+   store, the scheduler) at the same cell, counts set to 0 before each
+   counted run: the main path (disaggregated, paged, fused; adapter 0's
+   tokens streamed through its handle) gives phase 6's fused tokens bit
+   for bit, one dispatch and no hook a step; on the same system a rank-16
+   adapter loaded mid-run and served, its unload refused in flight and
+   accepted after, a cancel mid-decode that gives back its slot and
+   pages; two instances over one fused transport give one instance's
+   tokens (the graph pool's bytes of each); the coupled plane gives phase
+   3's tokens; churn through the store's disk tier (8 adapters, 4 slots,
+   a host tier of 3 adapters' bytes) gives the all-resident run's tokens,
+   with evictions, disk reads and no new capture, and the per-adapter
+   costs of a disk-tier read (its file's pages cached, and after
+   ``posix_fadvise(DONTNEED)``), the CPU staging and the upload (pageable
+   and pinned), and a cold round against a warm one.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -67,6 +85,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import pathlib
 import re
 import statistics
@@ -603,8 +622,11 @@ def lora_rows(lora, plane_launches, gm_prefill, repairs):
             row["launch_unit"] = ("one sgmv_kernel a call, after a memset "
                                   "of its completion counts")
         if name == "sgmv":
-            row["rank_grouped"] = dict(cases["sgmv_rank_grouped"],
-                                       launches=counts["rank_buckets"])
+            rg = cases["sgmv_rank_grouped"]
+            row["rank_grouped"] = dict(rg, launches=counts["rank_buckets"])
+            # its bound: the same bytes and operations as sgmv_ranked's
+            row["rank_grouped_ms"] = rg["ms"]
+            row["rank_grouped_bound_ms"] = rg["bound_ms"]
             row["repairs"] = repairs
         if name == "fused_sgmv":
             row["cross_check"] = cases["fused_sgmv_down"]
@@ -942,7 +964,8 @@ def main_paths(torch, ops, paged, bgmv, ref, counters):
         Engine(cfg2, params2, ecfg, device="cuda", pool=ffn2),
         Engine(cfg2, params2, ecfg, device="cuda", server=lora["server"],
                pool=ffn2)], requests, traffic, "coupled == disagg")
-    return {"disagg": d_launch, "coupled": c_launch}, (cfg, params, ecfg)
+    return ({"disagg": d_launch, "coupled": c_launch}, (cfg, params, ecfg),
+            c_res["tokens"])
 
 
 # ------------------------------ phase 6 ------------------------------ #
@@ -958,7 +981,7 @@ def slot_bytes(cfg, r: int) -> int:
 
 
 def plane_runs(torch, ops, cfg, params, ecfg, lora, transport, requests,
-               traffic, runs, residency=None):
+               traffic, runs):
     """``runs`` serves of the same requests by one engine of ``transport``
     (so the fused plane captures in the first and replays after); each
     run's tokens, ms/step, tokens/s and kernel launches, and the engine's
@@ -971,8 +994,7 @@ def plane_runs(torch, ops, cfg, params, ecfg, lora, transport, requests,
     out = {"runs": []}
     for i in range(runs):
         before = ops.launch_counts()
-        res = serve.serve(eng, requests, traffic,
-                          residency() if residency else None)
+        res = serve.serve(eng, requests, traffic)
         after = ops.launch_counts()
         out["runs"].append({
             "tokens": res["tokens"], "decode_steps": res["decode_steps"],
@@ -1091,6 +1113,8 @@ def transport_phase(torch, ops, smi, cfg, params, ecfg):
         held = check_planes(cfg, planes["host"], planes["fused"], name,
                             per_step, R)
         caps = planes["fused"]["captures"]
+        if name == "R=1 paged":
+            fused_tokens = planes["fused"]["runs"][-1]["tokens"]
         cells[name] = {
             **held, "host": summary(planes["host"]),
             "fused": summary(planes["fused"]),
@@ -1103,32 +1127,7 @@ def transport_phase(torch, ops, smi, cfg, params, ecfg):
         del lora, planes
         torch.cuda.empty_cache()
 
-    # churn: 2 slots a replica, the cache brings adapters in as requests
-    # need them, the server pool follows before every step (a fresh pool
-    # of the same adapters for each plane)
-    planes, evictions = {}, {}
-    for t in ("host", "fused"):
-        lora = serve.build_pool(cfg, RANKS, 2, cache_slots=2, seed=SEED,
-                                dtype=torch.bfloat16, device="cuda")
-        planes[t] = plane_runs(
-            torch, ops, cfg, params, ecfg, lora, t, requests, traffic, 1,
-            lambda: serve.Residency(lora["server"], lora["pool"], 2))[1]
-        evictions[t] = lora["server"].sync_evictions
-        del lora
-    held = check_planes(cfg, planes["host"], planes["fused"], "churn",
-                        {"gmm": 3 * L, "bgmv_expert": 2 * L,
-                         "paged_attention": L}, 2)
-    fs = planes["fused"]["stats"]
-    buckets = {c["bucket"] for c in planes["fused"]["captures"]}
-    check(fs["lut_uploads"] > 2, f"churn: {fs['lut_uploads']} uploads")
-    check(len(planes["fused"]["captures"]) == len(buckets),
-          "churn: a residency change recaptured a graph")
-    churn = {**held, "lut_uploads": fs["lut_uploads"],
-             "evictions": evictions,
-             "host_stats": planes["host"]["stats"], "fused_stats": fs}
-    print("transport churn (R=2, 2 slots a replica): " + json.dumps(churn)
-          + f"; card {smi}", flush=True)
-    del planes
+    churn_cell(torch, ops, smi, cfg, params, traffic, requests)
 
     # the fused plane's device time and busy share, and one replay's time
     lora = serve.build_pool(cfg, RANKS, 1, seed=SEED, dtype=torch.bfloat16,
@@ -1142,7 +1141,64 @@ def transport_phase(torch, ops, smi, cfg, params, ecfg):
           + f"; card {smi}", flush=True)
     del eng, lora
     torch.cuda.empty_cache()
-    return cells, churn, prof, replay
+    return fused_tokens
+
+
+def churn_cell(torch, ops, smi, cfg, params, traffic, requests) -> dict:
+    """The transport phase's churn cell through the front door: 2 replicas
+    of one slot each behind a one-adapter cache, so a request waits until
+    its adapter is the resident one (4 residency changes for the 6
+    requests), the same pool for the host and the fused plane, each run's
+    launches counted: ``check_planes`` (tokens equal, one dispatch and no
+    hook a fused step, each capture one step's kernels, no launch from the
+    host at a replay, the host plane's launches), > 2 table uploads, no
+    new capture."""
+    from repro_torch.launch import serve
+    L = cfg.n_layers
+    pool = serve.adapter_pool(cfg, "disagg", RANKS, seed=SEED,
+                              dtype=torch.bfloat16, device="cuda")
+    planes, evictions = {}, {}
+    for t in ("host", "fused"):
+        system = front_door(serve, params, pool, traffic, transport=t,
+                            replicas=2, adapter_cache_slots=1)
+        cl = system.backend.cluster
+        before = ops.launch_counts()
+        res = serve.serve_system(system, requests, traffic)
+        after = ops.launch_counts()
+        stats = res["transport_stats"]
+        planes[t] = {"runs": [{
+            "tokens": res["tokens"], "decode_steps": stats["steps"],
+            "prefill_chunks": sum(e.prefill_chunks
+                                  for e in cl.engines.values()),
+            "launches": {n: after[n] - before[n] for n in after
+                         if after[n] != before[n]}}],
+            "stats_first_run": stats, "stats": stats,
+            "captures": list(getattr(cl.transport, "captures", []))}
+        evictions[t] = cl.server_pool.sync_evictions
+        system.close()
+        del system, cl
+    held = check_planes(cfg, planes["host"], planes["fused"], "churn",
+                        {"gmm": 3 * L, "bgmv_expert": 2 * L,
+                         "paged_attention": L}, 2)
+    check(all(len(v) == traffic.new_tokens
+              for v in planes["host"]["runs"][0]["tokens"].values()),
+          "churn: a request did not get all its tokens")
+    fs = planes["fused"]["stats"]
+    caps = planes["fused"]["captures"]
+    check(fs["lut_uploads"] > 2, f"churn: {fs['lut_uploads']} uploads")
+    check(len(caps) == len({c["bucket"] for c in caps}),
+          "churn: a residency change recaptured a graph")
+    check(all(n > 0 for n in evictions.values()), "churn: no eviction")
+    churn = {**held, "lut_uploads": fs["lut_uploads"],
+             "evictions": evictions,
+             "launches": {t: p["runs"][0]["launches"]
+                          for t, p in planes.items()},
+             "host_stats": planes["host"]["stats"], "fused_stats": fs}
+    print("transport churn (front door, R=2, 1 slot a replica): "
+          + json.dumps(churn) + f"; card {smi}", flush=True)
+    del planes, pool
+    torch.cuda.empty_cache()
+    return churn
 
 
 def refresh_cost(torch, eng, lora, n=5) -> dict:
@@ -1216,6 +1272,375 @@ def replay_vs_step(torch, eng, n=20) -> dict:
             "step_host_ms": statistics.median(steps)}
 
 
+# ------------------------------ phase 7 ------------------------------ #
+CHURN_RANKS = (8, 16, 32, 32, 8, 16, 32, 32)   # 8 adapters, pool rank 32
+CHURN_REQUESTS, CHURN_WAVE = 12, 4
+LIFE_RANK = 16                # the adapter loaded mid-run
+
+
+def front_door(serve, params, pool, traffic, **kw):
+    """A ``ServeSystem`` of the serving cell's config (``serve_config``,
+    ``kw`` on top) over ``pool``; the model config is the pool's (its
+    targets are the adapters' the store validates)."""
+    from repro_torch.serving.api import build_system
+    return build_system(serve.serve_config(traffic, **kw), pool.cfg,
+                        params=params, pool=pool)
+
+
+def graph_pool_bytes(system) -> int:
+    tr = system.backend.cluster.transport
+    return sum(c["pool_bytes_added"] for c in getattr(tr, "captures", []))
+
+
+def served_with_counts(torch, counters, serve, system, requests, traffic,
+                       stream=None):
+    """``serve.serve_system`` with every launch counter set to 0 just
+    before and read just after (a fused run counts its kernels at warm-up
+    and capture, not at replay)."""
+    for fn in counters.values():
+        fn.launches = 0
+    res = serve.serve_system(system, requests, traffic, stream=stream)
+    torch.cuda.synchronize()
+    res["launches"] = {name: fn.launches for name, fn in counters.items()}
+    return res
+
+
+def check_served(cfg, res, traffic, want, what: str, kernels) -> None:
+    check(res["tokens"] == want, f"{what}: tokens differ from the engine "
+          f"run's")
+    check(all(len(v) == traffic.new_tokens and
+              all(0 <= x < cfg.vocab_size for x in v)
+              for v in res["tokens"].values()),
+          f"{what}: a request lacks tokens or one is out of the vocabulary")
+    s = res["summary"]
+    check(s.n_cancelled == 0 and s.n_censored == 0 and s.n_finished > 0,
+          f"{what}: summary {s}")
+    check(all(st["slots_in_use"] == 0 for st in res["kv_stats"].values()),
+          f"{what}: slots still held after the drain")
+    for name in kernels:
+        check(res["launches"][name] > 0, f"{what}: {name} never launched")
+
+
+def churn_requests(cfg, traffic):
+    """12 requests over zipf-drawn adapters of CHURN_RANKS, in waves of 4
+    that do not overlap (each wave arrives as the last one finishes), so
+    the batches are the same whatever the cache holds: [(rid, prompt,
+    adapter, arrival)]."""
+    import numpy as np
+
+    from repro_torch.serving.workload import zipf_popularity
+    # seed SEED + 4 draws 7 distinct adapters: waves 2 and 3 evict
+    ads = np.random.default_rng(SEED + 4).choice(
+        len(CHURN_RANKS), size=CHURN_REQUESTS,
+        p=zipf_popularity(len(CHURN_RANKS)))
+    rng = np.random.default_rng(SEED + 3)
+    lo, hi = traffic.prompt_len
+    return [(rid, rng.integers(0, cfg.vocab_size,
+                               int(rng.integers(lo, hi + 1))).tolist(),
+             int(ads[rid]), float(rid // CHURN_WAVE * traffic.new_tokens))
+            for rid in range(CHURN_REQUESTS)]
+
+
+def churn_run(torch, system, requests, traffic) -> dict:
+    """Drive the churn requests round by round: each round's host time
+    (it ends in the tokens' read-back) and whether it inserted an adapter
+    into a server slot (a cold round) or admitted nothing (a warm one)."""
+    from repro_torch.obs.clock import wall_time
+    cl = system.backend.cluster
+    handles = [system.submit(p, a, max_new_tokens=traffic.new_tokens,
+                             arrival=at, rid=rid)
+               for rid, p, a, at in requests]
+    sync = cl.server_pool.sync
+    sync_ms = []
+
+    def timed_sync(*args, **kw):      # staging, disk reads and uploads
+        t0 = wall_time()
+        out = sync(*args, **kw)
+        sync_ms.append(1e3 * (wall_time() - t0))
+        return out
+
+    cl.server_pool.sync = timed_sync
+    cold, cold_sync, warm = [], [], []
+    while not system.backend.idle():
+        inserts, chunks = cl.server_pool.sync_inserts, \
+            sum(e.prefill_chunks for e in cl.engines.values())
+        n_sync = len(sync_ms)
+        t0 = wall_time()
+        system.step()
+        ms = 1e3 * (wall_time() - t0)
+        if cl.server_pool.sync_inserts > inserts:
+            cold.append(ms)
+            cold_sync.append(sum(sync_ms[n_sync:]))
+        elif sum(e.prefill_chunks for e in cl.engines.values()) == chunks:
+            warm.append(ms)
+    del cl.server_pool.sync
+    check(all(h.state.name == "FINISHED" for h in handles),
+          "churn: a request did not finish")
+    return {"tokens": {h.rid: list(h.tokens) for h in handles},
+            "cold_round_ms": cold, "cold_sync_ms": cold_sync,
+            "warm_round_ms": warm,
+            "cache": system.cache_stats(), "captures": len(
+                cl.transport.captures), "buckets": len(
+                {c["bucket"] for c in cl.transport.captures}),
+            "inserts": cl.server_pool.sync_inserts}
+
+
+def adapter_costs(torch, system, n=5) -> dict:
+    """Per adapter of the pool's rank (the padded slot is what
+    moves): the disk tier's read of its canonical file (written moments
+    before, so from the page cache; then after asking the kernel to drop
+    the file's pages), the CPU staging into the server layout, and the upload into a slot from pageable and
+    from pinned host memory (median ms of ``n``, host clock, the upload
+    ending in a device sync)."""
+    from repro_torch.obs.clock import wall_time
+    from repro_torch.store import server_tensors_from_host
+    cl = system.backend.cluster
+    store, rep = cl.store, cl.server_pool.replicas[0]
+    aid = next(a for a in rep.slot_of if store.rank_of(a) == store.r_pool)
+    out = {"adapter": aid, "canonical_bytes": store.adapter_bytes(aid)}
+
+    def timed(fn):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = wall_time()
+            got = fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (wall_time() - t0))
+        return statistics.median(times), got
+
+    on_disk = next((a for a in store.registered_ids() if a in store.disk),
+                   None)
+    check(on_disk is not None, "churn: no adapter on the disk tier")
+    # the file was written moments ago: read as it is, its pages are in
+    # the page cache; then read after asking the kernel to drop them
+    out["tier_read_ms_page_cache"], _ = timed(
+        lambda: store.disk.get(on_disk))
+
+    def dropped_read():
+        fd = os.open(store.disk.path(on_disk), os.O_RDONLY)
+        try:
+            os.fsync(fd)
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+        t0 = wall_time()
+        store.disk.get(on_disk)
+        return 1e3 * (wall_time() - t0)
+    out["tier_read_ms_after_dontneed"] = statistics.median(
+        dropped_read() for _ in range(n))
+    out["tier_read_bytes"] = store.adapter_bytes(on_disk)
+    host = store.host_tensors(aid)
+    out["staging_ms"], staged = timed(
+        lambda: server_tensors_from_host(store.cfg, host, store.r_pool))
+    out["slot_bytes"] = sum(t.numel() * t.element_size()
+                            for t in staged.values())
+    rank = store.rank_of(aid)
+    for what, tensors in (("pageable", staged),
+                          ("pinned", {k: v.pin_memory()
+                                      for k, v in staged.items()})):
+        def upload():
+            rep.evict(aid)
+            rep.insert(aid, tensors, rank=rank)
+        out[f"upload_{what}_ms"], _ = timed(upload)
+    return out
+
+
+def front_door_phase(torch, counters, smi, cfg, params, want_fused,
+                     want_coupled):
+    """Phase 7: the serving cell through the front door (``ServeSystem``
+    on the ``Cluster``): the main path (disaggregated, paged, fused), the
+    coupled plane, churn through the adapter store's disk tier, the
+    adapter lifecycle and a cancel, two instances over one transport."""
+    from repro_torch.launch import serve
+    from repro_torch.store import random_host_tensors
+
+    traffic = serve.Traffic(adapter_ranks=RANKS)
+    requests = serve.make_requests(cfg, traffic, SEED)
+    pool = serve.adapter_pool(cfg, "disagg", RANKS, seed=SEED,
+                              dtype=torch.bfloat16, device="cuda")
+
+    # 1. the main path: 6 requests, adapter 0's streamed, drained; traced,
+    # so each decode step's host time is a span's wall_ms
+    system = front_door(serve, params, pool, traffic, transport="fused",
+                        trace=True)
+    res = served_with_counts(torch, counters, serve, system, requests,
+                             traffic, stream=0)
+    ts = res["transport_stats"]
+    check_served(cfg, res, traffic, want_fused, "front door (fused)",
+                 ("paged_attention", "bgmv_expert", "gmm"))
+    check(res["streamed"] == res["tokens"][0],
+          "front door: the streamed tokens are not the request's")
+    check(ts["host_dispatches"] == ts["steps"] > 0 and
+          ts["hook_dispatches"] == 0,
+          f"front door: not one dispatch and no hook a step: {ts}")
+    one_pool = graph_pool_bytes(system)
+    main = {k: res[k] for k in ("rounds", "wall_ms_per_round",
+                                "generated_tokens", "tokens_per_s",
+                                "launches", "transport_stats",
+                                "cache_stats")}
+    main.update(summary=dataclasses.asdict(res["summary"]),
+                graph_pool_bytes=one_pool, tokens_equal_phase6=True)
+    # the same requests again on the warm system (graphs captured,
+    # adapters resident; the same waves, so the same batches)
+    warm = serve.serve_system(system, requests, traffic, stream=0)
+    caps = system.backend.cluster.transport.captures
+    check(warm["tokens"] == want_fused and
+          len(caps) == len({c["bucket"] for c in caps}),
+          "front door (warm): tokens differ or a graph was captured again")
+    steps = [s.args["wall_ms"] for s in
+             system.observability().tracer.spans if s.name == "decode.step"]
+    check(len(steps) == res["rounds"] + warm["rounds"],
+          f"front door: {len(steps)} decode steps traced")
+    main["decode_step_ms_median"] = statistics.median(steps[:res["rounds"]])
+    main["warm"] = {k: warm[k] for k in ("rounds", "wall_ms_per_round",
+                                         "tokens_per_s")}
+    main["warm"]["decode_step_ms_median"] = statistics.median(
+        steps[res["rounds"]:])
+    print("front door main path (disagg, paged, fused): "
+          + json.dumps(main) + f"; card {smi}", flush=True)
+    launches = {"front_door": res["launches"]}
+
+    # 2. the lifecycle on the same system: a rank-16 adapter loaded
+    # mid-run, a request on it, unload refused in flight and accepted
+    # after, a cancel mid-decode that gives back the slot and the pages
+    tensors = random_host_tensors(pool.cfg, LIFE_RANK, seed=SEED + 4)
+    first = [system.submit(p, a, max_new_tokens=traffic.new_tokens)
+             for _, p, a in requests[:3]]
+    for _ in range(3):
+        system.step()
+    check(system.load_adapter(len(RANKS), tensors, alpha=16.0) == LIFE_RANK,
+          "lifecycle: load_adapter's rank")
+    h_new = system.submit(requests[3][1], len(RANKS), max_new_tokens=8)
+    h_cancel = system.submit(requests[4][1], 1, max_new_tokens=20)
+    check(not any(h.done for h in (*first, h_new, h_cancel)),
+          f"lifecycle: submit rejected: {[h.error for h in first]}, "
+          f"{h_new.error}, {h_cancel.error}")
+    while h_new.n_tokens < 1 or h_cancel.n_tokens < 2:
+        system.step()
+    try:
+        system.unload_adapter(len(RANKS))
+        check(False, "lifecycle: unload accepted while a request runs")
+    except ValueError as e:
+        check("in use" in str(e), f"lifecycle: {e}")
+    before = system.kv_stats()[0]
+    check(h_cancel.cancel(), "lifecycle: cancel refused")
+    after = system.kv_stats()[0]
+    check(after["slots_in_use"] == before["slots_in_use"] - 1 and
+          after["pages_in_use"] < before["pages_in_use"],
+          f"lifecycle: cancel kept its slot or pages: {before} -> {after}")
+    system.drain()
+    check(h_new.state.name == "FINISHED" and len(h_new.tokens) == 8 and
+          all(h.state.name == "FINISHED" for h in first),
+          "lifecycle: a request did not finish")
+    system.unload_adapter(len(RANKS))
+    check(system.submit(requests[3][1], len(RANKS)).state.name ==
+          "REJECTED", "lifecycle: a submit to an unloaded adapter")
+    final = system.kv_stats()[0]
+    check(final["slots_in_use"] == 0 and final["pages_in_use"] == 0,
+          f"lifecycle: KV held after the drain: {final}")
+    life = {"new_adapter_tokens": h_new.tokens, "cancelled_after":
+            h_cancel.n_tokens, "kv_before_cancel": before,
+            "kv_after_cancel": after, "captures": len(
+                system.backend.cluster.transport.captures),
+            "transport_stats": system.transport_stats()}
+    print("front door lifecycle: " + json.dumps(life) + f"; card {smi}",
+          flush=True)
+    system.close()
+    del system
+
+    # 3. two instances over one fused transport
+    system = front_door(serve, params, pool, traffic, transport="fused",
+                        n_instances=2)
+    res2 = serve.serve_system(system, requests, traffic)
+    two = {"tokens_equal_one_instance": res2["tokens"] == res["tokens"],
+           "rounds": res2["rounds"],
+           "wall_ms_per_round": res2["wall_ms_per_round"],
+           "graph_pool_bytes": {"1": one_pool,
+                                "2": graph_pool_bytes(system)},
+           "captures": len(system.backend.cluster.transport.captures),
+           "transport_stats": res2["transport_stats"]}
+    print("front door, two instances: " + json.dumps(two) + f"; card {smi}",
+          flush=True)
+    check(two["tokens_equal_one_instance"],
+          "two instances: tokens differ from the one-instance run")
+    system.close()
+    del system, pool
+    torch.cuda.empty_cache()
+
+    # 4. the coupled plane through the front door
+    cpool = serve.adapter_pool(cfg, "coupled", RANKS, seed=SEED,
+                               dtype=torch.bfloat16, device="cuda")
+    system = front_door(serve, params, cpool, traffic, mode="coupled")
+    resc = served_with_counts(torch, counters, serve, system, requests,
+                              traffic)
+    check_served(cfg, resc, traffic, want_coupled, "front door (coupled)",
+                 ("paged_attention", "bgmv_expert", "bgmv", "gmm"))
+    launches["front_door_coupled"] = resc["launches"]
+    print("front door coupled: " + json.dumps(
+        {k: resc[k] for k in ("rounds", "wall_ms_per_round", "tokens_per_s",
+                              "launches")} | {"tokens_equal_phase3": True})
+          + f"; card {smi}", flush=True)
+    system.close()
+    del system, cpool
+    torch.cuda.empty_cache()
+
+    # 5. churn through the store: 8 adapters, 4 slots, a host tier of 3
+    # adapters' canonical bytes (the rest on disk), against 8 slots and an
+    # unbounded host tier
+    ctraffic = dataclasses.replace(traffic, adapter_ranks=CHURN_RANKS)
+    creqs = churn_requests(cfg, ctraffic)
+    pool8 = serve.adapter_pool(cfg, "disagg", CHURN_RANKS, seed=SEED + 2,
+                               dtype=torch.bfloat16, device="cuda")
+    budget = 3 * pool8.adapter_bytes(CHURN_RANKS.index(max(CHURN_RANKS)))
+    runs = {}
+    churn_kw = dict(adapter_cache_slots=4, store_host_bytes=budget)
+    for name, kw in (("resident", {}), ("churn", churn_kw),
+                     ("churn_no_prefetch", dict(churn_kw, prefetch=False))):
+        system = front_door(serve, params, pool8, ctraffic,
+                            transport="fused", **kw)
+        runs[name] = churn_run(torch, system, creqs, ctraffic)
+        if name == "churn":
+            costs = adapter_costs(torch, system)
+        system.close()
+        del system
+        torch.cuda.empty_cache()
+    st = runs["churn"]["cache"]
+    ev = sum(c["evictions"] for c in st["caches"].values())
+    check(runs["churn"]["tokens"] == runs["resident"]["tokens"] ==
+          runs["churn_no_prefetch"]["tokens"],
+          "churn: tokens differ from the all-resident run")
+    check(ev > 0 and st["store"]["disk_reads"] > 0,
+          f"churn: {ev} evictions, {st['store']['disk_reads']} disk reads")
+    check(all(r["captures"] == r["buckets"] for r in runs.values()),
+          "churn: a residency change recaptured a graph")
+
+    def med(xs):
+        return statistics.median(xs) if xs else None
+    churn = {"adapters": list(CHURN_RANKS), "requests": [
+                 a for _, _, a, _ in creqs], "host_budget_bytes": budget,
+             "tokens_equal_resident": True, "evictions": ev,
+             "store": st["store"], "inserts": runs["churn"]["inserts"],
+             "captures": runs["churn"]["captures"],
+             "cold_round_ms": med(runs["churn"]["cold_round_ms"]),
+             "cold_round_sync_ms": med(runs["churn"]["cold_sync_ms"]),
+             "cold_rounds": len(runs["churn"]["cold_round_ms"]),
+             "no_prefetch": {
+                 "cold_round_ms": med(runs["churn_no_prefetch"][
+                     "cold_round_ms"]),
+                 "cold_round_sync_ms": med(runs["churn_no_prefetch"][
+                     "cold_sync_ms"]),
+                 "store": runs["churn_no_prefetch"]["cache"]["store"]},
+             "warm_round_ms": med(runs["churn"]["warm_round_ms"]),
+             "resident_warm_round_ms": med(runs["resident"]["warm_round_ms"]),
+             "per_adapter": costs}
+    print("front door churn (8 adapters, 4 slots, host tier of 3): "
+          + json.dumps(churn) + f"; card {smi}", flush=True)
+    del pool8
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _first_layers(tree, n: int):
     """Views of the first ``n`` layers of a layer-stacked tree."""
     if isinstance(tree, dict):
@@ -1262,9 +1687,13 @@ def main() -> int:
                 "fused_sgmv_ranked": fused.fused_sgmv_ranked, "gmm": gmm.gmm}
     lora = lora_path_phase(torch, ops, ref, counters, flush)
     repairs = repair_phase(torch, sgmv, fused, ref)
-    launches, model = main_paths(torch, ops, paged, bgmv, ref, counters)
-    transport_phase(torch, ops, smi, *model)
-    del model
+    launches, model, coupled_tokens = main_paths(torch, ops, paged, bgmv,
+                                                 ref, counters)
+    fused_tokens = transport_phase(torch, ops, smi, *model)
+    cfg, params, _ = model
+    launches.update(front_door_phase(torch, counters, smi, cfg, params,
+                                     fused_tokens, coupled_tokens))
+    del model, cfg, params
 
     # "launches": the coupled plane's run for rows 1-3 and gmm, the
     # LoRA-kernel path's run for rows 4-8; each path's counted run in

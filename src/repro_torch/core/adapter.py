@@ -58,11 +58,26 @@ class AdapterPool:
         (int32, -1 = no adapter)."""
         return {"adapters": self.tensors, "ids": ids, "scale": self.scale}
 
+    def bytes_per_adapter(self) -> int:
+        """Padded (slot-layout) bytes of one adapter: what one device slot
+        costs whatever the adapter's true rank."""
+        return sum(a.numel() * a.element_size() for t in self.tensors.values()
+                   for a in t.values()) // self.n
+
     def rank_of(self, adapter_id: int) -> int:
         """True rank of one adapter (the pool rank for uniform pools)."""
         if self.ranks is not None:
             return int(self.ranks[adapter_id])
         return int(self.rank)
+
+    def adapter_bytes(self, adapter_id: int) -> int:
+        """True-rank bytes of one adapter, what a host -> device upload
+        moves: every factor's rank axis scales linearly, so this is the
+        padded size times rank_of(i) / rank (``bytes_per_adapter`` for a
+        uniform pool)."""
+        r = self.rank_of(adapter_id)
+        return sum(a.numel() // self.n // self.rank * r * a.element_size()
+                   for t in self.tensors.values() for a in t.values())
 
 
 def init_adapter_pool(cfg, n_adapters: int, seed: int = 0,

@@ -1,10 +1,11 @@
-"""Serving entry point of the port: multi-LoRA decode through the slot
-engine, disaggregated (the LoRA Server computes the MoE hooks' deltas) or
-coupled (the S-LoRA baseline: adapters applied inside the model), over a
-paged KV pool or, with ``--dense``, a dense slab. The disaggregated plane
-runs over a pool of ``--replicas`` LoRA-Server replicas through the
-``--transport`` plane: "host" (per-hook host dispatch) or "fused" (one
-CUDA graph a decode step).
+"""Serving entry point of the port: multi-LoRA decode through the front
+door (``serving/api.py``: ``ServeConfig`` -> ``build_system`` ->
+``submit``), disaggregated (the LoRA Server computes the MoE hooks'
+deltas) or coupled (the S-LoRA baseline: adapters applied inside the
+model), over a paged KV pool or, with ``--dense``, a dense slab. The
+disaggregated plane runs over a pool of ``--replicas`` LoRA-Server
+replicas through the ``--transport`` plane: "host" (per-hook host
+dispatch) or "fused" (one CUDA graph a decode step).
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch qwen3-moe-235b-a22b --layers 4 --requests 6 --mode coupled
@@ -14,14 +15,15 @@ CUDA graph a decode step).
 Weights and adapters are random, drawn on the device from ``--seed``;
 nothing is downloaded. Requests arrive in two waves, so the second wave is
 admitted into a running batch. Runs on the CUDA card unless ``--device
-cpu`` is given.
+cpu`` is given. ``serve`` drives one engine directly (the step timings of
+``chip_smoke.py``).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +33,7 @@ from repro_torch.core.adapter import init_mixed_rank_pool
 from repro_torch.core.lora_server import pool_tensors_from_adapter
 from repro_torch.models.model import init_params, resolve_device, resolve_dtype
 from repro_torch.obs.clock import wall_time
+from repro_torch.serving.api import ServeConfig, build_system
 from repro_torch.serving.cache import LoRACache
 from repro_torch.serving.engine import Engine, EngineConfig
 from repro_torch.serving.server_pool import ServerPool
@@ -38,6 +41,10 @@ from repro_torch.serving.server_pool import ServerPool
 FFN_TARGETS = ("gate", "up", "down")
 MODES = ("disagg", "coupled")
 TRANSPORTS = ("host", "fused")
+# the serving cell's engine: 8 slots of up to 256 tokens, in pages of 16
+# (or a dense slab), prefill chunks of 64
+ENGINE = EngineConfig(max_len=256, n_slots=8, paged=True, page_size=16,
+                      prefill_chunk=64)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,96 +71,61 @@ def make_requests(cfg, traffic: Traffic, seed: int = 0):
             for rid in range(traffic.n_requests)]
 
 
-def build_lora(cfg, mode: str, adapter_ranks: Sequence[int], seed: int = 0,
-               dtype=torch.bfloat16, device=None, replicas: int = 1) -> Dict:
-    """One mixed-rank pool of adapters (ids 0..N-1), served by one plane;
-    returns the Engine's keyword arguments for it.
-
-    disagg : ``build_pool``'s pool of ``replicas`` LoRA-Server replicas
-             holding every adapter of the expert-FFN targets (the hooks
-             they serve) -> {"server", "pool"}
-    coupled: the pool over all of the config's targets -> {"pool"}
-
-    The pool rank, and the servers', is the largest true rank."""
+def adapter_pool(cfg, mode: str, adapter_ranks: Sequence[int],
+                 seed: int = 0, dtype=torch.bfloat16, device=None):
+    """The mixed-rank pool of adapters (ids 0..N-1) the ``mode``'s plane
+    serves, drawn from ``seed``: the expert-FFN targets (the hooks the LoRA
+    Server computes) for "disagg", all of the config's targets for
+    "coupled". The pool rank is the largest true rank."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
     if mode == "disagg":
+        cfg = dataclasses.replace(cfg, lora_targets=FFN_TARGETS)
+    return init_mixed_rank_pool(cfg, adapter_ranks, seed=seed + 1,
+                                dtype=dtype, device=device)
+
+
+def build_lora(cfg, mode: str, adapter_ranks: Sequence[int], seed: int = 0,
+               dtype=torch.bfloat16, device=None, replicas: int = 1) -> Dict:
+    """One mixed-rank pool served by one plane; returns the Engine's
+    keyword arguments for it: {"server", "pool"} (``build_pool``) for
+    "disagg", {"pool"} for "coupled"."""
+    if mode == "disagg":
         return build_pool(cfg, adapter_ranks, replicas, seed=seed,
                           dtype=dtype, device=device)
-    return {"pool": init_mixed_rank_pool(cfg, adapter_ranks, seed=seed + 1,
-                                         dtype=dtype, device=device)}
+    return {"pool": adapter_pool(cfg, mode, adapter_ranks, seed=seed,
+                                 dtype=dtype, device=device)}
 
 
 def build_pool(cfg, adapter_ranks: Sequence[int], replicas: int = 1,
-               cache_slots: Optional[int] = None, seed: int = 0,
-               dtype=torch.bfloat16, device=None) -> Dict:
-    """The disaggregated plane over an elastic pool: ``replicas``
-    LoRA-Server replicas of ``cache_slots`` slots each (default: one per
-    adapter) and the mixed-rank pool of the FFN targets they serve, drawn
-    from ``seed`` as ``build_lora``'s coupled pool is; returns the Engine's
-    keyword arguments {"server", "pool"}. With the default slots every
-    adapter is resident; with fewer none is, and a ``Residency`` over the
-    two brings them in as requests need them."""
-    pool = init_mixed_rank_pool(
-        dataclasses.replace(cfg, lora_targets=FFN_TARGETS), adapter_ranks,
-        seed=seed + 1, dtype=dtype, device=device)
-    slots = cache_slots or pool.n
-    sp = ServerPool.build(cfg, pool, cache_slots=slots, n_replicas=replicas,
+               seed: int = 0, dtype=torch.bfloat16, device=None) -> Dict:
+    """The disaggregated plane with every adapter resident: ``replicas``
+    LoRA-Server replicas of one slot per adapter, each adapter written into
+    its affinity home at its true rank; returns the Engine's keyword
+    arguments {"server", "pool"}. (The front door brings adapters in as
+    requests need them instead.)"""
+    pool = adapter_pool(cfg, "disagg", adapter_ranks, seed=seed, dtype=dtype,
+                        device=device)
+    sp = ServerPool.build(cfg, pool, cache_slots=pool.n, n_replicas=replicas,
                           dtype=dtype, device=device)
-    if cache_slots is None:
-        res = Residency(sp, pool, slots)
-        for aid in range(pool.n):
-            res.acquire(aid)
-            res.release(aid)
-        res.sync()
+    every = LoRACache(pool.n, adapter_bytes=0, n_layers=cfg.n_layers,
+                      layerwise=False, prefetch=False)
+    for aid in range(pool.n):
+        every.admit(aid, 0.0)
+    sp.sync(every, lambda a: pool_tensors_from_adapter(pool, a),
+            pool.rank_of)
     return {"server": sp, "pool": pool}
 
 
-class Residency:
-    """A LoRA cache (``LoRACache``, LRU among unpinned residents) in front
-    of a ``ServerPool``, the control plane the reference's cluster runs:
-    a request is admitted only once its adapter is resident (pinned while
-    it runs), and before every decode step the replicas' slot tables
-    follow the cache (delta ``ServerPool.sync``). Works over the reference
-    package's cache and pool too: they have the same methods."""
-
-    def __init__(self, server_pool, adapter_pool, capacity: int,
-                 cache=None, tensors_fn: Optional[Callable] = None):
-        self.pool = server_pool
-        self.cache = cache if cache is not None else LoRACache(
-            capacity, adapter_bytes=0, n_layers=adapter_pool.cfg.n_layers,
-            layerwise=False, prefetch=False)
-        self.tensors_fn = tensors_fn or (
-            lambda a: pool_tensors_from_adapter(adapter_pool, a))
-        self.rank_fn = adapter_pool.rank_of
-        self.clock = 0.0        # one tick a decode step (the LRU's time)
-
-    def acquire(self, adapter_id: int) -> bool:
-        if self.cache.admit(adapter_id, self.clock) is None:
-            return False
-        self.cache.pin(adapter_id)
-        return True
-
-    def release(self, adapter_id: int) -> None:
-        self.cache.unpin(adapter_id, self.clock)
-
-    def sync(self) -> int:
-        self.clock += 1.0
-        return self.pool.sync(self.cache, self.tensors_fn, self.rank_fn)
-
-
-def serve(engine: Engine, requests, traffic: Traffic,
-          residency: Optional[Residency] = None) -> Dict:
-    """Run ``requests`` through ``engine`` in two waves; every request
-    takes ``traffic.new_tokens`` greedy tokens. With a ``residency``, a
-    request waits (in arrival order) until its adapter is resident, and the
-    server pool follows the cache before every step. Returns tokens per rid
-    and the run's counts and host-clock times (each step ends in a device
-    sync: its tokens come back to the host)."""
+def serve(engine: Engine, requests, traffic: Traffic) -> Dict:
+    """Run ``requests`` through one ``engine`` in two waves; every request
+    takes ``traffic.new_tokens`` greedy tokens. Returns tokens per rid and
+    the run's counts and host-clock times (each step ends in a device
+    sync: its tokens come back to the host). The engine-level loop of the
+    step timings; ``serve_system`` serves through the front door."""
     tokens: Dict[int, List[int]] = {rid: [] for rid, _, _ in requests}
     pending = list(requests)
     waiting: List = []
-    adapter_of = {rid: aid for rid, _, aid in requests}
     prefill_s = decode_s = 0.0
     steps = 0
     bucket_rows = []
@@ -161,8 +133,7 @@ def serve(engine: Engine, requests, traffic: Traffic,
     def admit():
         nonlocal prefill_s
         t0 = wall_time()
-        while waiting and engine.free_slots() and (
-                residency is None or residency.acquire(waiting[0][2])):
+        while waiting and engine.free_slots():
             rid, prompt, aid = waiting.pop(0)
             engine.add_request(rid, prompt, aid)
         if engine.device.type == "cuda":
@@ -181,8 +152,6 @@ def serve(engine: Engine, requests, traffic: Traffic,
             admit()
         if not engine.active_rids():
             raise RuntimeError("no request could be admitted")
-        if residency is not None:
-            residency.sync()
         bucket_rows.append(len(engine.active_rids()))
         t0 = wall_time()
         out = engine.step()
@@ -192,8 +161,6 @@ def serve(engine: Engine, requests, traffic: Traffic,
             tokens[rid].append(t)
             if len(tokens[rid]) == traffic.new_tokens:
                 engine.evict_request(rid)
-                if residency is not None:
-                    residency.release(adapter_of[rid])
     n_tok = sum(len(v) for v in tokens.values())
     return {"tokens": tokens, "decode_steps": steps, "rows_per_step":
             bucket_rows, "generated_tokens": n_tok, "prefill_s": prefill_s,
@@ -203,26 +170,90 @@ def serve(engine: Engine, requests, traffic: Traffic,
             "tokens_per_s": n_tok / decode_s if decode_s else 0.0}
 
 
-def build(arch: str, *, layers: Optional[int] = None, reduced: bool = False,
-          seed: int = 0, device=None, traffic: Traffic = Traffic(),
-          mode: str = "disagg", paged: bool = True, replicas: int = 1):
-    """(cfg, params, lora, engine config) for one run, where ``lora`` is
-    the Engine's keyword arguments of the ``mode``'s plane (``build_lora``;
-    disagg: ``replicas`` server replicas): 8 slots of up to 256 tokens, in
-    pages of 16 or a dense slab, prefill chunks of 64."""
+def serve_config(traffic: Traffic, mode: str = "disagg", paged: bool = True,
+                 transport: str = "host", replicas: int = 1, **kw):
+    """The front door's config of the serving cell: ``ENGINE``'s slots,
+    lengths, pages and chunks, one cache slot per adapter, one round a
+    virtual second (``kw`` overrides any field)."""
+    return ServeConfig(**{**dict(
+        backend="cluster", disaggregated=mode == "disagg", paged=paged,
+        transport=transport, server_replicas=replicas, n_instances=1,
+        max_batch=ENGINE.n_slots, max_len=ENGINE.max_len,
+        page_size=ENGINE.page_size, prefill_chunk=ENGINE.prefill_chunk,
+        adapter_cache_slots=len(traffic.adapter_ranks), step_time=1.0),
+        **kw})
+
+
+def submit_traffic(system, requests, traffic: Traffic):
+    """Submit ``requests`` through the front door with their prompts, in
+    order (the system numbers them): the first wave arrives now, the rest
+    ``traffic.second_wave_after`` rounds later (the waves of ``serve``).
+    Returns the handles."""
+    later = system.now + traffic.second_wave_after * system.cfg.step_time
+    return [system.submit(prompt, aid, max_new_tokens=traffic.new_tokens,
+                          arrival=system.now if i < traffic.first_wave
+                          else later)
+            for i, (_, prompt, aid) in enumerate(requests)]
+
+
+def serve_system(system, requests, traffic: Traffic,
+                 stream: Optional[int] = None) -> Dict:
+    """Serve ``requests`` through the front door (``submit_traffic``),
+    streaming the tokens of request number ``stream`` through its handle's
+    iterator when given, then draining. Returns tokens per request rid,
+    the rounds and their mean host-clock time (each round ends in a device
+    sync; the clock spans the streaming and the drain, prefill included),
+    the streamed tokens, the ``Summary`` (TTFT and TPOT in rounds) and the
+    system's stats."""
+    handles = submit_traffic(system, requests, traffic)
+    rnd0 = system.backend.cluster.rnd
+    t0 = wall_time()
+    streamed = list(handles[stream]) if stream is not None else None
+    system.drain()
+    wall = wall_time() - t0
+    rounds = system.backend.cluster.rnd - rnd0
+    rejected = [h.error for h in handles if h.error]
+    if rejected:
+        raise RuntimeError(f"requests rejected: {rejected}")
+    n_tok = sum(len(h.tokens) for h in handles)
+    return {"tokens": {rid: list(h.tokens)
+                       for (rid, _, _), h in zip(requests, handles)},
+            "streamed": streamed, "rounds": rounds,
+            "wall_ms_per_round": 1e3 * wall / max(rounds, 1),
+            "generated_tokens": n_tok,
+            "tokens_per_s": n_tok / wall if wall else 0.0,
+            "summary": system.summary(), "kv_stats": system.kv_stats(),
+            "cache_stats": system.cache_stats(),
+            "transport_stats": system.transport_stats()}
+
+
+def model(arch: str, *, layers: Optional[int] = None, reduced: bool = False,
+          seed: int = 0, device=None):
+    """(cfg, params): the config (``reduced``, or cut to ``layers``) and its
+    weights drawn on ``device`` from ``seed``."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     dev = resolve_device(device)
-    dt = resolve_dtype(cfg.dtype)
-    params = init_params(cfg, seed=seed, dtype=dt, device=dev)
+    return cfg, init_params(cfg, seed=seed, dtype=resolve_dtype(cfg.dtype),
+                            device=dev)
+
+
+def build(arch: str, *, layers: Optional[int] = None, reduced: bool = False,
+          seed: int = 0, device=None, traffic: Traffic = Traffic(),
+          mode: str = "disagg", paged: bool = True, replicas: int = 1):
+    """(cfg, params, lora, engine config) for one engine-level run, where
+    ``lora`` is the Engine's keyword arguments of the ``mode``'s plane
+    (``build_lora``; disagg: ``replicas`` server replicas) and the engine
+    config is ``ENGINE`` with the ``paged`` layout."""
+    cfg, params = model(arch, layers=layers, reduced=reduced, seed=seed,
+                        device=device)
     lora = build_lora(cfg, mode, traffic.adapter_ranks, seed=seed,
-                      dtype=dt, device=dev, replicas=replicas)
-    ecfg = EngineConfig(max_len=256, n_slots=8, paged=paged, page_size=16,
-                        prefill_chunk=64)
-    return cfg, params, lora, ecfg
+                      dtype=resolve_dtype(cfg.dtype), device=device,
+                      replicas=replicas)
+    return cfg, params, lora, dataclasses.replace(ENGINE, paged=paged)
 
 
 def main(argv=None) -> int:
@@ -251,18 +282,28 @@ def main(argv=None) -> int:
     if args.reduced:
         traffic = dataclasses.replace(traffic, prompt_len=(6, 20),
                                       new_tokens=6, second_wave_after=2)
-    cfg, params, lora, ecfg = build(
-        args.arch, layers=args.layers, reduced=args.reduced, seed=args.seed,
-        device=args.device, traffic=traffic, mode=args.mode,
-        paged=not args.dense, replicas=args.replicas)
-    engine = Engine(cfg, params, ecfg, device=args.device,
-                    transport=args.transport, **lora)
-    res = serve(engine, make_requests(cfg, traffic, args.seed), traffic)
-    print(json.dumps({"mode": args.mode, "paged": ecfg.paged,
-                      **{k: v for k, v in res.items() if k != "tokens"}}))
-    print(json.dumps({"kv_stats": engine.kv_stats(),
-                      "transport": engine.transport_stats()}))
-    print("generated:", {rid: t for rid, t in res["tokens"].items()})
+    cfg, params = model(args.arch, layers=args.layers, reduced=args.reduced,
+                        seed=args.seed, device=args.device)
+    pool = adapter_pool(cfg, args.mode, traffic.adapter_ranks,
+                        seed=args.seed, dtype=resolve_dtype(cfg.dtype),
+                        device=args.device)
+    system = build_system(serve_config(
+        traffic, args.mode, paged=not args.dense, transport=args.transport,
+        replicas=args.replicas), cfg, params=params, pool=pool)
+    try:
+        res = serve_system(system, make_requests(cfg, traffic, args.seed),
+                           traffic)
+    finally:
+        system.close()
+    print(json.dumps({"mode": args.mode, "paged": not args.dense,
+                      **{k: res[k] for k in ("rounds", "wall_ms_per_round",
+                                             "generated_tokens",
+                                             "tokens_per_s")},
+                      "summary": dataclasses.asdict(res["summary"])}))
+    print(json.dumps({"kv_stats": res["kv_stats"],
+                      "cache_stats": res["cache_stats"],
+                      "transport": res["transport_stats"]}))
+    print("generated:", res["tokens"])
     return 0
 
 

@@ -17,9 +17,8 @@ The model is deliberately tiny — four primitives, one timebase:
 ``t`` is ALWAYS the producing plane's virtual time in seconds: the
 round clock on the cluster, the event heap's clock on the sim. Wall
 clock never enters the timebase — it may ride along as a span argument
-(``wall_ms=``). The reference's exporters (``repro.obs.export``) turn
-the recorded timeline into Chrome/Perfetto trace JSON or JSONL; the port
-has none yet.
+(``wall_ms=``). Exporters (``repro_torch.obs.export``) turn the recorded
+timeline into Chrome/Perfetto trace JSON or JSONL.
 
 ``NULL_TRACER`` is the default everywhere: all methods are no-ops that
 allocate nothing, and ``enabled`` is False so hot paths can skip even

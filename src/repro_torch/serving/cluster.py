@@ -1,0 +1,519 @@
+"""The cluster: N slot-engine instances under the token-level Scheduler,
+the counterpart of ``repro.serving.cluster``.
+
+The same control plane as the reference (``Scheduler`` admission, pinning
+and retirement, ``LoRACache`` residency, greedy adapter placement) drives
+the port's ``Engine`` instances. Time is virtual: every global decode
+round advances the clock by ``step_time``, so admission, layer-wise
+adapter loading and SLO bookkeeping run the reference's code paths, while
+tokens come from the model on the device the weights live on.
+
+  coupled (S-LoRA)       : per-instance adapter caches, requests routed to
+                           the instance owning their adapter (greedy
+                           pre-assignment, paper §6.1), adapters applied
+                           in-model
+  disaggregated          : one shared LoRA cache mirrored into a
+  (InfiniLoRA)             ``ServerPool`` of LoRA-Server replicas, fed by
+                           the adapter store; any instance serves any
+                           request, all through one transport plane
+
+Requests are admitted at decode-step boundaries into a RUNNING batch
+(continuous batching) and evicted the step they finish; greedy decoding is
+deterministic, so for the same workload the planes give the same tokens
+per request.
+
+Not ported yet, and refused with a ValueError: the autoscaler
+(``ClusterConfig.autoscale``; ROADMAP A6) and the mesh-sharded plane
+(``mesh_shape``; ROADMAP A8).
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.core.adapter import AdapterPool
+from repro_torch.models.cache import pages_for
+from repro_torch.obs.clock import wall_time
+from repro_torch.obs.trace import NULL_TRACER, Tracer
+from repro_torch.serving.cache import LoRACache
+from repro_torch.serving.engine import Engine, EngineConfig
+from repro_torch.serving.scheduler import InstanceState, Scheduler, \
+    assign_adapters_greedy
+from repro_torch.serving.server_pool import ServerPool
+from repro_torch.serving.workload import Request
+from repro_torch.store import AdapterStore
+from repro_torch.transport import make_transport
+
+
+def refuse_unported(autoscale, mesh_shape) -> None:
+    """The options whose modules the port does not have yet."""
+    if autoscale is not None:
+        raise ValueError("autoscale: the autoscaler (serving/autoscaler.py, "
+                         "with the provisioning model) is not ported yet "
+                         "(ROADMAP A6)")
+    if mesh_shape is not None:
+        raise ValueError("mesh_shape: the mesh-sharded plane is not ported "
+                         "yet (ROADMAP A8)")
+
+
+@dataclasses.dataclass
+class ClusterConfig:
+    n_instances: int = 2
+    n_slots: int = 4                 # decode slots (max batch) per instance
+    max_len: int = 64
+    disaggregated: bool = False
+    adapter_cache_slots: int = 8     # per instance (coupled) / shared (disagg)
+    policy: str = "fcfs"
+    step_time: float = 1.0           # virtual seconds per decode round
+    # adapter load bandwidth; inf -> load time exactly 0, so cold adapters
+    # admit the SAME round (any finite bw defers admission one round)
+    host_bw: float = float("inf")
+    layerwise_loading: bool = True
+    max_rounds: int = 100_000
+    # paged KV engine: block-pool cache + page-budget admission.
+    # n_pages=None sizes the pool to the dense-slab worst case.
+    paged: bool = False
+    page_size: int = 8
+    n_pages: Optional[int] = None
+    prefill_chunk: int = 16
+    # elastic provisioning (refused: not ported yet)
+    autoscale: Optional[object] = None
+    # disaggregated hook transport plane: "host" (per-hook host dispatch)
+    # or "fused" (one CUDA graph a decode step; see transport/)
+    transport: str = "host"
+    # mesh-sharded execution plane (refused: not ported yet)
+    mesh_shape: Optional[Tuple[int, int]] = None
+    # hierarchical adapter store (disaggregated only): host-RAM tier byte
+    # budget (None = unbounded), disk-tier directory (None = private
+    # tempdir made on the first spill), disk read bandwidth for pricing
+    store_host_bytes: Optional[int] = None
+    store_dir: Optional[str] = None
+    disk_bw: float = 5e9
+    # async prefetch staging + scheduler prefetch hints; None follows
+    # layerwise_loading
+    prefetch: Optional[bool] = None
+    # bound each row's hook contraction at its adapter's TRUE rank (padded
+    # lanes are exact zeros, so the tokens do not move)
+    rank_aware: bool = True
+
+    def __post_init__(self):
+        refuse_unported(self.autoscale, self.mesh_shape)
+
+    @property
+    def prefetch_on(self) -> bool:
+        return self.layerwise_loading if self.prefetch is None \
+            else self.prefetch
+
+
+def _device_of(params):
+    """The device the model's weights live on (the engines run there)."""
+    while isinstance(params, dict):
+        params = next(iter(params.values()))
+    return params.device
+
+
+class Cluster:
+    """N client instances against one adapter plane (a pool of server
+    replicas, or per-instance caches)."""
+
+    def __init__(self, cfg, params, ccfg: ClusterConfig, pool: AdapterPool,
+                 server_pool: Optional[ServerPool] = None,
+                 tracer: Optional[Tracer] = None):
+        # span tracer: virtual round-clock timestamps, wall clock only as
+        # span attributes. NULL_TRACER = record nothing.
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.device = _device_of(params)
+        if ccfg.disaggregated:
+            if server_pool is None:
+                raise ValueError(
+                    "disaggregated mode needs a ServerPool (server_pool=)")
+            if server_pool.min_slots < ccfg.adapter_cache_slots:
+                # the shared LoRACache mirrors into every replica's slot
+                # pool, and affinity may route every resident to one
+                raise ValueError(
+                    f"ServerPool replica capacity {server_pool.min_slots} "
+                    f"< adapter_cache_slots={ccfg.adapter_cache_slots}")
+        self.cfg = cfg
+        self.ccfg = ccfg
+        self.pool = pool
+        self.params = params
+        self.server_pool = server_pool if ccfg.disaggregated else None
+        if self.server_pool is not None:
+            self.server_pool.set_rank_aware(ccfg.rank_aware)
+        # hierarchical adapter store, disaggregated only: the coupled path
+        # gathers adapters from the static pool inside the model
+        self.store: Optional[AdapterStore] = None
+        if ccfg.disaggregated:
+            self.store = AdapterStore(
+                cfg, pool, host_bytes=ccfg.store_host_bytes,
+                store_dir=ccfg.store_dir, host_bw=ccfg.host_bw,
+                disk_bw=ccfg.disk_bw, prefetch=ccfg.prefetch_on)
+        # ONE transport for the whole cluster: every engine bills its stats
+        # and, on the fused plane, shares its device tables and graph pool
+        self.transport = None
+        if ccfg.disaggregated:
+            self.transport = make_transport(ccfg.transport, self.server_pool,
+                                            n_adapters=pool.n)
+        self._ecfg = EngineConfig(max_len=ccfg.max_len, n_slots=ccfg.n_slots,
+                                  paged=ccfg.paged, page_size=ccfg.page_size,
+                                  n_pages=ccfg.n_pages,
+                                  prefill_chunk=ccfg.prefill_chunk)
+        # engines are built by open()
+        self.engines: Dict[int, Engine] = {}
+        self.sched: Optional[Scheduler] = None
+        self._instances: Dict[int, InstanceState] = {}
+        self._caches: Dict[int, LoRACache] = {}
+        self.tokens: Dict[int, List[int]] = {}
+        self._reqs: Dict[int, Request] = {}
+        self._pending: List[Request] = []
+        self._pi = 0
+        self.rnd = 0
+
+    def _new_engine(self) -> Engine:
+        return Engine(self.cfg, self.params, self._ecfg,
+                      server=self.server_pool, pool=self.pool,
+                      transport=self.transport or "host", device=self.device)
+
+    # ------------------------------------------------------------------ #
+    def _prompt(self, req: Request) -> np.ndarray:
+        """Deterministic prompt tokens for a request: the tokens it carries
+        (served verbatim; ``validate`` checks they fit), or a seeded draw
+        from its rid, clamped so prompt + output fit the slot."""
+        if req.prompt:
+            return np.asarray(req.prompt, np.int32).reshape(-1)
+        room = self.ccfg.max_len - req.output_len - 1
+        plen = max(1, min(req.prompt_len, room))
+        rng = np.random.default_rng(7919 + req.rid)
+        return rng.integers(0, self.cfg.vocab_size, plen).astype(np.int32)
+
+    def _sync_pool(self) -> None:
+        """Delta-based residency mirror: the replicas' slot tables follow
+        the adapter ids the shared cache changed since the last sync;
+        uploads stage through the adapter store (async-prefetched results
+        first, disk-tier adapters promoted), bitwise identical to the
+        direct pool extraction."""
+        self.server_pool.sync(self._caches[-1],
+                              tensors_fn=self.store.server_tensors,
+                              rank_fn=self.store.rank_of)
+
+    # ------------------------------------------------------------------ #
+    # incremental session API (serving/api.py front door)                 #
+    # ------------------------------------------------------------------ #
+    def validate(self, req: Request) -> None:
+        """Admission-contract checks, raised BEFORE a request enters the
+        session (the front door turns these into REJECTED handles)."""
+        ccfg = self.ccfg
+        plen = len(req.prompt) if req.prompt else 1
+        if plen + req.output_len > ccfg.max_len + 1:
+            raise ValueError(
+                f"request {req.rid}: prompt_len {plen} + output_len "
+                f"{req.output_len} cannot fit a max_len={ccfg.max_len} "
+                f"slot")
+        if self.store is not None:
+            if not self.store.has(req.adapter_id):
+                raise ValueError(
+                    f"request {req.rid}: adapter_id {req.adapter_id} is "
+                    f"not registered in the adapter store")
+        elif not 0 <= req.adapter_id < self.pool.n:
+            # the gather kernels would clamp an out-of-range id to the last
+            # adapter's weights
+            raise ValueError(
+                f"request {req.rid}: adapter_id {req.adapter_id} outside "
+                f"pool of {self.pool.n}")
+        if ccfg.paged:
+            need = pages_for(int(self._prompt(req).shape[0])
+                             + req.output_len - 1, ccfg.page_size)
+            budget = next(iter(self.engines.values())).total_pages
+            if need > budget:
+                raise ValueError(
+                    f"request {req.rid}: needs {need} KV pages but the "
+                    f"pool has {budget} — it could never be admitted")
+
+    def open(self, requests: Sequence[Request] = ()) -> None:
+        """Start a serving session: build the engines and the scheduler and
+        cache control plane. ``requests``, when known up front (the batch
+        path), seed the coupled plane's greedy adapter -> instance
+        assignment with the true per-adapter load; a streaming session
+        assigns from uniform weights over the pool."""
+        ccfg = self.ccfg
+        n_adapters = max(self.pool.n,
+                         max((r.adapter_id for r in requests), default=0) + 1)
+        self._instances = {i: InstanceState(i, ccfg.n_slots)
+                           for i in range(ccfg.n_instances)}
+        self.engines = {i: self._new_engine()
+                        for i in range(ccfg.n_instances)}
+        if ccfg.disaggregated:
+            self._caches = {-1: self._mk_cache()}
+            owner = None
+        else:
+            counts = np.bincount([r.adapter_id for r in requests],
+                                 minlength=n_adapters).astype(float)
+            if not len(requests):
+                counts += 1.0           # uniform expected load
+            owner = assign_adapters_greedy(n_adapters, counts,
+                                           ccfg.n_instances)
+            self._caches = {i: self._mk_cache()
+                            for i in range(ccfg.n_instances)}
+        kv_pages = kv_need = None
+        if ccfg.paged:
+            # a resident request's page footprint: prompt positions plus
+            # one page-row per decoded token (the last emitted token is
+            # never written, hence -1); memoized by rid
+            kv_pages = {i: self.engines[i].total_pages
+                        for i in range(ccfg.n_instances)}
+            self._need_by_rid: Dict[int, int] = {}
+
+            def kv_need(r: Request) -> int:
+                if r.rid not in self._need_by_rid:
+                    plen = int(self._prompt(r).shape[0])
+                    self._need_by_rid[r.rid] = pages_for(
+                        plen + r.output_len - 1, ccfg.page_size)
+                return self._need_by_rid[r.rid]
+        self.sched = Scheduler(list(self._instances.values()), self._caches,
+                               owner, policy=ccfg.policy,
+                               shared_cache=ccfg.disaggregated,
+                               kv_pages=kv_pages, kv_page_need=kv_need)
+        self.tokens = {}
+        self._reqs = {}
+        self._pending = []
+        self._pi = 0
+        self.rnd = 0
+
+    def _mk_cache(self) -> LoRACache:
+        return LoRACache(self.ccfg.adapter_cache_slots,
+                         self.pool.bytes_per_adapter(), self.cfg.n_layers,
+                         host_bw=self.ccfg.host_bw,
+                         layerwise=self.ccfg.layerwise_loading,
+                         prefetch=self.ccfg.prefetch_on,
+                         load_seconds_fn=self.store.load_seconds
+                         if self.store is not None else None,
+                         tracer=self.tracer)
+
+    @property
+    def now(self) -> float:
+        """Virtual time of the NEXT round boundary."""
+        return self.rnd * self.ccfg.step_time
+
+    def submit(self, req: Request) -> Request:
+        """Add one request to the open session (takes ownership of
+        ``req``). May be called mid-run: the request joins the queue at
+        the next round boundary."""
+        if self.sched is None:
+            raise RuntimeError("Cluster.open() before submit()")
+        if req.rid in self._reqs:
+            raise ValueError(f"rid {req.rid} already submitted")
+        self.validate(req)
+        self._reqs[req.rid] = req
+        self.tokens[req.rid] = []
+        # keep pending sorted by (arrival, rid); mid-run submissions land
+        # after the consumed prefix so past arrivals enqueue next round
+        lo = self._pi
+        while lo < len(self._pending) and \
+                (self._pending[lo].arrival, self._pending[lo].rid) <= \
+                (req.arrival, req.rid):
+            lo += 1
+        self._pending.insert(lo, req)
+        return req
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a submitted request at a round boundary: its scheduler
+        state (queue place or running set + adapter pin) and its engine
+        slot and KV pages come back now. Partial tokens stay in
+        ``tokens[rid]``; the request never gets a finish stamp. False if
+        the rid is unknown or already terminal."""
+        req = self._reqs.get(rid)
+        if req is None or req.finish >= 0 or req.cancelled:
+            return False
+        where = self.sched.cancel(req, self.now)   # also sets req.cancelled
+        if where is None:
+            # still pending (a future arrival): drop it from the arrivals
+            for i in range(self._pi, len(self._pending)):
+                if self._pending[i].rid == rid:
+                    del self._pending[i]
+                    break
+        for eng in self.engines.values():
+            if eng.has_request(rid):
+                eng.evict_request(rid)
+                break
+        return True
+
+    # ------------------------------------------------------------------ #
+    def step_round(self) -> Dict:
+        """Advance ONE global decode round: enqueue due arrivals, admit at
+        the step boundary (least-loaded instance first), run one engine
+        step per busy instance, retire finishers. Returns the round report:
+        {"now", "step_end", "enqueued", "admitted", "tokens": {rid: tok},
+        "finished", "scale", "idle"} (``scale`` stays empty: no
+        autoscaler)."""
+        ccfg = self.ccfg
+        now = self.now
+        if self.store is not None:
+            # land async-staged adapters at the round boundary, before any
+            # sync of this round consumes them (main thread only)
+            self.store.drain_prefetched()
+        enqueued: List[Request] = []
+        while self._pi < len(self._pending) and \
+                self._pending[self._pi].arrival <= now:
+            r = self._pending[self._pi]
+            self._pi += 1
+            if not r.cancelled:             # cancelled while still pending
+                self.sched.enqueue(r, now)
+                if self.store is not None and \
+                        not self.server_pool.is_resident(r.adapter_id):
+                    # start the real staging (disk read + CPU fusion) at
+                    # arrival, overlapped with this round's decode; an
+                    # adapter a server slot holds needs none
+                    self.store.prefetch(r.adapter_id)
+                    if self.tracer.enabled:
+                        self.tracer.instant(
+                            "store", f"prefetch a{r.adapter_id}", now,
+                            rid=r.rid, adapter_id=r.adapter_id)
+                enqueued.append(r)
+        # admission at the step boundary, least-loaded instance first
+        admitted_all: List[Request] = []
+        for iid in sorted(self.engines,
+                          key=lambda i: (self._instances[i].batch, i)):
+            admitted = self.sched.admit(iid, now)
+            if admitted and ccfg.disaggregated:
+                self._sync_pool()
+            for r in admitted:
+                self.engines[iid].add_request(r.rid, self._prompt(r),
+                                              r.adapter_id)
+                if self.tracer.enabled and self.ccfg.paged:
+                    self.tracer.instant(
+                        "kv", f"kv.alloc r{r.rid}", now, rid=r.rid,
+                        iid=iid, pages=self._need_by_rid.get(r.rid))
+            admitted_all.extend(admitted)
+        # one decode step per busy instance; requests admitted above are
+        # already in the running batch (continuous batching)
+        step_end = (self.rnd + 1) * ccfg.step_time
+        busy = False
+        round_tokens: Dict[int, int] = {}
+        finished: List[Request] = []
+        for iid in sorted(self.engines):
+            eng = self.engines[iid]
+            if not eng.active_rids():
+                continue
+            busy = True
+            traced = self.tracer.enabled
+            if traced:
+                batch = len(eng.active_rids())
+                w0 = wall_time()
+            for rid, tok in eng.step().items():
+                self.tokens[rid].append(tok)
+                round_tokens[rid] = tok
+            if traced:
+                # span edges are the VIRTUAL round window; the measured
+                # engine wall time rides along as an attribute
+                self.tracer.span(
+                    f"inst:{iid}", "decode.step", now, step_end,
+                    batch=batch, wall_ms=(wall_time() - w0) * 1e3)
+            for r in self.sched.step_complete(iid, step_end):
+                eng.evict_request(r.rid)
+                finished.append(r)
+        self.rnd += 1
+        if self.tracer.enabled:
+            self.tracer.counter("sched", "queue_depth", step_end,
+                                float(self.sched.queue_len()))
+        idle = (not busy and self._pi >= len(self._pending)
+                and self.sched.queue_len() == 0)
+        return {"now": now, "step_end": step_end, "enqueued": enqueued,
+                "admitted": admitted_all, "tokens": round_tokens,
+                "finished": finished, "idle": idle}
+
+    def idle(self) -> bool:
+        """No running work, no queued work, no pending arrivals."""
+        if self.sched is None:
+            return True
+        return (self._pi >= len(self._pending)
+                and self.sched.queue_len() == 0
+                and not any(eng.active_rids()
+                            for eng in self.engines.values()))
+
+    def cache_stats(self) -> Dict:
+        """Device-tier counters per cache (-1 = the shared disagg cache)
+        and the adapter store's host/disk tier counters."""
+        return {"caches": {k: c.stats() for k, c in self._caches.items()},
+                "store": self.store.stats() if self.store else {}}
+
+    # --------------------- dynamic adapter lifecycle -------------------- #
+    def load_adapter(self, adapter_id: int, tensors, *,
+                     alpha: Optional[float] = None) -> int:
+        """Register a new adapter mid-run (vLLM-style dynamic load): its
+        shapes and rank are checked against the model config, then the id
+        is targetable at once. Disaggregated only. Returns its rank."""
+        if self.store is None:
+            raise ValueError(
+                "dynamic adapter load requires the disaggregated plane "
+                "(the coupled path gathers from the static pool in-model)")
+        return self.store.register(adapter_id, tensors, alpha=alpha)
+
+    def unload_adapter(self, adapter_id: int) -> None:
+        """Remove an adapter from every tier. Refused while any submitted
+        request still references it (queued, running or pinned)."""
+        if self.store is None:
+            raise ValueError(
+                "dynamic adapter unload requires the disaggregated plane")
+        if not self.store.has(adapter_id):
+            raise ValueError(f"adapter {adapter_id} is not registered")
+        for r in self._reqs.values():
+            if r.adapter_id == adapter_id and r.finish < 0 \
+                    and not r.cancelled:
+                raise ValueError(
+                    f"adapter {adapter_id} is in use by unfinished "
+                    f"request {r.rid}")
+        cache = self._caches.get(-1)
+        if cache is not None:
+            cache.invalidate(adapter_id)   # raises if somehow pinned
+            # flush the eviction into the replica slot tables now, so the
+            # fused transport's tables stop mapping this id before the
+            # next decode step
+            self._sync_pool()
+        self.store.unregister(adapter_id)
+
+    def close(self) -> None:
+        """Tear down the adapter store (prefetch thread + owned tempdir)."""
+        if self.store is not None:
+            self.store.close()
+
+    def kv_stats(self) -> Dict[int, Dict]:
+        return {i: eng.kv_stats() for i, eng in self.engines.items()}
+
+    def queue_depth(self) -> int:
+        """Requests waiting for admission (0 before open())."""
+        return self.sched.queue_len() if self.sched is not None else 0
+
+    def transport_stats(self) -> Dict:
+        """Launch accounting of the disaggregated transport (every engine
+        bills the one shared transport). Empty on the coupled plane."""
+        return self.transport.stats.as_dict() if self.transport else {}
+
+    # ------------------------------------------------------------------ #
+    def run(self, requests: Sequence[Request]) -> Dict:
+        """Serve ``requests`` to completion (or ``max_rounds``): returns
+        {"tokens": {rid: [token, ...]}, "requests": ..., "rounds": n,
+        "cache_stats": ...} (+ "kv_stats" when paged). The batch entry
+        point, a loop over the session API; the caller's Request objects
+        are not mutated (the runtime fields land on copies)."""
+        requests = [copy.copy(r) for r in requests]
+        self.open(requests)
+        for r in requests:
+            self.submit(r)
+        while self.rnd < self.ccfg.max_rounds:
+            if self.step_round()["idle"]:
+                break
+        unfinished = [r.rid for r in requests
+                      if r.finish < 0 and not r.cancelled]
+        if unfinished:
+            raise RuntimeError(
+                f"cluster run ended after {self.rnd} rounds with unfinished "
+                f"requests {unfinished} (queue={self.sched.queue_len()}) — "
+                f"adapter cache too small or max_rounds exhausted?")
+        out = {"tokens": self.tokens, "requests": list(requests),
+               "rounds": self.rnd, "cache_stats": self.cache_stats()}
+        if self.ccfg.paged:
+            out["kv_stats"] = self.kv_stats()
+        return out

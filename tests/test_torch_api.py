@@ -1,0 +1,535 @@
+"""The port's serving front door (``repro_torch.serving.api``) against the
+JAX reference's (``repro.serving.api``) on the same workload:
+
+  - the same tokens per rid, ``summary()`` field for field, and the same
+    ``cache_stats()``, ``kv_stats()`` and ``transport_stats()``, for
+    {coupled, disagg} x {dense, paged} and disagg x {host, fused}, under
+    churn (2 adapter-cache slots for 4 adapters, 2 decode slots, a request
+    joining mid-decode and one waiting for an eviction)
+  - cancellation mid-decode (slot and pages back at once) and while
+    queued, streaming by callback and iterator, rejected submits, the
+    scheduled-cancel and pending-arrival regressions
+  - the adapter lifecycle under a host budget that spills to disk: load a
+    new adapter mid-run, serve it, unload (refused while in flight), load
+    it again; the reference's tokens
+  - front door == ``Cluster.run``; ``backend="sim"`` and ``autoscale=``
+    refused with their ROADMAP item; the observability exports; the
+    quickstart and serving entry points on the CPU
+
+Weights come from the JAX initialisers, bridged through numpy."""
+import dataclasses
+import math
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config
+from repro.core import adapter as jadapter
+from repro.models import model as jmodel
+from repro.serving import api as japi
+from repro.store import random_host_tensors as j_random_host_tensors
+from repro_torch import bridge
+from repro_torch.serving.api import RequestState, ServeConfig, build_system
+from repro_torch.serving.cluster import Cluster, ClusterConfig
+from repro_torch.serving.workload import Request
+
+# (adapter, arrival, prompt_len, output_len): rid 2 joins mid-decode, rid 3
+# needs an eviction to get a slot
+SPECS = [(0, 0.0, 5, 6), (1, 0.0, 4, 4), (2, 2.0, 6, 5), (3, 5.0, 3, 4)]
+# the store's counters that move with the prefetch thread's timing (in the
+# reference too): left out where the thread runs
+TIMED = {"host_hits", "prefetch_requests", "prefetch_staged", "staged_hits",
+         "sync_stages"}
+
+
+def _same(a, b) -> bool:
+    """Equality that takes nan == nan (Summary's telemetry fields)."""
+    if isinstance(a, float) and isinstance(b, float):
+        return a == b or (math.isnan(a) and math.isnan(b))
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    return a == b
+
+
+def _t(a) -> torch.Tensor:
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b").reduced(),
+                               lora_targets=("gate", "up", "down"),
+                               lora_rank=8)
+    key = jax.random.PRNGKey(0)
+    params = jmodel.init_params(jcfg, key, dtype="float32")
+    pool = jadapter.init_mixed_rank_pool(jcfg, [2, 8, 4, 8],
+                                         jax.random.fold_in(key, 1),
+                                         dtype=jnp.float32)
+    tcfg = bridge.config_from(jcfg)
+    tparams = bridge.tree_to_tensors(jax.tree_util.tree_map(np.asarray,
+                                                            params))
+    tpool = bridge.adapter_pool(
+        tcfg, jax.tree_util.tree_map(np.asarray, pool.tensors), pool.rank,
+        pool.scale, pool.ranks)
+    return dict(jcfg=jcfg, params=params, pool=pool, tcfg=tcfg,
+                tparams=tparams, tpool=tpool, runs={})
+
+
+def _system(setup, side, disagg, paged=False, **kw):
+    kw.setdefault("n_pages", 8)
+    kw.setdefault("adapter_cache_slots", 4)
+    sc_kw = dict(backend="cluster", disaggregated=disagg, n_instances=1,
+                 max_batch=2, max_len=32, paged=paged, page_size=4,
+                 prefill_chunk=8, **kw)
+    if side == "jax":
+        return japi.build_system(japi.ServeConfig(**sc_kw), setup["jcfg"],
+                                 params=setup["params"], pool=setup["pool"])
+    return build_system(ServeConfig(**sc_kw), setup["tcfg"],
+                        params=setup["tparams"], pool=setup["tpool"])
+
+
+def _submit_specs(system, specs=SPECS):
+    return [system.submit(adapter_id=a, arrival=t, prompt_len=p,
+                          max_new_tokens=o) for a, t, p, o in specs]
+
+
+def _served(setup, side, disagg, paged=False, **kw):
+    """One drained run of SPECS, cached per arguments: (tokens, summary,
+    cache stats, kv stats, transport stats, request stamps)."""
+    key = (side, disagg, paged, tuple(sorted(kw.items())))
+    if key not in setup["runs"]:
+        system = _system(setup, side, disagg, paged, **kw)
+        handles = _submit_specs(system)
+        system.drain()
+        assert all(h.state.name == "FINISHED" for h in handles)
+        setup["runs"][key] = (
+            {h.rid: list(h.tokens) for h in handles},
+            dataclasses.asdict(system.summary()), system.cache_stats(),
+            system.kv_stats(), system.transport_stats(),
+            [dataclasses.asdict(h.request) for h in handles])
+        system.close()
+    return setup["runs"][key]
+
+
+PLANES = [(False, False, "host"), (False, True, "host"),
+          (True, False, "host"), (True, True, "host"), (True, True, "fused")]
+
+
+@pytest.mark.parametrize(
+    "disagg,paged,transport", PLANES,
+    ids=[f"{'disagg' if d else 'coupled'}-{'paged' if p else 'dense'}"
+         f"{'-' + t if d else ''}" for d, p, t in PLANES])
+def test_front_door_matches_reference_under_churn(setup, disagg, paged,
+                                                  transport):
+    """Tokens, Summary, cache / KV / transport stats and every request's
+    stamps equal the reference front door's on the same churn workload
+    (2 adapter-cache slots for 4 adapters)."""
+    kw = dict(transport=transport, adapter_cache_slots=2)
+    want = _served(setup, "jax", disagg, paged, **kw)
+    got = _served(setup, "torch", disagg, paged, **kw)
+    tokens, summary, cache, kv, transport_stats, stamps = got
+    assert tokens == want[0]
+    assert _same(summary, want[1])
+    assert cache["caches"] == want[2]["caches"]
+    assert {k: v for k, v in cache["store"].items() if k not in TIMED} == \
+        {k: v for k, v in want[2]["store"].items() if k not in TIMED}
+    assert kv == want[3]
+    assert transport_stats == want[4]
+    assert stamps == want[5]
+    assert sum(c["evictions"] for c in cache["caches"].values()) > 0
+    for rid, (_, _, _, out) in enumerate(SPECS):
+        assert len(tokens[rid]) == out
+    if disagg and transport == "fused":
+        assert transport_stats["host_dispatches"] == transport_stats["steps"]
+        assert transport_stats["hook_dispatches"] == 0
+
+
+def test_front_door_store_stats_without_prefetch_equal_reference(setup):
+    """With the prefetch thread off, the store's counters are all
+    deterministic and equal the reference's."""
+    want = _served(setup, "jax", True, True, adapter_cache_slots=2,
+                   prefetch=False, store_host_bytes=1)
+    got = _served(setup, "torch", True, True, adapter_cache_slots=2,
+                  prefetch=False, store_host_bytes=1)
+    assert got[0] == want[0]
+    assert got[2] == want[2]
+    assert got[2]["store"]["disk_reads"] > 0
+
+
+def test_front_door_coupled_equals_disagg_and_paged_equals_dense(setup):
+    runs = [_served(setup, "torch", d, p, transport="host",
+                    adapter_cache_slots=2)[0]
+            for d in (False, True) for p in (False, True)]
+    assert all(r == runs[0] for r in runs)
+
+
+# ------------------------------ cancellation ----------------------------- #
+@pytest.mark.parametrize("disagg", [False, True], ids=["coupled", "disagg"])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_cancel_mid_decode_frees_slot_and_pages_under_churn(
+        setup, disagg, paged):
+    system = _system(setup, "torch", disagg, paged=paged)
+    handles = _submit_specs(system)
+    h0 = handles[0]
+    while h0.n_tokens < 2:
+        system.step()
+    before = system.kv_stats()[0]
+    assert before["slots_in_use"] == 2
+    assert h0.cancel()
+    after = system.kv_stats()[0]
+    assert after["slots_in_use"] == before["slots_in_use"] - 1
+    if paged:
+        assert after["pages_in_use"] < before["pages_in_use"]
+    assert h0.state == RequestState.CANCELLED
+    assert not h0.cancel()
+    system.drain()
+    for h in handles[1:]:
+        assert h.state == RequestState.FINISHED
+        assert len(h.tokens) == h.request.output_len
+    final = system.kv_stats()[0]
+    assert final["slots_in_use"] == 0
+    if paged:
+        assert final["pages_in_use"] == 0
+        assert system.backend.cluster.engines[0].free_pages() == 8
+    assert h0.request.finish < 0 and h0.request.cancelled
+    s = system.summary(duration=10.0, warmup=0.0)
+    assert s.n_finished == len(SPECS) - 1
+    assert s.n_cancelled == 1
+    system.close()
+
+
+def test_cancel_mid_decode_equals_reference(setup):
+    """The same cancel on both front doors: the same tokens, KV stats and
+    Summary after the drain."""
+    out = []
+    for side in ("jax", "torch"):
+        system = _system(setup, side, True, paged=True)
+        handles = _submit_specs(system)
+        while handles[0].n_tokens < 2:
+            system.step()
+        handles[0].cancel()
+        mid = system.kv_stats()
+        system.drain()
+        out.append(({h.rid: list(h.tokens) for h in handles}, mid,
+                    system.kv_stats(),
+                    dataclasses.asdict(system.summary(warmup=0.0)),
+                    [h.state.name for h in handles]))
+        system.close()
+    assert out[0][:3] == out[1][:3] and out[0][4] == out[1][4]
+    assert _same(out[0][3], out[1][3])
+
+
+def test_cancel_while_queued_never_occupies_a_slot(setup):
+    system = _system(setup, "torch", False)
+    handles = _submit_specs(system)
+    h3 = handles[3]
+    assert h3.cancel()
+    system.drain()
+    assert h3.state == RequestState.CANCELLED and h3.n_tokens == 0
+    for h in handles[:3]:
+        assert h.state == RequestState.FINISHED
+
+
+def test_streaming_callback_and_iterator(setup):
+    system = _system(setup, "torch", True, paged=True, transport="fused")
+    seen = []
+    handles = _submit_specs(system)
+    handles[0].on_token(lambda h, tok: seen.append(tok))
+    streamed = list(handles[0])
+    assert streamed == handles[0].tokens == seen
+    assert len(streamed) == handles[0].request.output_len
+    assert handles[0].state == RequestState.FINISHED
+    system.drain()
+    assert all(h.state == RequestState.FINISHED for h in handles)
+    want = _served(setup, "jax", True, True, transport="fused")[0]
+    assert {h.rid: h.tokens for h in handles} == want
+    assert handles[1].result() == want[1]
+
+
+def test_scheduled_cancel_outliving_its_request_is_dropped(setup):
+    system = _system(setup, "torch", False)
+    h = system.submit(adapter_id=0, prompt_len=4, max_new_tokens=4)
+    h.cancel(at=500.0)
+    system.drain()
+    assert h.state == RequestState.FINISHED
+    assert system.backend.cluster.rnd < 50
+
+
+def test_scheduled_cancel_fires_at_its_time(setup):
+    system = _system(setup, "torch", False)
+    h = system.submit(adapter_id=0, prompt_len=4, max_new_tokens=12)
+    assert h.cancel(at=3.0)
+    system.drain()
+    assert h.state == RequestState.CANCELLED
+    assert 0 < h.n_tokens < 12
+
+
+def test_submit_accepts_array_prompts_and_rejects_empty(setup):
+    system = _system(setup, "torch", False)
+    h = system.submit(np.asarray([1, 2, 3], np.int32), adapter_id=0,
+                      max_new_tokens=4)
+    assert h.state == RequestState.QUEUED
+    empty = system.submit([], adapter_id=0, max_new_tokens=4)
+    assert empty.state == RequestState.REJECTED
+    assert "empty prompt" in empty.error
+    with pytest.raises(TypeError):
+        system.submit(adapter_id=0)
+    system.drain()
+    assert h.state == RequestState.FINISHED and len(h.tokens) == 4
+
+
+def test_cancel_pending_future_arrival_does_not_spin_rounds(setup):
+    system = _system(setup, "torch", False, max_rounds=20)
+    live = system.submit(adapter_id=0, prompt_len=4, max_new_tokens=4)
+    ghost = system.submit(adapter_id=1, prompt_len=4, max_new_tokens=4,
+                          arrival=50.0)
+    assert ghost.cancel()
+    system.drain()
+    assert live.state == RequestState.FINISHED
+    assert ghost.state == RequestState.CANCELLED and ghost.n_tokens == 0
+    assert system.backend.cluster.rnd < 20
+
+
+@pytest.mark.parametrize("disagg", [False, True], ids=["coupled", "disagg"])
+def test_rejected_submit_never_raises_and_serves_the_rest(setup, disagg):
+    system = _system(setup, "torch", disagg, paged=True, n_pages=4)
+    ok = system.submit(adapter_id=0, prompt_len=4, max_new_tokens=4)
+    too_long = system.submit(adapter_id=0, prompt=list(range(30)),
+                             max_new_tokens=30)
+    bad_adapter = system.submit(adapter_id=99, prompt_len=4,
+                                max_new_tokens=4)
+    too_many_pages = system.submit(adapter_id=1, prompt=list(range(12)),
+                                   max_new_tokens=12)
+    assert too_long.state == RequestState.REJECTED
+    assert "max_len" in too_long.error
+    assert bad_adapter.state == RequestState.REJECTED
+    assert "adapter_id" in bad_adapter.error
+    assert too_many_pages.state == RequestState.REJECTED
+    assert "KV pages" in too_many_pages.error
+    assert set(system.handles) == {ok.rid}
+    system.drain()
+    assert ok.state == RequestState.FINISHED
+
+
+def test_front_door_matches_legacy_cluster_run(setup):
+    reqs = [Request(i, a, arrival=t, prompt_len=p, output_len=o)
+            for i, (a, t, p, o) in enumerate(SPECS)]
+    legacy = Cluster(setup["tcfg"], setup["tparams"], ClusterConfig(
+        n_instances=1, n_slots=2, max_len=32, adapter_cache_slots=4),
+        setup["tpool"]).run(reqs)
+    system = _system(setup, "torch", False)
+    handles = system.submit_workload(reqs)
+    system.drain()
+    assert {h.rid: h.tokens for h in handles} == legacy["tokens"]
+    nxt = system.submit(adapter_id=0, prompt_len=3, max_new_tokens=2)
+    assert nxt.rid == len(SPECS)            # auto-rids past the workload
+
+
+# ---------------------------- config surface ----------------------------- #
+def test_serve_config_derives_engine_and_cluster_configs():
+    kw = dict(n_instances=3, max_batch=7, max_len=128, disaggregated=True,
+              adapter_cache_slots=11, policy="sjf", paged=True, page_size=16,
+              n_pages=40, prefill_chunk=32, step_time=0.5, transport="fused",
+              store_host_bytes=123, disk_bw=1e9, prefetch=False,
+              rank_aware=False)
+    sc, jsc = ServeConfig(**kw), japi.ServeConfig(**kw)
+    assert dataclasses.asdict(sc.engine_config()) == \
+        {k: v for k, v in dataclasses.asdict(jsc.engine_config()).items()
+         if k in dataclasses.asdict(sc.engine_config())}
+    jc = dataclasses.asdict(jsc.cluster_config())
+    assert all(jc[k] == v for k, v in
+               dataclasses.asdict(sc.cluster_config()).items())
+    for f in dataclasses.fields(ServeConfig):   # the reference's defaults
+        assert getattr(ServeConfig(), f.name) == \
+            getattr(japi.ServeConfig(), f.name), f.name
+
+
+def test_unported_planes_are_refused_with_their_item(setup):
+    with pytest.raises(ValueError, match="analytic plane.*A6"):
+        ServeConfig(backend="sim")
+    with pytest.raises(ValueError, match="autoscaler.*A6"):
+        ServeConfig(disaggregated=True, autoscale=object())
+    with pytest.raises(ValueError, match="mesh.*A8"):
+        ServeConfig(disaggregated=True, mesh_shape=(2, 2))
+    with pytest.raises(ValueError, match="unknown transport"):
+        ServeConfig(transport="carrier-pigeon")
+    with pytest.raises(ValueError, match="unknown backend"):
+        ServeConfig(backend="nope")
+    with pytest.raises(ValueError, match="params= and pool="):
+        build_system(ServeConfig(), setup["tcfg"])
+
+
+# ---------------------------- adapter lifecycle -------------------------- #
+def _lifecycle(setup, side, transport="host", paged=False):
+    """The reference's churn bit-identity sequence: load adapter 4 (rank
+    4, alpha 16) mid-run under a host budget of two adapters, serve SPECS
+    and one request on it, unload it (a submit to it is then rejected),
+    load the same weights again and serve the request again."""
+    bytes1 = setup["tpool"].adapter_bytes(1)
+    system = _system(setup, side, True, paged=paged, transport=transport,
+                     adapter_cache_slots=2, store_host_bytes=2 * bytes1,
+                     host_bw=1e9)
+    try:
+        tensors = j_random_host_tensors(setup["jcfg"], 4, seed=7)
+        if side == "torch":
+            tensors = {k: _t(v) for k, v in tensors.items()}
+        assert system.load_adapter(4, tensors, alpha=16.0) == 4
+        prompt = (11, 7, 3, 19, 5)
+        handles = _submit_specs(system)
+        extra = system.submit(adapter_id=4, arrival=6.0, prompt=prompt,
+                              max_new_tokens=5)
+        system.drain()
+        static = {h.rid: tuple(h.tokens) for h in handles}
+        first = tuple(extra.tokens)
+        assert len(first) == 5
+        system.unload_adapter(4)
+        rejected = system.submit(adapter_id=4, arrival=20.0, prompt_len=3,
+                                 max_new_tokens=3)
+        assert rejected.state.name == "REJECTED"
+        assert system.load_adapter(4, tensors, alpha=16.0) == 4
+        h = system.submit(adapter_id=4, arrival=30.0, prompt=prompt,
+                          max_new_tokens=5)
+        system.drain()
+        assert tuple(h.tokens) == first
+        store = system.cache_stats()["store"]
+        return static, first, store
+    finally:
+        system.close()
+
+
+@pytest.fixture(scope="module")
+def lifecycle_reference(setup):
+    return _lifecycle(setup, "jax")
+
+
+@pytest.mark.parametrize("transport", ["host", "fused"])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense-kv", "paged-kv"])
+def test_churn_bit_identity_equals_reference(setup, lifecycle_reference,
+                                             transport, paged):
+    """Load a new adapter mid-run, serve it, unload it, load it again and
+    serve it again under a host budget that spills to disk: the static
+    workload's and the new adapter's tokens are the reference's, on both
+    transports and both KV layouts."""
+    static, first, store = _lifecycle(setup, "torch", transport, paged)
+    assert static == lifecycle_reference[0]
+    assert first == lifecycle_reference[1]
+    assert store["demotions"] > 0 and store["disk_writes"] > 0
+    static_c = _served(setup, "torch", False, False, transport="host")[0]
+    assert {r: list(t) for r, t in static.items()} == static_c
+
+
+def test_unload_refused_while_request_in_flight(setup):
+    system = _system(setup, "torch", True, adapter_cache_slots=2)
+    try:
+        h = system.submit(adapter_id=1, arrival=0.0, prompt_len=4,
+                          max_new_tokens=6)
+        it = iter(h)
+        next(it)
+        with pytest.raises(ValueError, match="in use"):
+            system.unload_adapter(1)
+        system.drain()
+        assert h.state == RequestState.FINISHED
+        system.unload_adapter(1)
+        rej = system.submit(adapter_id=1, arrival=50.0, prompt_len=3,
+                            max_new_tokens=3)
+        assert rej.state == RequestState.REJECTED
+        with pytest.raises(ValueError, match="not registered"):
+            system.unload_adapter(1)
+        cl = system.backend.cluster
+        assert not cl.server_pool.is_resident(1)
+    finally:
+        system.close()
+
+
+def test_coupled_plane_refuses_dynamic_load(setup):
+    system = _system(setup, "torch", False)
+    from repro_torch.store import random_host_tensors
+    try:
+        with pytest.raises(ValueError, match="disaggregated"):
+            system.load_adapter(4, random_host_tensors(setup["tcfg"], 4, 1),
+                                alpha=16.0)
+        with pytest.raises(ValueError, match="disaggregated"):
+            system.unload_adapter(0)
+    finally:
+        system.close()
+
+
+def test_cluster_load_validates_tensors(setup):
+    from repro_torch.store import random_host_tensors
+    system = _system(setup, "torch", True, adapter_cache_slots=2)
+    try:
+        with pytest.raises(ValueError):
+            system.load_adapter(9)
+        bad = random_host_tensors(setup["tcfg"], 16, seed=3)
+        with pytest.raises(ValueError):
+            system.load_adapter(9, bad, alpha=16.0)
+        with pytest.raises(ValueError):
+            system.load_adapter(0, random_host_tensors(setup["tcfg"], 4, 4),
+                                alpha=16.0)
+    finally:
+        system.close()
+
+
+# ------------------------------ observability ---------------------------- #
+def test_tracing_on_off_tokens_and_exports(setup):
+    off = _served(setup, "torch", True, True, transport="fused")[0]
+    system = _system(setup, "torch", True, paged=True, transport="fused",
+                     trace=True)
+    handles = _submit_specs(system)
+    system.drain()
+    assert {h.rid: h.tokens for h in handles} == off
+    obs = system.observability()
+    system.summary()
+    text = obs.prometheus()
+    for name in ("requests_finished_total", "ttft_seconds_bucket",
+                 "queue_depth", "kv_slots_in_use", "cache_caches",
+                 "transport_steps", "summary_n_finished"):
+        assert name in text, name
+    trace = obs.perfetto()
+    names = {e["name"] for e in trace["traceEvents"]}
+    assert {"queued", "prefill", "decode", "decode.step",
+            "queue_depth"} <= names
+    for h in handles:
+        spans = {s.name: s for s in obs.tracer.spans_for(f"req:{h.rid}")}
+        assert spans["prefill"].end - spans["queued"].start == \
+            pytest.approx(h.request.first_token - h.request.arrival)
+    assert obs.jsonl().count("\n") == len(obs.tracer.spans) + \
+        len(obs.tracer.instants) + len(obs.tracer.counters)
+    system.close()
+
+
+# ------------------------------ entry points ----------------------------- #
+def test_quickstart_on_cpu(capsys):
+    from repro_torch.launch import quickstart
+    assert quickstart.main(["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "adapter 0 streams:" in out
+    n = int(out.split(" / 32 tokens differ")[0].rsplit("\n", 1)[-1])
+    assert n > 0
+    assert out.rstrip().endswith("[cancelled]; slots in use: 0")
+    assert "'host_dispatches_per_step': 1.0" in out
+
+
+@pytest.mark.parametrize("args", [["--mode", "coupled", "--dense"],
+                                  ["--transport", "fused", "--replicas", "2"]],
+                         ids=["coupled-dense", "fused-R2"])
+def test_serve_cli_through_the_front_door(capsys, args):
+    from repro_torch.launch import serve
+    assert serve.main(["--reduced", "--device", "cpu", *args]) == 0
+    out = capsys.readouterr().out.splitlines()
+    import json
+    first, second = json.loads(out[0]), json.loads(out[1])
+    assert first["generated_tokens"] == 6 * 6
+    assert first["summary"]["n_cancelled"] == 0
+    assert all(s["slots_in_use"] == 0 for s in second["kv_stats"].values())
+    if "fused" in args:
+        assert second["transport"]["host_dispatches_per_step"] == 1.0
+        assert second["transport"]["hook_dispatches"] == 0
+    assert out[2].startswith("generated:")

@@ -134,14 +134,17 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports with JAX made unimportable."""
+    """Every module of the port imports with JAX, and ``ml_dtypes`` (which
+    comes with JAX), made unimportable."""
     mods = sorted(
         "repro_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
         for p in PKG.rglob("*.py") if p.name != "__init__.py")
     code = ("import sys, importlib; sys.modules['jax'] = None\n"
+            "sys.modules['ml_dtypes'] = None\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "assert not any(k == 'repro' or k.startswith('repro.') "
-            "for k in sys.modules), 'the port imported the JAX package'\n")
+            "for k in sys.modules), 'the port imported the JAX package'\n"
+            "assert sys.modules['ml_dtypes'] is None\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           env={"PYTHONPATH": str(ROOT / "src"),
                                "PATH": "/usr/bin:/bin"},
@@ -151,7 +154,8 @@ def test_port_imports_without_jax():
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s+import\b))",
+    r"^\s*(import\s+(jax|repro|ml_dtypes)\b"
+    r"|from\s+(jax|repro|ml_dtypes)(\.|\s+import\b))",
     re.MULTILINE)
 
 
@@ -159,4 +163,4 @@ def test_port_sources_name_no_jax_import():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     bad = [str(f.relative_to(ROOT)) for f in files
            if _FORBIDDEN.search(f.read_text())]
-    assert not bad, f"port files importing jax or repro.*: {bad}"
+    assert not bad, f"port files importing jax, ml_dtypes or repro.*: {bad}"

@@ -37,6 +37,7 @@ from repro_torch import bridge
 from repro_torch.core import lora_server as tls
 from repro_torch.launch import serve as tserve
 from repro_torch.serving import engine as tengine
+from repro_torch.serving.api import build_system
 from repro_torch.serving.cache import LoRACache
 from repro_torch.serving.server_pool import ServerPool
 from repro_torch.transport import (DeviceLoraView, FusedTransport,
@@ -49,6 +50,39 @@ REQUESTS = [(0, 7, 0, 0), (1, 5, 1, 0), (2, 9, 2, 0), (3, 6, 3, 2),
 NEW_TOKENS = 4
 ENGINE = dict(max_len=32, n_slots=4, page_size=4, prefill_chunk=8)
 RANKS = [2, 8, 4, 8]
+
+
+class _Residency:
+    """A LoRA cache (LRU among unpinned residents) in front of a server
+    pool, the control plane the reference's cluster runs around one
+    engine: a request is admitted only once its adapter is resident
+    (pinned while it runs), and before every decode step the replicas'
+    slot tables follow the cache. Works over the reference package's cache
+    and pool too: they have the same methods."""
+
+    def __init__(self, server_pool, adapter_pool, capacity: int,
+                 cache=None, tensors_fn=None):
+        self.pool = server_pool
+        self.cache = cache if cache is not None else LoRACache(
+            capacity, adapter_bytes=0, n_layers=adapter_pool.cfg.n_layers,
+            layerwise=False, prefetch=False)
+        self.tensors_fn = tensors_fn or (
+            lambda a: tls.pool_tensors_from_adapter(adapter_pool, a))
+        self.rank_fn = adapter_pool.rank_of
+        self.clock = 0.0        # one tick a decode step (the LRU's time)
+
+    def acquire(self, adapter_id: int) -> bool:
+        if self.cache.admit(adapter_id, self.clock) is None:
+            return False
+        self.cache.pin(adapter_id)
+        return True
+
+    def release(self, adapter_id: int) -> None:
+        self.cache.unpin(adapter_id, self.clock)
+
+    def sync(self) -> int:
+        self.clock += 1.0
+        return self.pool.sync(self.cache, self.tensors_fn, self.rank_fn)
 
 
 def _drive(engine, residency, prompts):
@@ -109,7 +143,7 @@ def _run(setup, side, transport, replicas, paged, slots=4,
                                            cache_slots=slots,
                                            n_replicas=replicas,
                                            dtype=jnp.float32)
-        res = tserve.Residency(
+        res = _Residency(
             sp, setup["pool"], slots,
             cache=jcache.LoRACache(slots, adapter_bytes=0, n_layers=2,
                                    layerwise=False, prefetch=False),
@@ -123,7 +157,7 @@ def _run(setup, side, transport, replicas, paged, slots=4,
         sp = ServerPool.build(setup["tcfg"], setup["tpool"],
                               cache_slots=slots, n_replicas=replicas,
                               dtype=torch.float32, device="cpu")
-        res = tserve.Residency(sp, setup["tpool"], slots)
+        res = _Residency(sp, setup["tpool"], slots)
         eng = tengine.Engine(setup["tcfg"], setup["tparams"],
                              tengine.EngineConfig(paged=paged, **ENGINE),
                              sp, device="cpu", pool=setup["tpool"],
@@ -216,7 +250,7 @@ def test_fused_refresh_copies_only_written_slots(tiny_cfg, setup):
     tpool = setup["tpool"]
     sp = ServerPool.build(tiny_cfg, tpool, cache_slots=3, n_replicas=2,
                           dtype=torch.float32, device="cpu")
-    res = tserve.Residency(sp, tpool, 4)
+    res = _Residency(sp, tpool, 4)
     for aid in range(4):
         res.acquire(aid)
         res.release(aid)
@@ -569,9 +603,10 @@ def test_serve_fused_replicas_on_cpu(capsys):
 
 
 def test_serve_residency_churn_keeps_tokens():
-    """The serving loop with a 2-slot cache in front of the pool (requests
-    wait for residency) gives the tokens of the run with every adapter
-    resident, on both planes."""
+    """Serving through the front door with a 2-slot cache in front of a
+    pool of 2 replicas (requests wait for residency, adapters are evicted
+    and brought back) gives the tokens of the engine-level run with every
+    adapter resident, on both transports."""
     traffic = dataclasses.replace(tserve.Traffic(), n_requests=6,
                                   prompt_len=(6, 20), new_tokens=4,
                                   second_wave_after=2)
@@ -584,14 +619,13 @@ def test_serve_residency_churn_keeps_tokens():
     want = tserve.serve(tengine.Engine(cfg, params, ecfg, device="cpu",
                                        **full), reqs, traffic)["tokens"]
     for transport in ("host", "fused"):
-        lora = tserve.build_pool(cfg, traffic.adapter_ranks, 2,
-                                 cache_slots=2, device="cpu",
-                                 dtype=torch.float32)
-        eng = tengine.Engine(cfg, params, ecfg, device="cpu",
-                             transport=transport, **lora)
-        res = tserve.Residency(lora["server"], lora["pool"], 2)
-        assert tserve.serve(eng, reqs, traffic, res)["tokens"] == want
-        assert lora["server"].sync_evictions > 0
+        system = build_system(tserve.serve_config(
+            traffic, transport=transport, replicas=2,
+            adapter_cache_slots=2), cfg, params=params, pool=full["pool"])
+        res = tserve.serve_system(system, reqs, traffic)
+        system.close()
+        assert res["tokens"] == want
+        assert system.backend.cluster.server_pool.sync_evictions > 0
 
 
 # ------------------------------ on the card ----------------------------- #
@@ -614,7 +648,7 @@ def _card_engine(setup, transport, replicas=1, paged=True):
     sp = ServerPool.build(setup["tcfg"], pool, cache_slots=4,
                           n_replicas=replicas, dtype=torch.float32,
                           device=dev)
-    res = tserve.Residency(sp, pool, 4)
+    res = _Residency(sp, pool, 4)
     for aid in range(pool.n):               # every adapter resident
         res.acquire(aid)
         res.release(aid)
