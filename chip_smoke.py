@@ -75,7 +75,21 @@ port only. Phases, each of which fails the run with a non-zero exit:
    with evictions, disk reads and no new capture, and the per-adapter
    costs of a disk-tier read (its file's pages cached, and after
    ``posix_fadvise(DONTNEED)``), the CPU staging and the upload (pageable
-   and pinned), and a cold round against a warm one.
+   and pinned), and a cold round against a warm one;
+8. the elastic and analytic planes at the same cell: (a) the main path
+   with ``autoscale=AutoscalePolicy(...)`` (1-2 instances, 1-2 LoRA-Server
+   replicas of one GPU, a cache of 2-4 slots) over a burst, a lull, a
+   burst and a lull, counts set to 0 just before: its tokens equal the
+   static run's bit for bit, ``resize_cache``, ``add_instance``,
+   ``drain_instance`` and ``add_replica`` each fire, each capture holds
+   one step's kernels and no replay launches from the host, the graph
+   pool does not grow across the second add/drain cycle and no graph
+   outlives its engine's KV; the wall ms of the rounds that applied each
+   action against a warm round's; (b) the cost model's nominal H100
+   constants beside what the card gives (copies, a matmul) and its
+   predictions beside phases 2, 5 and 6's measurements; (c) the S-LoRA vs
+   InfiniLoRA comparison on the analytic plane (``launch/serve.py
+   --cluster``), modelled numbers labelled as such.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -85,6 +99,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import pathlib
 import re
@@ -1141,7 +1156,7 @@ def transport_phase(torch, ops, smi, cfg, params, ecfg):
           + f"; card {smi}", flush=True)
     del eng, lora
     torch.cuda.empty_cache()
-    return fused_tokens
+    return fused_tokens, prof
 
 
 def churn_cell(torch, ops, smi, cfg, params, traffic, requests) -> dict:
@@ -1641,6 +1656,318 @@ def front_door_phase(torch, counters, smi, cfg, params, want_fused,
     return launches
 
 
+# ------------------------------ phase 8 ------------------------------ #
+# (arrival round, requests): a burst, a lull, a burst, a lull
+ELASTIC_WAVES = ((0.0, 12), (45.0, 1), (70.0, 12), (115.0, 1))
+# the TPOT target the autoscaler's Eqs. 5-6 are held to: at a burst's
+# batch (6-8 rows an instance, ~4 distinct adapters) one server GPU misses
+# it and two meet it; at a lull's (1-3 rows) one meets it
+ELASTIC_SLO_TPOT = 1.5e-4
+CYCLE_1_END = 70.0                 # the graph pool is read here and at end
+ANALYTIC_DURATION = 30.0           # virtual s of the analytic comparison
+
+
+def elastic_policy():
+    """The autoscaler of phase 8: a control tick every 2 rounds over a
+    10-round window, 1-2 instances, 1-2 LoRA-Server replicas of one GPU,
+    a cache of 2-4 slots, scale-down after one low reading, no deadband."""
+    from repro_torch.serving.autoscaler import AutoscalePolicy
+    return AutoscalePolicy(control_interval=2.0, window=10.0,
+                           slo_tpot=ELASTIC_SLO_TPOT, min_cache_slots=2,
+                           max_cache_slots=4, min_instances=1,
+                           max_instances=2, min_replicas=1, max_replicas=2,
+                           gpus_per_replica=1, scale_down_patience=1,
+                           resize_deadband=0.0)
+
+
+def elastic_requests(cfg, traffic):
+    """[(rid, prompt, adapter, arrival)] of ELASTIC_WAVES: the engine
+    phase's prompt lengths, adapters round-robin over RANKS."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 5)
+    lo, hi = traffic.prompt_len
+    out = []
+    for at, n in ELASTIC_WAVES:
+        for _ in range(n):
+            rid = len(out)
+            out.append((rid, rng.integers(0, cfg.vocab_size, int(
+                rng.integers(lo, hi + 1))).tolist(), rid % len(RANKS), at))
+    return out
+
+
+def graph_pool_segments(torch, transport) -> int:
+    """Bytes the caching allocator holds in the fused transport's graph
+    pool (the segments of its private pool)."""
+    if getattr(transport, "_pool", None) is None:
+        return 0
+    segs = torch.cuda.memory_snapshot()
+    check(all("segment_pool_id" in sg for sg in segs),
+          "elastic: the memory snapshot names no segment's pool")
+    pool = tuple(transport._pool)
+    return sum(sg["total_size"] for sg in segs
+               if tuple(sg["segment_pool_id"]) == pool)
+
+
+def elastic_run(torch, system, requests, traffic) -> dict:
+    """Drive ``requests`` round by round through ``system``: each round's
+    host time and scale actions, the prefill chunks of every engine that
+    lived, the graph pool's bytes at the end of each lull and whether a
+    graph outlived its engine's KV."""
+    from repro_torch.obs.clock import wall_time
+    cl = system.backend.cluster
+    handles = [system.submit(p, a, max_new_tokens=traffic.new_tokens,
+                             arrival=at, rid=rid)
+               for rid, p, a, at in requests]
+    rounds, chunks, pool_bytes, stale = [], {}, [], 0
+    while not system.backend.idle():
+        if not pool_bytes and cl.now >= CYCLE_1_END:
+            pool_bytes.append(graph_pool_segments(torch, cl.transport))
+        admitted = cl.server_pool.sync_inserts, sum(
+            e.prefill_chunks for e in cl.engines.values())
+        t0 = wall_time()
+        evs = system.step()
+        ms = 1e3 * (wall_time() - t0)
+        rounds.append({"now": evs[0].time if evs else None, "ms": ms,
+                       "scale": [e.kind[6:] for e in evs
+                                 if e.kind.startswith("scale:")],
+                       "replicas": cl.server_pool.n_replicas,
+                       "instances": len(cl.engines),
+                       "busy": any(e.kind == "token" for e in evs),
+                       "cold": (cl.server_pool.sync_inserts, sum(
+                           e.prefill_chunks for e in cl.engines.values()))
+                       != admitted})
+        for iid, e in cl.engines.items():
+            chunks[iid] = e.prefill_chunks
+        live = {e._k.data_ptr() for e in cl.engines.values()
+                if e._k is not None}
+        tr = cl.transport
+        stale = max(stale, sum(1 for key in getattr(tr, "_graphs", {})
+                               if key[2] not in live))
+    pool_bytes.append(graph_pool_segments(torch, cl.transport))
+    return {"handles": handles, "rounds": rounds, "chunks": chunks,
+            "pool_bytes": pool_bytes, "stale_graphs": stale,
+            "tokens": {h.rid: list(h.tokens) for h in handles}}
+
+
+def elastic_cell(torch, counters, serve, cfg, params, pool, traffic,
+                 requests) -> dict:
+    """(a): the autoscaled fused main path against the static one on the
+    same requests, counters set to 0 just before the autoscaled run."""
+    from repro_torch.serving.api import build_system
+    L = cfg.n_layers
+    base = dict(transport="fused")
+    static = build_system(serve.serve_config(traffic, **base), cfg,
+                          params=params, pool=pool)
+    want = elastic_run(torch, static, requests, traffic)
+    static.close()
+    del static
+    torch.cuda.empty_cache()
+    system = build_system(serve.serve_config(
+        traffic, autoscale=elastic_policy(), **base), cfg, params=params,
+        pool=pool)
+    for fn in counters.values():
+        fn.launches = 0
+    got = elastic_run(torch, system, requests, traffic)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    cl = system.backend.cluster
+    hist = system.scale_history()
+    caps = list(cl.transport.captures)
+    check(got["tokens"] == want["tokens"], "elastic: the autoscaled run's "
+          "tokens differ from the static run's")
+    check(all(h.state.name == "FINISHED" for h in got["handles"]) and all(
+        len(v) == traffic.new_tokens and all(0 <= x < cfg.vocab_size
+                                             for x in v)
+        for v in got["tokens"].values()), "elastic: a request did not "
+          "finish with all its tokens")
+    fired = {}
+    for r in got["rounds"]:
+        for kind in r["scale"]:
+            fired.setdefault(kind, []).append(r["now"])
+    for kind in ("resize_cache", "add_instance", "drain_instance",
+                 "add_replica"):
+        check(kind in fired, f"elastic: {kind} never fired: {fired}")
+    per_step = {"gmm": 3 * L, "bgmv_expert": 2 * L, "paged_attention": L}
+    for cap in caps:
+        check(cap["launches"] == per_step, f"elastic: a capture holds "
+              f"{cap['launches']}, one step launches {per_step}")
+    n_chunks = sum(got["chunks"].values())
+    for name, n in per_step.items():
+        pre = 3 * (L - 1) * n_chunks if name == "gmm" else 0
+        check(launches[name] == 2 * n * len(caps) + pre,
+              f"elastic: {name} launched {launches[name]} times from "
+              f"Python, not (warm-up + capture) x {len(caps)} graphs x {n} "
+              f"+ {pre}: a replay launched from the host")
+    ts = cl.transport_stats()
+    check(ts["host_dispatches"] == ts["steps"] and
+          ts["hook_dispatches"] == 0, f"elastic: not one dispatch a step: "
+          f"{ts}")
+    check(got["stale_graphs"] == 0, "elastic: a graph outlived its "
+          "engine's KV")
+    p1, p2 = got["pool_bytes"]
+    check(p2 <= p1, f"elastic: the graph pool grew from {p1} to {p2} bytes "
+          f"across the second add/drain cycle")
+
+    def med(xs):
+        return statistics.median(xs) if xs else None
+    warm = [r["ms"] for r in got["rounds"]
+            if r["busy"] and not r["scale"] and not r["cold"]]
+    by_kind = {k: [r["ms"] for r in got["rounds"] if k in r["scale"]]
+               for k in fired}
+    system.close()
+    del system
+    torch.cuda.empty_cache()
+    return {"launches": launches, "report": {
+        "policy": dataclasses.asdict(elastic_policy()),
+        "waves": ELASTIC_WAVES, "fired_at": fired,
+        "history": [{k: h[k] for k in ("now", "lb", "targets", "actions",
+                                       "mean_active_rank")}
+                    for h in hist if h["actions"]],
+        "tokens_equal_static": True, "rounds": len(got["rounds"]),
+        "static_rounds": len(want["rounds"]), "captures": len(caps),
+        "per_capture": per_step, "prefill_chunks": n_chunks,
+        "graph_pool_bytes": {"end_of_cycle_1": p1, "end_of_cycle_2": p2},
+        "round_ms_by_action": by_kind, "warm_round_ms_median": med(warm),
+        "transport_stats": ts}}
+
+
+def cost_model_cell(torch, flush, cfg, requests, fused_prof, hk,
+                    lora_cases) -> dict:
+    """(b): the cost model's nominal H100 constants beside what this card
+    gives (a device-to-device copy of 1 GiB, a pinned host-to-device copy
+    of 1 GiB, one 8192^3 bf16 matmul), then its predictions beside phase
+    6's fused device ms/step, phase 2's hooks and phase 5's decode gmm."""
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core.placement import Placement
+    from repro_torch.serving.simulator import base_step_seconds, \
+        disagg_stall_seconds
+    hw = cm.H100
+    n = 2**30
+    src = torch.empty(n, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    d2d_ms = cuda_ms(torch, lambda: dst.copy_(src), flush, n=10, warmup=2)
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    h2d_ms = cuda_ms(torch, lambda: dst.copy_(host, non_blocking=True),
+                     flush, n=10, warmup=2)
+    del src, dst, host
+    m = 8192
+    a = torch.randn(m, m, device="cuda", dtype=torch.bfloat16)
+    b = torch.randn(m, m, device="cuda", dtype=torch.bfloat16)
+    mm_ms = cuda_ms(torch, lambda: torch.matmul(a, b), flush, n=10,
+                    warmup=3)
+    del a, b
+    torch.cuda.empty_cache()
+    card = {"hbm_bw": 2 * n / (d2d_ms / 1e3), "host_bw": n / (h2d_ms / 1e3),
+            "flops": 2 * m ** 3 / (mm_ms / 1e3)}
+    constants = {k: {"nominal": getattr(hw, k), "card": v,
+                     "card_over_nominal": v / getattr(hw, k)}
+                 for k, v in card.items()}
+    L, E = cfg.n_layers, cfg.n_experts
+    rows = len(requests)
+    ranks = [RANKS[aid] for _, _, aid in requests]
+    # the profiled steps run after one step of every request: 1.5-4.5
+    # tokens past the prompts
+    ctx = statistics.mean(len(p) for _, p, _ in requests) + 3.0
+    base = base_step_seconds(cfg, rows, 1, ctx, hw, 0.0)
+    stall = disagg_stall_seconds(
+        cfg, Placement.make("hybrid", 1, len(RANKS), L, E), rows, 1, 1,
+        float(len(set(ranks))), statistics.mean(ranks), hw, True, True,
+        "push")
+    up, dn = hk["up"], hk["down"]
+    hook_rank = statistics.mean(RANKS[t % len(RANKS)] for t in range(8))
+    lora_s = cm.lora_compute_seconds(cfg, up["active_rows"],
+                                     up["factor_slices"], hook_rank, hw)
+    gmm_ms = sum(lora_cases[c]["ms"] for c in ("gmm_gate", "gmm_up",
+                                               "gmm_down"))
+    gemm_s = cm.base_moe_gemm_seconds(cfg, 8, 1, hw)
+    preds = {
+        "decode_step": {"model_ms": 1e3 * (base + stall),
+                        "base_step_ms": 1e3 * base,
+                        "disagg_stall_ms": 1e3 * stall,
+                        "card_ms": fused_prof["device_ms_per_step"],
+                        "what": f"fused device ms/step, {rows} rows, "
+                                f"depth {L}"},
+        "lora_hooks": {"model_ms": 1e3 * lora_s,
+                       "card_ms": up["ms"] + dn["ms"],
+                       "what": "bgmv_expert up + down, one layer"},
+        "base_moe_gemm": {"model_ms": 1e3 * gemm_s, "card_ms": gmm_ms,
+                          "what": "gmm gate + up + down, decode dispatch of "
+                                  "8 tokens"}}
+    for p in preds.values():
+        p["model_over_card"] = p["model_ms"] / p["card_ms"]
+    # every constant, prediction and ratio is finite and positive; the
+    # step's two terms are finite and not negative (the stall is 0 where
+    # the hooks hide under the base GEMMs)
+    vals = [v for c in constants.values() for v in c.values()] + \
+        [p[k] for p in preds.values()
+         for k in ("model_ms", "card_ms", "model_over_card")]
+    terms = [preds["decode_step"][k] for k in ("base_step_ms",
+                                               "disagg_stall_ms")]
+    check(all(math.isfinite(v) and v > 0 for v in vals) and
+          all(math.isfinite(v) and v >= 0 for v in terms),
+          f"cost model: a value is not finite and positive: {constants}, "
+          f"{preds}")
+    return {"constants": constants, "predictions": preds}
+
+
+def analytic_cell() -> dict:
+    """(c): the S-LoRA vs InfiniLoRA comparison of ``launch/serve.py
+    --cluster`` on the analytic plane at the full config, priced with the
+    nominal H100 (modelled numbers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.obs.clock import wall_time
+    t0 = wall_time()
+    res = serve.compare_planes(get_config(ARCH), duration=ANALYTIC_DURATION)
+    wall_s = wall_time() - t0
+    check(not any(m.split(".")[0] in ("jax", "repro", "ml_dtypes")
+                  for m in sys.modules), "analytic: JAX or the JAX package "
+          "was imported")
+    for name, s in res.items():
+        check(s["n_finished"] > 0 and all(
+            math.isfinite(s[k]) and s[k] >= 0
+            for k in ("p95_ttft", "mean_tpot", "throughput_rps",
+                      "slo_attainment")), f"analytic {name}: {s}")
+    return {"duration_s": ANALYTIC_DURATION, "wall_s": wall_s,
+            "summary": {name: {k: s[k] for k in (
+                "n_requests", "n_finished", "p95_ttft", "mean_tpot",
+                "throughput_rps", "slo_attainment")}
+                for name, s in res.items()}}
+
+
+def elastic_phase(torch, counters, smi, flush, cfg, params, fused_prof, hk,
+                  lora_cases) -> dict:
+    """Phase 8: (a) the autoscaled fused main path, (b) the cost model
+    against the card, (c) the analytic plane. Returns the counted
+    launches of (a)."""
+    from repro_torch.launch import serve
+    from repro_torch.obs.clock import wall_time
+    t0 = wall_time()
+    traffic = serve.Traffic(adapter_ranks=RANKS)
+    pool = serve.adapter_pool(cfg, "disagg", RANKS, seed=SEED,
+                              dtype=torch.bfloat16, device="cuda")
+    cell = elastic_cell(torch, counters, serve, cfg, params, pool, traffic,
+                        elastic_requests(cfg, traffic))
+    del pool
+    torch.cuda.empty_cache()
+    print("elastic main path (disagg, paged, fused, autoscaled): "
+          + json.dumps(cell["report"]) + f"; card {smi}", flush=True)
+    cost = cost_model_cell(torch, flush, cfg,
+                           serve.make_requests(cfg, traffic, SEED),
+                           fused_prof, hk, lora_cases)
+    print("cost model, H100 nominal vs card: " + json.dumps(cost)
+          + f"; card {smi}", flush=True)
+    ana = analytic_cell()
+    for name, s in ana["summary"].items():
+        print(f"{name:12s} p95_ttft={s['p95_ttft']:.4f}s "
+              f"tpot={s['mean_tpot']:.4f}s thr={s['throughput_rps']:.2f}r/s "
+              f"attain={s['slo_attainment']:.2%} (analytic, H100 nominal; "
+              f"modelled, not measured)", flush=True)
+    print("analytic plane: " + json.dumps(ana), flush=True)
+    print(f"phase 8: {wall_time() - t0:.1f} s", flush=True)
+    return cell["launches"]
+
+
 def _first_layers(tree, n: int):
     """Views of the first ``n`` layers of a layer-stacked tree."""
     if isinstance(tree, dict):
@@ -1689,10 +2016,12 @@ def main() -> int:
     repairs = repair_phase(torch, sgmv, fused, ref)
     launches, model, coupled_tokens = main_paths(torch, ops, paged, bgmv,
                                                  ref, counters)
-    fused_tokens = transport_phase(torch, ops, smi, *model)
+    fused_tokens, fused_prof = transport_phase(torch, ops, smi, *model)
     cfg, params, _ = model
     launches.update(front_door_phase(torch, counters, smi, cfg, params,
                                      fused_tokens, coupled_tokens))
+    launches["elastic"] = elastic_phase(torch, counters, smi, flush, cfg,
+                                        params, fused_prof, hk, lora[1])
     del model, cfg, params
 
     # "launches": the coupled plane's run for rows 1-3 and gmm, the

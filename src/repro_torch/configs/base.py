@@ -1,11 +1,15 @@
 """Model configuration of the port: the fields of the reference's
 ``ModelConfig`` that the disaggregated MoE serving path reads, with the
 same defaults and the same ``reduced()`` rule (a tiny same-family config
-for CPU tests)."""
+for CPU tests), and the parameter and adapter accounting the cost model,
+provisioning and the simulator price with (the moe family only; the
+other families come with ROADMAP A7)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
+
+BYTES = {"bfloat16": 2, "float32": 4, "int8": 1, "float16": 2}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +51,71 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    @property
+    def is_ssm(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
+    # ---------------------------- accounting --------------------------- #
+    def _need_moe(self, what: str) -> None:
+        if self.family != "moe":
+            raise ValueError(f"{self.name}: {what} of the {self.family!r} "
+                             f"family is not ported yet (ROADMAP A7)")
+
+    def param_count(self) -> int:
+        """Total parameter count of the moe family: embeddings, lm head,
+        final norm and per layer the dense attention, the router, the
+        experts (3 matrices each) and two norms."""
+        self._need_moe("param_count")
+        d, ff, V = self.d_model, self.d_ff, self.vocab_size
+        hd, H, KV = self.head_dim, self.n_heads, self.n_kv_heads
+        attn = d * H * hd + 2 * d * KV * hd + H * hd * d
+        if self.qkv_bias:
+            attn += (H + 2 * KV) * hd
+        emb = V * d
+        head = 0 if self.tie_embeddings else V * d
+        norms = 2 * d
+        router = d * self.n_experts
+        experts = self.n_experts * 3 * d * ff
+        return emb + head + d + self.n_layers * (attn + router + experts
+                                                 + norms)
+
+    def active_param_count(self) -> int:
+        """Parameters a token activates (top_k of n_experts)."""
+        if not self.is_moe:
+            return self.param_count()
+        d, ff = self.d_model, self.d_ff
+        dense_experts = self.n_experts * 3 * d * ff
+        active_experts = self.top_k * 3 * d * ff
+        return self.param_count() - self.n_layers * (dense_experts
+                                                     - active_experts)
+
+    def lora_adapter_bytes(self, rank: Optional[int] = None,
+                           dtype: str = "bfloat16") -> int:
+        """Device bytes of ONE adapter (paper Fig. 1a): the attention
+        targets plus expert-specific factors on the MoE FFN targets."""
+        self._need_moe("lora_adapter_bytes")
+        r = rank or self.lora_rank
+        d, ff = self.d_model, self.d_ff
+        hd, H, KV = self.head_dim, self.n_heads, self.n_kv_heads
+        per_layer = 0
+        tgt = self.lora_targets
+        if "q" in tgt:
+            per_layer += d * r + r * H * hd
+        if "k" in tgt:
+            per_layer += d * r + r * KV * hd
+        if "v" in tgt:
+            per_layer += d * r + r * KV * hd
+        if "o" in tgt:
+            per_layer += H * hd * r + r * d
+        e = max(self.n_experts, 1)
+        if "gate" in tgt:
+            per_layer += e * (d * r + r * ff)
+        if "up" in tgt:
+            per_layer += e * (d * r + r * ff)
+        if "down" in tgt:
+            per_layer += e * (ff * r + r * d)
+        return per_layer * self.n_layers * BYTES[dtype]
 
     def reduced(self) -> "ModelConfig":
         """Tiny same-family config for CPU tests (the reference's rule)."""

@@ -11,12 +11,17 @@ dispatch) or "fused" (one CUDA graph a decode step).
       --arch qwen3-moe-235b-a22b --layers 4 --requests 6 --mode coupled
   PYTHONPATH=src python -m repro_torch.launch.serve --transport fused \
       --replicas 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --cluster --rate 25
 
 Weights and adapters are random, drawn on the device from ``--seed``;
 nothing is downloaded. Requests arrive in two waves, so the second wave is
 admitted into a running batch. Runs on the CUDA card unless ``--device
 cpu`` is given. ``serve`` drives one engine directly (the step timings of
-``chip_smoke.py``).
+``chip_smoke.py``). ``--cluster`` runs no model: it compares S-LoRA (4
+instances, per-instance caches) with InfiniLoRA (3 instances and a LoRA
+Server) at the full config on the analytic plane (``backend="sim"``),
+priced with the nominal H100 constants: modelled numbers, not
+measurements.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.baselines import slora as presets
 from repro_torch.configs import get_config
 from repro_torch.core.adapter import init_mixed_rank_pool
 from repro_torch.core.lora_server import pool_tensors_from_adapter
@@ -36,6 +42,7 @@ from repro_torch.obs.clock import wall_time
 from repro_torch.serving.api import ServeConfig, build_system
 from repro_torch.serving.cache import LoRACache
 from repro_torch.serving.engine import Engine, EngineConfig
+from repro_torch.serving import workload
 from repro_torch.serving.server_pool import ServerPool
 
 FFN_TARGETS = ("gate", "up", "down")
@@ -256,6 +263,31 @@ def build(arch: str, *, layers: Optional[int] = None, reduced: bool = False,
     return cfg, params, lora, dataclasses.replace(ENGINE, paged=paged)
 
 
+def compare_planes(cfg, n_adapters: int = 8, rate: float = 25.0,
+                   duration: float = 120.0, gpus_per_instance: int = 8,
+                   seed: int = 0) -> Dict[str, Dict]:
+    """The S-LoRA vs InfiniLoRA comparison on the analytic plane (Fig. 11's
+    presets: S-LoRA on 4 instances, InfiniLoRA on 3 plus a LoRA Server of
+    ``gpus_per_instance`` GPUs), one Poisson workload of ``rate`` requests a
+    second over ``n_adapters`` zipf adapters for ``duration`` virtual
+    seconds through ``backend="sim"``: each plane's ``Summary`` fields."""
+    reqs = workload.generate(n_adapters, rate=rate, duration=duration,
+                             seed=seed)
+    planes = {
+        "s-lora": presets.slora_config(cfg, 4, gpus_per_instance,
+                                       n_adapters, duration),
+        "infinilora": presets.infinilora_config(
+            cfg, 3, gpus_per_instance, gpus_per_instance, n_adapters,
+            duration)}
+    out = {}
+    for name, sim in planes.items():
+        system = build_system(ServeConfig.from_sim(sim), cfg)
+        system.submit_workload(reqs)
+        system.drain()
+        out[name] = dataclasses.asdict(system.summary(duration=duration))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-moe-235b-a22b")
@@ -277,7 +309,30 @@ def main(argv=None) -> int:
                          "CUDA graph a decode step)")
     ap.add_argument("--replicas", type=int, default=1,
                     help="disagg: LoRA-Server replicas of the pool")
+    ap.add_argument("--cluster", action="store_true",
+                    help="S-LoRA vs InfiniLoRA on the analytic plane "
+                         "(full config, nominal H100; no model runs)")
+    ap.add_argument("--adapters", type=int, default=8,
+                    help="--cluster: adapters of the workload")
+    ap.add_argument("--rate", type=float, default=25.0,
+                    help="--cluster: requests a virtual second")
+    ap.add_argument("--duration", type=float, default=120.0,
+                    help="--cluster: virtual seconds of arrivals")
+    ap.add_argument("--gpus-per-instance", type=int, default=8,
+                    help="--cluster: GPUs of an instance and of the server")
     args = ap.parse_args(argv)
+    if args.cluster:
+        res = compare_planes(get_config(args.arch), args.adapters, args.rate,
+                             args.duration, args.gpus_per_instance,
+                             args.seed)
+        for name, s in res.items():
+            print(f"{name:12s} p95_ttft={s['p95_ttft']:8.3f}s "
+                  f"tpot={s['mean_tpot']:.4f}s "
+                  f"thr={s['throughput_rps']:7.2f}r/s "
+                  f"attain={s['slo_attainment']:.2%} (analytic, H100 "
+                  f"nominal)")
+        print(json.dumps(res))
+        return 0
     traffic = dataclasses.replace(Traffic(), n_requests=args.requests)
     if args.reduced:
         traffic = dataclasses.replace(traffic, prompt_len=(6, 20),

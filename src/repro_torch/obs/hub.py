@@ -178,7 +178,9 @@ class Observability:
             b("kv", agg)
         b("cache", self._backend.cache_stats())
         b("transport", self._backend.transport_stats())
-        sched = self._backend.cluster.sched
+        inner = getattr(self._backend, "cluster", None) or \
+            getattr(self._backend, "sim", None)
+        sched = getattr(inner, "sched", None)
         if sched is not None:
             self._hub.registry.gauge(
                 "queue_depth", "requests waiting for admission").set(

@@ -1,13 +1,13 @@
-"""The serving front door of the port: ``ServeConfig`` -> ``ServeSystem``
--> ``RequestHandle``, the counterpart of ``repro.serving.api`` over its
-real plane (the slot-engine ``Cluster``):
+"""The serving front door of the port: ``ServeConfig`` -> ``Backend`` ->
+``RequestHandle``, the counterpart of ``repro.serving.api`` over both of
+its planes, the analytic simulator and the slot-engine ``Cluster``:
 
     ServeConfig ──> build_system(cfg, model, ...) ──> ServeSystem
                                                           │ submit()
                                                           ▼
-                  ClusterBackend (the port's engines)  RequestHandle
-                                                       states, tokens,
-                                                       cancel(), iter()
+                  Backend (protocol)                 RequestHandle
+                  ├── SimBackend    (analytic plane) states, tokens,
+                  └── ClusterBackend (the engines)   cancel(), iter()
 
 Request lifecycle (``metrics.summarize`` reads the same fields):
 
@@ -18,41 +18,49 @@ Request lifecycle (``metrics.summarize`` reads the same fields):
 
 Streaming: every decoded token reaches the handle the round it is made,
 through ``handle.on_token(cb)`` or ``for tok in handle`` (the iterator
-pumps the system). Cancellation (``handle.cancel()``) takes effect at the
-next round boundary: the decode slot, the KV pages and the scheduler's
-adapter pin come back at once, and the request never counts as finished.
+pumps the system). The analytic plane emits token events with
+``token=None``: it models time, not token ids. Cancellation
+(``handle.cancel()``) takes effect at the next round or event boundary:
+the decode slot, the KV pages and the scheduler's adapter pin come back at
+once, and the request never counts as finished.
 
-Time is the cluster's virtual clock (``step_time`` a round), so TTFT and
-TPOT in ``Summary`` are in rounds, as in the reference.
+Time is virtual on both planes: the cluster's ``step_time`` a round (so
+its TTFT and TPOT are in rounds, as in the reference), the simulator's
+event clock priced by the cost model (``hw``, a nominal H100 by default:
+modelled seconds, not measurements). ``autoscale`` runs Algorithm 1
+online on either plane; its actions surface as ``scale:<kind>`` events
+(``rid=-1``) and in ``scale_history()``.
 
-Not ported yet, and refused with a ValueError naming the missing item:
-the analytic backend (``backend="sim"``) with the fields only it reads,
-the autoscaler (``autoscale``; ROADMAP A6) and ``mesh_shape`` (ROADMAP
-A8).
+Not ported yet, and refused with a ValueError naming its item:
+``mesh_shape`` (ROADMAP A8).
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 import itertools
-from typing import Callable, Dict, Iterator, List, Optional, Sequence, \
-    Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Protocol, \
+    Sequence, Tuple
 
+from repro_torch.core.cost_model import H100, Hardware
 from repro_torch.obs.hub import Observability, ObservabilityHub
 from repro_torch.obs.trace import NULL_TRACER, TimelineTracer
 from repro_torch.serving import metrics
+from repro_torch.serving.autoscaler import Autoscaler, AutoscalePolicy, \
+    ScaleAction
 from repro_torch.serving.cluster import Cluster, ClusterConfig, \
     refuse_unported
 from repro_torch.serving.engine import EngineConfig
 from repro_torch.serving.metrics import Summary
 from repro_torch.serving.server_pool import ServerPool
+from repro_torch.serving.simulator import SimConfig, Simulation
 from repro_torch.serving.workload import Request
 
 __all__ = [
-    "ServeConfig", "ClusterBackend", "ServeSystem",
+    "ServeConfig", "Backend", "SimBackend", "ClusterBackend", "ServeSystem",
     "RequestHandle", "RequestState", "Event", "SLOClass", "INTERACTIVE",
     "BATCH", "TERMINAL_STATES", "build_system", "Request", "Summary",
-    "Observability",
+    "AutoscalePolicy", "Autoscaler", "ScaleAction", "Observability",
 ]
 
 
@@ -75,11 +83,14 @@ TERMINAL_STATES = frozenset({RequestState.FINISHED, RequestState.CANCELLED,
 
 @dataclasses.dataclass(frozen=True)
 class Event:
-    """One observable lifecycle step."""
+    """One observable lifecycle step, the same on both planes. Scaling
+    events have ``rid=-1`` and ``kind="scale:<action>"``."""
     time: float
     rid: int
     kind: str                    # queued|prefill|token|finished|cancelled
-    token: Optional[int] = None  # the token id of a "token" event
+    #                              |scale:<action> (autoscaler, rid=-1)
+    token: Optional[int] = None  # token id (cluster) / None (sim)
+    detail: Optional[str] = None  # scale events: the autoscaler's reason
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,9 +108,10 @@ BATCH = SLOClass("batch", 4 * metrics.TTFT_SLO, 4 * metrics.TPOT_SLO)
 # ------------------------------ ServeConfig ------------------------------ #
 @dataclasses.dataclass
 class ServeConfig:
-    """The one serving config: derives ``EngineConfig`` and
-    ``ClusterConfig`` (the reference's names and defaults)."""
-    # execution plane: "cluster" (the port's engines); "sim" is refused
+    """The one serving config: derives ``EngineConfig``, ``ClusterConfig``
+    and ``SimConfig`` (the reference's names and defaults, except ``hw``:
+    a nominal H100)."""
+    # execution plane: "cluster" (the port's engines) | "sim" (analytic)
     backend: str = "cluster"
     disaggregated: bool = False
     # disaggregated hook transport: "host" = per-hook host dispatch
@@ -131,31 +143,52 @@ class ServeConfig:
     # async prefetch staging + scheduler prefetch hints at arrival; None
     # follows layerwise_loading
     prefetch: Optional[bool] = None
-    # LoRA-Server replicas of the default server pool
+    # elastic provisioning (both planes): LoRA-Server replicas at start,
+    # and the online Algorithm-1 control loop when ``autoscale`` carries an
+    # AutoscalePolicy (None = static provisioning)
     server_replicas: int = 1
-    # elastic provisioning and the mesh plane: refused (not ported yet)
-    autoscale: Optional[object] = None
+    autoscale: Optional[AutoscalePolicy] = None
+    # analytic plane (sim backend) only
+    gpus_per_instance: int = 8
+    server_gpus: int = 8
+    placement_x: Optional[int] = None
+    duration: float = 300.0
+    overlap: bool = True
+    fast_kernels: bool = True
+    slow_kernel_eff_scale: float = 2.8  # generic-kernel penalty (ablations)
+    protocol: str = "push"
+    hw: Hardware = H100             # nominal data-sheet constants
+    lora_rank: Optional[int] = None
+    zipf_s: float = 1.2
+    n_adapters: int = 512
+    step_overhead: float = 0.004
+    # per-launch hook dispatch cost: prices the sim plane's launch tail
+    # and derates the autoscaler's TPOT budget on both planes (0 = off)
+    hook_launch_us: float = 0.0
+    # the mesh plane: refused (not ported yet)
     mesh_shape: Optional[Tuple[int, int]] = None
-    # rank-aware hook compute: each row's contraction bounded at its
-    # adapter's TRUE rank (bitwise-neutral on the tokens)
+    failures: Tuple[Tuple[float, int], ...] = ()
+    recoveries: Tuple[Tuple[float, int], ...] = ()
+    stragglers: Tuple[Tuple[float, int, float], ...] = ()
+    straggler_mitigation: bool = True
+    # rank-aware hook compute (both planes): each row's contraction bounded
+    # at its adapter's TRUE rank (bitwise-neutral on the tokens); the sim
+    # plane prices the batch's mean effective rank from ``adapter_ranks``
     rank_aware: bool = True
+    adapter_ranks: Optional[Tuple[int, ...]] = None
     # observability: True records per-request spans on a TimelineTracer
     # and feeds the metrics registry (ServeSystem.observability()); the
     # tokens are bitwise the same either way
     trace: bool = False
 
     def __post_init__(self):
-        if self.backend == "sim":
-            raise ValueError("backend='sim': the analytic plane (serving/"
-                             "simulator.py, with the cost model) is not "
-                             "ported yet (ROADMAP A6)")
-        if self.backend != "cluster":
+        if self.backend not in ("cluster", "sim"):
             raise ValueError(f"unknown backend {self.backend!r} "
-                             f"(expected 'cluster')")
+                             f"(expected 'sim' or 'cluster')")
         if self.transport not in ("host", "fused"):
             raise ValueError(f"unknown transport {self.transport!r} "
                              f"(expected 'host' or 'fused')")
-        refuse_unported(self.autoscale, self.mesh_shape)
+        refuse_unported(self.mesh_shape)
 
     # ------------------------- derivations --------------------------- #
     def engine_config(self) -> EngineConfig:
@@ -173,13 +206,192 @@ class ServeConfig:
             layerwise_loading=self.layerwise_loading,
             max_rounds=self.max_rounds, paged=self.paged,
             page_size=self.page_size, n_pages=self.n_pages,
-            prefill_chunk=self.prefill_chunk, transport=self.transport,
+            prefill_chunk=self.prefill_chunk, autoscale=self.autoscale,
+            transport=self.transport, hook_launch_us=self.hook_launch_us,
             store_host_bytes=self.store_host_bytes,
             store_dir=self.store_dir, disk_bw=self.disk_bw,
             prefetch=self.prefetch, rank_aware=self.rank_aware)
 
+    def sim_config(self) -> SimConfig:
+        return SimConfig(
+            n_instances=self.n_instances,
+            gpus_per_instance=self.gpus_per_instance,
+            max_batch=self.max_batch, duration=self.duration,
+            disaggregated=self.disaggregated, server_gpus=self.server_gpus,
+            server_cache_slots=self.adapter_cache_slots,
+            server_replicas=self.server_replicas,
+            placement_x=self.placement_x,
+            instance_cache_slots=self.adapter_cache_slots,
+            overlap=self.overlap,
+            layerwise_loading=self.layerwise_loading,
+            fast_kernels=self.fast_kernels,
+            slow_kernel_eff_scale=self.slow_kernel_eff_scale,
+            protocol=self.protocol,
+            policy=self.policy,
+            hw=dataclasses.replace(self.hw, disk_bw=self.disk_bw),
+            lora_rank=self.lora_rank,
+            zipf_s=self.zipf_s, n_adapters=self.n_adapters,
+            step_overhead=self.step_overhead, failures=self.failures,
+            recoveries=self.recoveries, stragglers=self.stragglers,
+            straggler_mitigation=self.straggler_mitigation,
+            autoscale=self.autoscale, transport=self.transport,
+            hook_launch_us=self.hook_launch_us,
+            store_host_bytes=self.store_host_bytes,
+            prefetch=self.prefetch,
+            adapter_ranks=self.adapter_ranks,
+            rank_aware=self.rank_aware)
 
-# ------------------------------- backend --------------------------------- #
+    # ------------------------ migration shims ------------------------ #
+    @classmethod
+    def from_sim(cls, sim: SimConfig, **overrides) -> "ServeConfig":
+        """Lift a ``SimConfig`` (e.g. the S-LoRA presets) into the front
+        door."""
+        slots = sim.server_cache_slots if sim.disaggregated \
+            else sim.instance_cache_slots
+        kw = dict(
+            backend="sim", disaggregated=sim.disaggregated,
+            n_instances=sim.n_instances, max_batch=sim.max_batch,
+            adapter_cache_slots=slots, policy=sim.policy,
+            gpus_per_instance=sim.gpus_per_instance,
+            server_gpus=sim.server_gpus,
+            server_replicas=sim.server_replicas,
+            placement_x=sim.placement_x,
+            duration=sim.duration, overlap=sim.overlap,
+            layerwise_loading=sim.layerwise_loading,
+            fast_kernels=sim.fast_kernels,
+            slow_kernel_eff_scale=sim.slow_kernel_eff_scale,
+            protocol=sim.protocol,
+            hw=sim.hw, lora_rank=sim.lora_rank, zipf_s=sim.zipf_s,
+            n_adapters=sim.n_adapters, step_overhead=sim.step_overhead,
+            failures=sim.failures, recoveries=sim.recoveries,
+            stragglers=sim.stragglers,
+            straggler_mitigation=sim.straggler_mitigation,
+            autoscale=sim.autoscale, transport=sim.transport,
+            hook_launch_us=sim.hook_launch_us,
+            store_host_bytes=sim.store_host_bytes,
+            disk_bw=sim.hw.disk_bw, prefetch=sim.prefetch,
+            adapter_ranks=sim.adapter_ranks, rank_aware=sim.rank_aware)
+        kw.update(overrides)
+        return cls(**kw)
+
+    @classmethod
+    def from_cluster(cls, ccfg: ClusterConfig, **overrides) -> "ServeConfig":
+        """Lift a ``ClusterConfig`` into the front door."""
+        kw = dict(
+            backend="cluster", disaggregated=ccfg.disaggregated,
+            n_instances=ccfg.n_instances, max_batch=ccfg.n_slots,
+            max_len=ccfg.max_len,
+            adapter_cache_slots=ccfg.adapter_cache_slots,
+            policy=ccfg.policy, step_time=ccfg.step_time,
+            host_bw=ccfg.host_bw, layerwise_loading=ccfg.layerwise_loading,
+            max_rounds=ccfg.max_rounds, paged=ccfg.paged,
+            page_size=ccfg.page_size, n_pages=ccfg.n_pages,
+            prefill_chunk=ccfg.prefill_chunk, autoscale=ccfg.autoscale,
+            transport=ccfg.transport, hook_launch_us=ccfg.hook_launch_us,
+            mesh_shape=ccfg.mesh_shape,
+            store_host_bytes=ccfg.store_host_bytes,
+            store_dir=ccfg.store_dir, disk_bw=ccfg.disk_bw,
+            prefetch=ccfg.prefetch, rank_aware=ccfg.rank_aware)
+        kw.update(overrides)
+        return cls(**kw)
+
+
+# ------------------------------- backends -------------------------------- #
+class Backend(Protocol):
+    """An execution plane the front door drives: takes requests, advances
+    virtual time in steps, emits lifecycle ``Event``s, and can release an
+    in-flight request."""
+
+    def submit(self, req: Request) -> None: ...
+
+    def cancel(self, rid: int, at: Optional[float] = None) -> List[Event]: ...
+
+    def step(self) -> List[Event]: ...
+
+    def idle(self) -> bool: ...
+
+    @property
+    def now(self) -> float: ...
+
+    def requests(self) -> List[Request]: ...
+
+    def kv_stats(self) -> Dict: ...
+
+    def cache_stats(self) -> Dict: ...
+
+    def transport_stats(self) -> Dict: ...
+
+    def default_duration(self) -> float: ...
+
+    def scale_history(self) -> List[Dict]: ...
+
+    def load_adapter(self, adapter_id: int, tensors=None, *,
+                     alpha: Optional[float] = None) -> Optional[int]: ...
+
+    def unload_adapter(self, adapter_id: int) -> None: ...
+
+    def close(self) -> None: ...
+
+
+class SimBackend:
+    """The analytic discrete-event plane (wraps ``simulator.Simulation``).
+    Token events carry ``token=None``: this plane models time (TTFT, TPOT,
+    SLO attainment at cluster scale), not token ids."""
+
+    def __init__(self, model, cfg: ServeConfig, tracer=None):
+        self.sim = Simulation(model, cfg.sim_config(), tracer=tracer)
+        self._duration = cfg.duration
+
+    def submit(self, req: Request) -> None:
+        self.sim.submit(req)
+
+    def cancel(self, rid: int, at: Optional[float] = None) -> List[Event]:
+        self.sim.cancel(rid, at=at)
+        return []                   # the CANCELLED event arrives via step()
+
+    def step(self) -> List[Event]:
+        return [Event(t, rid, kind) for t, rid, kind in self.sim.step()]
+
+    def idle(self) -> bool:
+        return self.sim.idle()
+
+    @property
+    def now(self) -> float:
+        return self.sim.now
+
+    def requests(self) -> List[Request]:
+        return list(self.sim.requests)
+
+    def kv_stats(self) -> Dict:
+        return {}                   # the analytic plane holds no KV
+
+    def cache_stats(self) -> Dict:
+        return {"caches": {k: c.stats() for k, c in self.sim.caches.items()},
+                "store": self.sim.store.stats() if self.sim.store else {}}
+
+    def transport_stats(self) -> Dict:
+        return self.sim.transport_stats()   # modelled launch counts
+
+    def default_duration(self) -> float:
+        return self._duration
+
+    def scale_history(self) -> List[Dict]:
+        sc = self.sim._scaler
+        return list(sc.history) if sc is not None else []
+
+    def load_adapter(self, adapter_id: int, tensors=None, *,
+                     alpha: Optional[float] = None) -> Optional[int]:
+        # the analytic plane has no tensors to check: only the id joins
+        self.sim.load_adapter(adapter_id)
+        return None
+
+    def unload_adapter(self, adapter_id: int) -> None:
+        self.sim.unload_adapter(adapter_id)
+
+    def close(self) -> None:
+        pass                        # nothing real to tear down
+
+
 def _device_of_pool(pool):
     return next(iter(pool.tensors.values()))["A"].device
 
@@ -202,11 +414,15 @@ class ClusterBackend:
 
     @staticmethod
     def _make_server_pool(model, cfg: ServeConfig, pool) -> ServerPool:
-        """The pool of single-device LoRA-Server replicas, each of
-        ``adapter_cache_slots`` slots at the pool's rank, on the pool's
-        device (the slots take the adapters' true ranks at insert)."""
-        return ServerPool.build(model, pool,
-                                cache_slots=cfg.adapter_cache_slots,
+        """The pool of single-device LoRA-Server replicas at the pool's
+        rank, on the pool's device (the slots take the adapters' true ranks
+        at insert): ``adapter_cache_slots`` slots each, or, when
+        autoscaling, enough for the policy's cache ceiling (at most one
+        slot per adapter of the pool)."""
+        slots = cfg.adapter_cache_slots
+        if cfg.autoscale is not None:
+            slots = max(slots, min(cfg.autoscale.max_cache_slots, pool.n))
+        return ServerPool.build(model, pool, cache_slots=slots,
                                 n_replicas=max(cfg.server_replicas, 1),
                                 device=_device_of_pool(pool))
 
@@ -244,6 +460,8 @@ class ClusterBackend:
         for t, rid in due:
             evs.extend(self.cancel(rid))
         rep = self.cluster.step_round()
+        evs.extend(Event(rep["now"], -1, f"scale:{a.kind}", detail=a.reason)
+                   for a in rep["scale"])
         evs.extend(Event(rep["now"], r.rid, "queued")
                    for r in rep["enqueued"])
         evs.extend(Event(rep["now"], r.rid, "prefill")
@@ -276,6 +494,9 @@ class ClusterBackend:
     def default_duration(self) -> float:
         return max(self.cluster.rnd, 1) * self.step_time
 
+    def scale_history(self) -> List[Dict]:
+        return self.cluster.scale_history()
+
     def load_adapter(self, adapter_id: int, tensors=None, *,
                      alpha: Optional[float] = None) -> Optional[int]:
         if tensors is None:
@@ -304,10 +525,11 @@ class RequestHandle:
         self.rid = request.rid
         self.slo_class = slo_class
         self.state = RequestState.QUEUED
-        self.tokens: List[int] = []
-        self.n_tokens = 0
+        self.tokens: List[int] = []          # token ids (cluster plane)
+        self.n_tokens = 0                    # lifecycle count (both planes)
         self.events: List[Event] = []
         self.error: Optional[str] = None
+        self._stream: List[Optional[int]] = []
         self._cbs: List[Callable[["RequestHandle", Optional[int]], None]] = []
 
     @property
@@ -328,14 +550,14 @@ class RequestHandle:
             self._system.step()
         return self.tokens
 
-    def __iter__(self) -> Iterator[int]:
-        """Stream tokens as they are decoded, pumping the system between
-        yields, while OTHER requests are admitted and evicted around this
-        one."""
+    def __iter__(self) -> Iterator[Optional[int]]:
+        """Stream tokens as they are decoded (None on the analytic plane),
+        pumping the system between yields, while OTHER requests are
+        admitted and evicted around this one."""
         sent = 0
         while True:
-            while sent < len(self.tokens):
-                yield self.tokens[sent]
+            while sent < len(self._stream):
+                yield self._stream[sent]
                 sent += 1
             if self.done or self._system.backend.idle():
                 return
@@ -367,12 +589,18 @@ class RequestHandle:
 
     def _apply(self, ev: Event) -> None:
         self.events.append(ev)
-        if ev.kind == "prefill":
+        if ev.kind == "queued":
+            if self.state == RequestState.QUEUED:
+                return               # submit() already set it
+            self.state = RequestState.QUEUED   # requeued after a failure
+        elif ev.kind == "prefill":
             self.state = RequestState.PREFILLING
         elif ev.kind == "token":
             self.state = RequestState.DECODING
             self.n_tokens += 1
-            self.tokens.append(ev.token)
+            self._stream.append(ev.token)
+            if ev.token is not None:
+                self.tokens.append(ev.token)
             for cb in self._cbs:
                 cb(self, ev.token)
         elif ev.kind == "finished":
@@ -394,12 +622,19 @@ class ServeSystem:
         # trace=False wires the zero-cost NULL_TRACER
         self.tracer = TimelineTracer() if cfg.trace else NULL_TRACER
         self._hub = ObservabilityHub(self.tracer)
-        if params is None or pool is None:
-            raise ValueError("backend='cluster' runs the real model: pass "
-                             "params= and pool=")
-        self.backend = ClusterBackend(model, params, cfg, pool,
-                                      tracer=self.tracer)
+        if cfg.backend == "sim":
+            self.backend: Backend = SimBackend(model, cfg, tracer=self.tracer)
+        else:
+            if params is None or pool is None:
+                raise ValueError("backend='cluster' runs the real model: "
+                                 "pass params= and pool= (or use "
+                                 "backend='sim' for the analytic plane)")
+            self.backend = ClusterBackend(model, params, cfg, pool,
+                                          tracer=self.tracer)
         self.handles: Dict[int, RequestHandle] = {}
+        # the scale:* events also land here (and, traced, on the hub's
+        # "control" track)
+        self.scale_events: List[Event] = []
         self._rid = itertools.count()
 
     # --------------------------- submission -------------------------- #
@@ -466,6 +701,9 @@ class ServeSystem:
         for ev in evs:
             if traced:
                 self._hub.on_event(ev)
+            if ev.kind.startswith("scale"):
+                self.scale_events.append(ev)
+                continue
             h = self.handles.get(ev.rid)
             if h is not None:
                 h._apply(ev)
@@ -524,6 +762,11 @@ class ServeSystem:
         programs, table uploads, per-step rate); empty when coupled."""
         return self.backend.transport_stats()
 
+    def scale_history(self) -> List[Dict]:
+        """The autoscaler's per-control-tick record (rate, LB, targets,
+        actions); empty when static."""
+        return self.backend.scale_history()
+
     def summary(self, duration: Optional[float] = None,
                 slo_class: Optional[SLOClass] = None,
                 warmup: float = 0.1) -> Summary:
@@ -554,8 +797,9 @@ class ServeSystem:
 
 def build_system(cfg: ServeConfig, model, *, params=None,
                  pool=None) -> ServeSystem:
-    """Build the serving front door: coupled/disaggregated x dense/paged
-    KV x host/fused transport. The disaggregated plane's LoRA-Server pool
-    is built from ``cfg`` (``server_replicas``, ``adapter_cache_slots``)
-    on the device of ``pool``."""
+    """Build the serving front door: sim/cluster x coupled/disaggregated x
+    dense/paged KV x host/fused transport x static/elastic. The cluster
+    plane's LoRA-Server pool is built from ``cfg`` (``server_replicas``,
+    ``adapter_cache_slots``, the autoscaler's cache ceiling) on the device
+    of ``pool``."""
     return ServeSystem(cfg, model, params=params, pool=pool)

@@ -17,13 +17,21 @@ tokens come from the model on the device the weights live on.
                            the adapter store; any instance serves any
                            request, all through one transport plane
 
+Elastic provisioning: ``ClusterConfig.autoscale`` attaches an
+``Autoscaler`` (paper §4.2 / Algorithm 1 run online). At each round
+boundary, on the host and before the round's decode steps, it may resize
+the adapter cache, add or remove server replicas, or add or drain LLM
+instances: the instance set is a dict keyed by iid, and a drained instance
+finishes its in-flight work, then retires and releases its KV (and the
+fused transport forgets its graphs). Scaling never changes a request's
+tokens: greedy decoding depends only on the request's own prompt.
+
 Requests are admitted at decode-step boundaries into a RUNNING batch
 (continuous batching) and evicted the step they finish; greedy decoding is
 deterministic, so for the same workload the planes give the same tokens
 per request.
 
-Not ported yet, and refused with a ValueError: the autoscaler
-(``ClusterConfig.autoscale``; ROADMAP A6) and the mesh-sharded plane
+Not ported yet, and refused with a ValueError: the mesh-sharded plane
 (``mesh_shape``; ROADMAP A8).
 """
 from __future__ import annotations
@@ -38,6 +46,8 @@ from repro_torch.core.adapter import AdapterPool
 from repro_torch.models.cache import pages_for
 from repro_torch.obs.clock import wall_time
 from repro_torch.obs.trace import NULL_TRACER, Tracer
+from repro_torch.serving.autoscaler import Autoscaler, AutoscalePolicy, \
+    ScaleAction, converge_replicas, pick_drain_candidate
 from repro_torch.serving.cache import LoRACache
 from repro_torch.serving.engine import Engine, EngineConfig
 from repro_torch.serving.scheduler import InstanceState, Scheduler, \
@@ -48,12 +58,8 @@ from repro_torch.store import AdapterStore
 from repro_torch.transport import make_transport
 
 
-def refuse_unported(autoscale, mesh_shape) -> None:
-    """The options whose modules the port does not have yet."""
-    if autoscale is not None:
-        raise ValueError("autoscale: the autoscaler (serving/autoscaler.py, "
-                         "with the provisioning model) is not ported yet "
-                         "(ROADMAP A6)")
+def refuse_unported(mesh_shape) -> None:
+    """The option whose modules the port does not have yet."""
     if mesh_shape is not None:
         raise ValueError("mesh_shape: the mesh-sharded plane is not ported "
                          "yet (ROADMAP A8)")
@@ -79,11 +85,14 @@ class ClusterConfig:
     page_size: int = 8
     n_pages: Optional[int] = None
     prefill_chunk: int = 16
-    # elastic provisioning (refused: not ported yet)
-    autoscale: Optional[object] = None
+    # elastic provisioning: run Algorithm 1 online at round boundaries
+    autoscale: Optional[AutoscalePolicy] = None
     # disaggregated hook transport plane: "host" (per-hook host dispatch)
     # or "fused" (one CUDA graph a decode step; see transport/)
     transport: str = "host"
+    # per-launch cost fed to the autoscaler's TPOT-budget derate (the
+    # plane measures its dispatches but models their cost; 0 = no derate)
+    hook_launch_us: float = 0.0
     # mesh-sharded execution plane (refused: not ported yet)
     mesh_shape: Optional[Tuple[int, int]] = None
     # hierarchical adapter store (disaggregated only): host-RAM tier byte
@@ -100,7 +109,7 @@ class ClusterConfig:
     rank_aware: bool = True
 
     def __post_init__(self):
-        refuse_unported(self.autoscale, self.mesh_shape)
+        refuse_unported(self.mesh_shape)
 
     @property
     def prefetch_on(self) -> bool:
@@ -117,7 +126,8 @@ def _device_of(params):
 
 class Cluster:
     """N client instances against one adapter plane (a pool of server
-    replicas, or per-instance caches)."""
+    replicas, or per-instance caches); the instance set is elastic when
+    autoscaling."""
 
     def __init__(self, cfg, params, ccfg: ClusterConfig, pool: AdapterPool,
                  server_pool: Optional[ServerPool] = None,
@@ -125,7 +135,6 @@ class Cluster:
         # span tracer: virtual round-clock timestamps, wall clock only as
         # span attributes. NULL_TRACER = record nothing.
         self.tracer = tracer if tracer is not None else NULL_TRACER
-        self.device = _device_of(params)
         if ccfg.disaggregated:
             if server_pool is None:
                 raise ValueError(
@@ -136,6 +145,7 @@ class Cluster:
                 raise ValueError(
                     f"ServerPool replica capacity {server_pool.min_slots} "
                     f"< adapter_cache_slots={ccfg.adapter_cache_slots}")
+        self.device = _device_of(params)
         self.cfg = cfg
         self.ccfg = ccfg
         self.pool = pool
@@ -166,6 +176,9 @@ class Cluster:
         self.sched: Optional[Scheduler] = None
         self._instances: Dict[int, InstanceState] = {}
         self._caches: Dict[int, LoRACache] = {}
+        self._cache_slots = ccfg.adapter_cache_slots
+        self._scaler: Optional[Autoscaler] = None
+        self._next_iid = ccfg.n_instances
         self.tokens: Dict[int, List[int]] = {}
         self._reqs: Dict[int, Request] = {}
         self._pending: List[Request] = []
@@ -245,6 +258,8 @@ class Cluster:
                            for i in range(ccfg.n_instances)}
         self.engines = {i: self._new_engine()
                         for i in range(ccfg.n_instances)}
+        self._next_iid = ccfg.n_instances
+        self._cache_slots = ccfg.adapter_cache_slots
         if ccfg.disaggregated:
             self._caches = {-1: self._mk_cache()}
             owner = None
@@ -276,6 +291,19 @@ class Cluster:
                                owner, policy=ccfg.policy,
                                shared_cache=ccfg.disaggregated,
                                kv_pages=kv_pages, kv_page_need=kv_need)
+        self._scaler = None
+        if ccfg.autoscale is not None:
+            pol = ccfg.autoscale
+            if self.server_pool is not None and \
+                    pol.max_cache_slots > self.server_pool.min_slots:
+                # cap the policy at the pool's slot capacity, or the control
+                # loop would chase an unreachable cache target every tick
+                pol = dataclasses.replace(
+                    pol, max_cache_slots=self.server_pool.min_slots)
+            self._scaler = Autoscaler(pol, self.cfg, max_batch=ccfg.n_slots,
+                                      has_server=self.server_pool is not None,
+                                      transport=ccfg.transport,
+                                      hook_launch_us=ccfg.hook_launch_us)
         self.tokens = {}
         self._reqs = {}
         self._pending = []
@@ -283,7 +311,7 @@ class Cluster:
         self.rnd = 0
 
     def _mk_cache(self) -> LoRACache:
-        return LoRACache(self.ccfg.adapter_cache_slots,
+        return LoRACache(self._cache_slots,
                          self.pool.bytes_per_adapter(), self.cfg.n_layers,
                          host_bw=self.ccfg.host_bw,
                          layerwise=self.ccfg.layerwise_loading,
@@ -340,20 +368,125 @@ class Cluster:
                 break
         return True
 
+    # ------------------------- elastic control ------------------------- #
+    def _n_admitting(self) -> int:
+        return sum(1 for i in self._instances.values()
+                   if i.alive and not i.draining)
+
+    def _run_control(self, now: float) -> List[ScaleAction]:
+        """One autoscaler tick (when due): its inputs from the scheduler,
+        the pool, the store and the transport's rank telemetry; its actions
+        applied at once, on the host, before the round's decode steps."""
+        if self._scaler is None or not self._scaler.due(now):
+            return []
+        in_flight = sum(i.batch for i in self._instances.values()
+                        if i.alive)
+        mean_rank = None
+        if self.transport is not None and self.ccfg.rank_aware:
+            observed = self.transport.stats.mean_active_rank()
+            mean_rank = observed if observed > 0 else None
+        actions = self._scaler.control(
+            now, in_flight=in_flight, queued=self.sched.queue_len(),
+            cache_slots=self._cache_slots,
+            n_instances=self._n_admitting(),
+            n_replicas=self.server_pool.n_replicas
+            if self.server_pool else 1,
+            host_hit_rate=self.store.host_hit_rate()
+            if self.store else None,
+            miss_cost_ratio=self.store.miss_cost_ratio()
+            if self.store else 1.0,
+            mean_active_rank=mean_rank)
+        for act in actions:
+            self._apply_action(act, now)
+        return actions
+
+    def _apply_action(self, act: ScaleAction, now: float) -> None:
+        pol = self._scaler.policy if self._scaler else AutoscalePolicy()
+        if act.kind == "resize_cache":
+            target = act.target
+            if self.server_pool is not None:
+                # the replicas' slot pools bound the cache (open() already
+                # caps the policy at them)
+                target = min(target, self.server_pool.min_slots)
+            self._cache_slots = max(target, 1)
+            for c in self._caches.values():
+                c.resize(self._cache_slots, now)
+            if self.server_pool is not None:
+                # flush a shrink's evictions into the replicas' slot tables
+                # now, not at the next admission: on a quiet stream the
+                # freed adapters' weights would stay resident
+                self._sync_pool()
+        elif act.kind == "add_instance":
+            while self._n_admitting() < min(act.target, pol.max_instances):
+                self._add_instance(now)
+        elif act.kind == "drain_instance":
+            floor = max(act.target, pol.min_instances, 1)
+            while self._n_admitting() > floor:
+                cand = pick_drain_candidate(self._instances.values(),
+                                            self.sched.queues)
+                self.sched.drain_instance(cand.iid, now)
+        elif act.kind in ("add_replica", "remove_replica"):
+            if self.server_pool is None:
+                return              # the coupled plane has no replicas
+            if converge_replicas(self.server_pool, act.target):
+                # re-home now: running requests' adapters must sit on their
+                # new affinity replicas before the next decode step
+                self._sync_pool()
+
+    def _add_instance(self, now: float) -> int:
+        iid = self._next_iid
+        self._next_iid += 1
+        inst = InstanceState(iid, self.ccfg.n_slots)
+        self._instances[iid] = inst
+        eng = self._new_engine()
+        self.engines[iid] = eng
+        cache = None if self.ccfg.disaggregated else self._mk_cache()
+        pop = None
+        if not self.ccfg.disaggregated and self._scaler is not None:
+            pop = self._scaler.popularity(self.pool.n)
+        self.sched.add_instance(
+            inst, cache=cache, popularity=pop,
+            kv_budget=eng.total_pages if self.ccfg.paged else None, now=now)
+        return iid
+
+    def _retire_drained(self) -> List[int]:
+        """Remove drained-dry instances entirely: their engine releases its
+        KV (and the fused transport forgets the engine's graphs), and the
+        instance records leave the scheduler, so an elastic session that
+        cycles capacity leaks neither memory nor per-round scans (iids are
+        never reused)."""
+        retired = []
+        for iid, inst in self._instances.items():
+            if (inst.draining and inst.alive and inst.batch == 0
+                    and not self.engines[iid].active_rids()):
+                inst.alive = False
+                self.engines[iid].release_kv()
+                retired.append(iid)
+        for iid in retired:
+            del self.engines[iid]
+            del self._instances[iid]
+            self.sched.instances.pop(iid, None)
+            self.sched.queues.pop(iid, None)
+            if self.sched.kv_pages is not None:
+                self.sched.kv_pages.pop(iid, None)
+            self._caches.pop(iid, None)
+        return retired
+
     # ------------------------------------------------------------------ #
     def step_round(self) -> Dict:
-        """Advance ONE global decode round: enqueue due arrivals, admit at
-        the step boundary (least-loaded instance first), run one engine
-        step per busy instance, retire finishers. Returns the round report:
-        {"now", "step_end", "enqueued", "admitted", "tokens": {rid: tok},
-        "finished", "scale", "idle"} (``scale`` stays empty: no
-        autoscaler)."""
+        """Advance ONE global decode round: run the autoscaler's control
+        loop (if attached), enqueue due arrivals, admit at the step
+        boundary (least-loaded instance first), run one engine step per
+        busy instance, retire finishers and drained-dry instances. Returns
+        the round report: {"now", "step_end", "enqueued", "admitted",
+        "tokens": {rid: tok}, "finished", "scale", "idle"}."""
         ccfg = self.ccfg
         now = self.now
         if self.store is not None:
             # land async-staged adapters at the round boundary, before any
             # sync of this round consumes them (main thread only)
             self.store.drain_prefetched()
+        scale_actions = self._run_control(now)
         enqueued: List[Request] = []
         while self._pi < len(self._pending) and \
                 self._pending[self._pi].arrival <= now:
@@ -371,6 +504,8 @@ class Cluster:
                         self.tracer.instant(
                             "store", f"prefetch a{r.adapter_id}", now,
                             rid=r.rid, adapter_id=r.adapter_id)
+                if self._scaler is not None:
+                    self._scaler.observe_arrival(now, r.adapter_id)
                 enqueued.append(r)
         # admission at the step boundary, least-loaded instance first
         admitted_all: List[Request] = []
@@ -414,6 +549,10 @@ class Cluster:
             for r in self.sched.step_complete(iid, step_end):
                 eng.evict_request(r.rid)
                 finished.append(r)
+                if self._scaler is not None:
+                    self._scaler.observe_finish(step_end,
+                                                r.finish - r.arrival)
+        self._retire_drained()
         self.rnd += 1
         if self.tracer.enabled:
             self.tracer.counter("sched", "queue_depth", step_end,
@@ -422,7 +561,7 @@ class Cluster:
                 and self.sched.queue_len() == 0)
         return {"now": now, "step_end": step_end, "enqueued": enqueued,
                 "admitted": admitted_all, "tokens": round_tokens,
-                "finished": finished, "idle": idle}
+                "finished": finished, "scale": scale_actions, "idle": idle}
 
     def idle(self) -> bool:
         """No running work, no queued work, no pending arrivals."""
@@ -491,6 +630,10 @@ class Cluster:
         bills the one shared transport). Empty on the coupled plane."""
         return self.transport.stats.as_dict() if self.transport else {}
 
+    def scale_history(self) -> List[Dict]:
+        """The autoscaler's per-control-tick record (empty when static)."""
+        return list(self._scaler.history) if self._scaler else []
+
     # ------------------------------------------------------------------ #
     def run(self, requests: Sequence[Request]) -> Dict:
         """Serve ``requests`` to completion (or ``max_rounds``): returns
@@ -516,4 +659,6 @@ class Cluster:
                "rounds": self.rnd, "cache_stats": self.cache_stats()}
         if self.ccfg.paged:
             out["kv_stats"] = self.kv_stats()
+        if self._scaler is not None:
+            out["scale_history"] = self.scale_history()
         return out

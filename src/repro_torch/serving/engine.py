@@ -261,6 +261,8 @@ class Engine:
         if self._by_rid:
             raise RuntimeError(
                 f"release_kv with {len(self._by_rid)} requests resident")
+        if self.transport is not None and self._k is not None:
+            self.transport.forget_kv(self._k, self._v)
         self._k = self._v = None
         if self.ecfg.paged:
             self._bt[:] = -1

@@ -1,5 +1,5 @@
 """Elastic LoRA-Server pool: N server replicas behind one interface, the
-counterpart of ``repro.serving.server_pool`` on the real plane.
+counterpart of ``repro.serving.server_pool``.
 
   adapter-affinity routing   : adapter ``a`` lives on (and is computed by)
                                replica ``a % n_replicas`` only, so replicas
@@ -26,8 +26,10 @@ decides from the dispatch rows' ids; a decode step is dropless
 (T * top_k <= 4096), so every token's adapter has a dispatch row and the
 two rules engage the same replicas.
 
-The reference's analytic plane (``ServerPool.analytic``, slot tables
-without weights for the simulator) is not ported yet.
+Replicas are real ``LoRAServer``s on the cluster plane (built by a factory
+so the autoscaler can add them at run time) or slot tables without weights
+on the analytic plane (``ServerPool.analytic``, the simulator's): residency
+sync, routing and the consistency invariant run the same code on both.
 """
 from __future__ import annotations
 
@@ -37,6 +39,50 @@ import numpy as np
 import torch
 
 from repro_torch.serving.cache import LoRACache
+
+
+class AnalyticReplica:
+    """Slot table of a simulated server replica (no weights, no compute):
+    the analytic plane's stand-in, so residency sync and the consistency
+    invariant run the same code as on ``LoRAServer``. Its capacity ``M``
+    is advisory: it mirrors whatever the shared cache holds, which can
+    exceed a shrunken target while pinned adapters drain (the
+    ``LoRACache`` enforces capacity, as on the real plane)."""
+
+    def __init__(self, cache_slots: int):
+        self.M = cache_slots
+        self.slot_of: Dict[int, int] = {}
+        # adapter id -> TRUE rank (LoRAServer.slot_ranks' counterpart,
+        # keyed by id: there is no slot pool)
+        self.ranks: Dict[int, int] = {}
+        self._next_slot = 0
+
+    def is_resident(self, adapter_id: int) -> bool:
+        return adapter_id in self.slot_of
+
+    def insert(self, adapter_id: int, tensors=None,
+               rank: Optional[int] = None) -> int:
+        if adapter_id not in self.slot_of:
+            self.slot_of[adapter_id] = self._next_slot
+            self._next_slot += 1
+        if rank:
+            self.ranks[adapter_id] = int(rank)
+        return self.slot_of[adapter_id]
+
+    def evict(self, adapter_id: int) -> None:
+        del self.slot_of[adapter_id]
+        self.ranks.pop(adapter_id, None)
+
+    def true_rank(self, adapter_id: int) -> int:
+        """TRUE rank of a resident adapter (0 = not resident / unknown)."""
+        if adapter_id not in self.slot_of:
+            return 0
+        return self.ranks.get(adapter_id, 0)
+
+    def resize(self, cache_slots: int) -> None:
+        """Follow the autoscaler's cache target (a slot table holds no
+        weights; the real plane caps the policy at its pools instead)."""
+        self.M = cache_slots
 
 
 class ServerPool:
@@ -88,6 +134,13 @@ class ServerPool:
 
         return cls([factory() for _ in range(n_replicas)], factory=factory)
 
+    @classmethod
+    def analytic(cls, n_replicas: int, cache_slots: int) -> "ServerPool":
+        """Sim-plane pool: slot tables only (the step-time model prices the
+        replicas' capacity; see ``simulator.disagg_stall_seconds``)."""
+        return cls([AnalyticReplica(cache_slots) for _ in range(n_replicas)],
+                   factory=lambda: AnalyticReplica(cache_slots))
+
     # ------------------------------------------------------------------ #
     # shape                                                               #
     # ------------------------------------------------------------------ #
@@ -113,7 +166,8 @@ class ServerPool:
         """Toggle true-rank compute on every replica (and later ones)."""
         self.rank_aware = bool(flag)
         for rep in self.replicas:
-            rep.rank_aware = self.rank_aware
+            if hasattr(rep, "rank_aware"):
+                rep.rank_aware = self.rank_aware
 
     def true_rank(self, adapter_id: int) -> int:
         """TRUE rank of a resident adapter via its home (0 = absent)."""
@@ -122,8 +176,9 @@ class ServerPool:
 
     @property
     def pool_rank(self) -> int:
-        """Padded (pool) rank of the replicas' slot pools."""
-        return max(rep.r for rep in self.replicas)
+        """Padded (pool) rank of the replicas' slot pools (0 on analytic
+        replicas, which have none)."""
+        return max(getattr(rep, "r", 0) for rep in self.replicas)
 
     # ------------------------------------------------------------------ #
     # elasticity                                                          #
@@ -133,7 +188,8 @@ class ServerPool:
         if self._factory is None:
             raise RuntimeError("ServerPool built without a replica factory")
         rep = self._factory()
-        rep.rank_aware = self.rank_aware
+        if hasattr(rep, "rank_aware"):
+            rep.rank_aware = self.rank_aware
         self.replicas.append(rep)
         self._full_sync = True
         self.version += 1
@@ -150,10 +206,14 @@ class ServerPool:
         return rep
 
     def resize_slots(self, cache_slots: int) -> None:
-        """Follow an adapter-cache resize: preallocated slot pools keep
-        their size (the caller clamps the cache to ``min_slots``), but the
-        next sync is forced full, since a resize can re-home residency and
-        a stale slot table would route rows to the wrong slot."""
+        """Follow an adapter-cache resize: analytic slot tables take the
+        new size, preallocated slot pools keep theirs (the caller clamps
+        the cache to ``min_slots``). Either way the next sync is forced
+        full: a resize can re-home residency, and a stale slot table would
+        route rows to the wrong slot."""
+        for rep in self.replicas:
+            if hasattr(rep, "resize"):
+                rep.resize(cache_slots)
         self._full_sync = True
         self.version += 1
 

@@ -8,8 +8,9 @@ counterpart of ``repro.store.store.AdapterStore``.
     disk           DiskTier: one safetensors-style file per adapter
 
 ``AdapterStore`` backs the cluster plane: real bytes, a real prefetch
-thread, and the dynamic register/unregister lifecycle. The reference's
-``AnalyticStore`` (the sim plane's tensor-free twin) is not ported yet.
+thread, and the dynamic register/unregister lifecycle. ``AnalyticStore``
+is its tensor-free twin on the sim plane: the same two-tier LRU accounting
+and miss pricing, with no bytes, files or threads.
 
 Pricing: a host-tier hit costs the host -> device upload ``b / host_bw``;
 a disk-tier hit also pays the disk read ``b / disk_bw`` first. Bytes are
@@ -221,6 +222,28 @@ class AdapterStore:
             t += _xfer_seconds(b, self.disk_bw)
         return t
 
+    def host_hit_rate(self) -> Optional[float]:
+        """Fraction of tier lookups served from host RAM (None before any
+        lookup: the autoscaler then keeps the cold-start model)."""
+        n = self.host_hits + self.disk_hits
+        if n == 0:
+            return None
+        return self.host_hits / n
+
+    def miss_cost_ratio(self) -> float:
+        """c_host / c_disk for a mean-sized adapter, in (0, 1]: how much
+        cheaper a host-tier hit is than a disk-tier hit. 1.0 when loading
+        is free (non-finite bandwidths) or nothing is registered."""
+        with self._lock:
+            if not self._bytes:
+                return 1.0
+            b = sum(self._bytes.values()) / len(self._bytes)
+        c_host = _xfer_seconds(b, self.host_bw)
+        c_disk = c_host + _xfer_seconds(b, self.disk_bw)
+        if c_disk <= 0.0 or c_host <= 0.0:
+            return 1.0
+        return min(c_host / c_disk, 1.0)
+
     # -- prefetch -----------------------------------------------------
 
     def prefetch(self, adapter_id: int) -> bool:
@@ -276,3 +299,134 @@ class AdapterStore:
         self._prefetcher.close()
         self.disk.close()
 
+
+
+class AnalyticStore:
+    """Tensor-free twin of ``AdapterStore`` for the sim plane: the same
+    two-tier LRU accounting and miss pricing over per-adapter byte sizes
+    (``adapter_bytes_fn(aid)``), with no real bytes, files or threads."""
+
+    def __init__(self, adapter_bytes_fn, n_adapters: int, *,
+                 host_bytes: Optional[int] = None,
+                 host_bw: float = 50e9, disk_bw: float = 5e9):
+        self._bytes_fn = adapter_bytes_fn
+        self.host_bw = float(host_bw)
+        self.disk_bw = float(disk_bw)
+        self.host_budget = host_bytes
+        self._ids: set = set()                # every registered adapter id
+        self._resident: Dict[int, int] = {}   # aid -> bytes, LRU order
+        # aid -> virtual time the async disk -> host staging completes (the
+        # analytic analogue of the real store's prefetch worker)
+        self._staging: Dict[int, float] = {}
+        self.host_used = 0
+        self.host_hits = 0
+        self.disk_hits = 0
+        self.demotions = 0
+        self.prefetch_requests = 0
+        self.staged_hits = 0
+        for aid in range(n_adapters):
+            self.register(aid)
+
+    @property
+    def n_adapters(self) -> int:
+        return len(self._ids)
+
+    def has(self, adapter_id: int) -> bool:
+        return int(adapter_id) in self._ids
+
+    def register(self, adapter_id: int) -> None:
+        self._ids.add(int(adapter_id))
+        self._touch(int(adapter_id), count=False)
+
+    def unregister(self, adapter_id: int) -> None:
+        self._ids.discard(int(adapter_id))
+        self._staging.pop(int(adapter_id), None)
+        b = self._resident.pop(int(adapter_id), None)
+        if b is not None:
+            self.host_used -= b
+
+    def _touch(self, adapter_id: int, count: bool = True) -> bool:
+        """LRU-touch; admits on a miss, demoting over budget. Returns
+        whether it was a host hit."""
+        b = self._resident.pop(adapter_id, None)
+        hit = b is not None
+        if not hit:
+            b = int(self._bytes_fn(adapter_id))
+            self.host_used += b
+        self._resident[adapter_id] = b
+        if count:
+            if hit:
+                self.host_hits += 1
+            else:
+                self.disk_hits += 1
+        if self.host_budget is not None:
+            while self.host_used > self.host_budget and \
+                    len(self._resident) > 1:
+                victim = next(iter(self._resident))
+                if victim == adapter_id:
+                    break
+                self.host_used -= self._resident.pop(victim)
+                self.demotions += 1
+        return hit
+
+    def prefetch(self, adapter_id: int, now: float) -> bool:
+        """Start the async disk -> host staging of a soon-needed adapter
+        (fired at request arrival). No-op for host-resident adapters;
+        returns whether a new staging started."""
+        aid = int(adapter_id)
+        if aid not in self._ids or aid in self._resident or \
+                aid in self._staging:
+            return False
+        b = int(self._bytes_fn(aid))
+        self._staging[aid] = float(now) + _xfer_seconds(b, self.disk_bw)
+        self.prefetch_requests += 1
+        return True
+
+    def load_seconds(self, adapter_id: int,
+                     now: Optional[float] = None) -> float:
+        """Miss penalty by current tier; the touch promotes to host. With
+        ``now`` given, an in-flight staging is credited: only the disk
+        time still outstanding at ``now`` is charged."""
+        aid = int(adapter_id)
+        b = int(self._bytes_fn(aid))
+        staged_at = self._staging.pop(aid, None)
+        hit = self._touch(aid)
+        t = _xfer_seconds(b, self.host_bw)
+        if not hit:
+            disk_t = _xfer_seconds(b, self.disk_bw)
+            if staged_at is not None and now is not None:
+                disk_t = min(disk_t, max(staged_at - float(now), 0.0))
+                if disk_t == 0.0:
+                    self.staged_hits += 1
+            t += disk_t
+        return t
+
+    def host_hit_rate(self) -> Optional[float]:
+        n = self.host_hits + self.disk_hits
+        if n == 0:
+            return None
+        return self.host_hits / n
+
+    def miss_cost_ratio(self) -> float:
+        if not self._ids:
+            return 1.0
+        b = int(self._bytes_fn(next(iter(self._ids))))
+        c_host = _xfer_seconds(b, self.host_bw)
+        c_disk = c_host + _xfer_seconds(b, self.disk_bw)
+        if c_disk <= 0.0 or c_host <= 0.0:
+            return 1.0
+        return min(c_host / c_disk, 1.0)
+
+    def stats(self) -> Dict[str, float]:
+        return {
+            "registered": self.n_adapters,
+            "host_resident": len(self._resident),
+            "host_used_bytes": self.host_used,
+            "host_budget_bytes": (self.host_budget
+                                  if self.host_budget is not None else -1),
+            "host_hits": self.host_hits,
+            "disk_hits": self.disk_hits,
+            "demotions": self.demotions,
+            "prefetch_requests": self.prefetch_requests,
+            "staged_hits": self.staged_hits,
+        }

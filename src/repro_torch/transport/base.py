@@ -124,6 +124,10 @@ class Transport(Protocol):
                     lora_scale, *, sel=None, scatter_idx=None,
                     block_table=None): ...
 
+    def forget_kv(self, k, v) -> None:
+        """Drop what the plane keeps for the KV buffers ``k``/``v`` (an
+        engine releasing them: an instance retired)."""
+
 
 def make_transport(name: str, server, n_adapters: Optional[int] = None
                    ) -> Transport:

@@ -31,6 +31,8 @@ captured graphs, and the next step captures again. With one replica the
 view's pools are the server's own (fixed addresses, written in place by
 ``insert``); with more they are a copy that ``refresh`` keeps up to date,
 rewriting only the slots whose weights were written since the last one.
+An engine that releases its KV (a retired instance) makes the transport
+forget the graphs captured over it (``forget_kv``).
 """
 from __future__ import annotations
 
@@ -301,6 +303,16 @@ class FusedTransport:
             self._graphs[key] = step
         step.graph.replay()
         return np.asarray(step.tokens.tolist(), np.int64), k, v
+
+    def forget_kv(self, k, v) -> None:
+        """Drop the graphs captured over the KV buffers ``k``/``v`` (their
+        engine released them): the graphs' memory goes back to the shared
+        pool for later captures, and an engine whose KV the allocator
+        places at the same address captures its own."""
+        ptrs = {k.data_ptr(), v.data_ptr()}
+        for key in [key for key in self._graphs if key[2] in ptrs
+                    or key[3] in ptrs]:
+            del self._graphs[key]
 
     def _capture(self, step: _CapturedStep, params, cfg, k, v) -> None:
         """Warm up once on a side stream (builds and loads the kernels,

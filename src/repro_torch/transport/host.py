@@ -63,3 +63,6 @@ class HostTransport:
                 route(None)
         st.host_dispatches += 1 if block_table is not None else 3
         return tok, k, v
+
+    def forget_kv(self, k, v) -> None:
+        """Nothing is kept per KV buffer on this plane."""

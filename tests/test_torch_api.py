@@ -12,9 +12,14 @@ JAX reference's (``repro.serving.api``) on the same workload:
   - the adapter lifecycle under a host budget that spills to disk: load a
     new adapter mid-run, serve it, unload (refused while in flight), load
     it again; the reference's tokens
-  - front door == ``Cluster.run``; ``backend="sim"`` and ``autoscale=``
-    refused with their ROADMAP item; the observability exports; the
-    quickstart and serving entry points on the CPU
+  - front door == ``Cluster.run``; ``mesh_shape`` refused with its
+    ROADMAP item; the observability exports; the quickstart and serving
+    entry points on the CPU (``--cluster`` too)
+  - the analytic backend (``backend="sim"``, after ``tests/test_api.py``):
+    ``from_sim``/``sim_config``/``from_cluster`` against the reference's,
+    and the lifecycle, a cancel mid-flight, the lone cold adapter, a
+    mid-run submit and an out-of-range adapter giving the reference's
+    events and ``Summary``
 
 Weights come from the JAX initialisers, bridged through numpy."""
 import dataclasses
@@ -30,10 +35,17 @@ import torch
 from repro.configs import get_config
 from repro.core import adapter as jadapter
 from repro.models import model as jmodel
+from repro.core import cost_model as jcm
 from repro.serving import api as japi
+from repro.serving import cluster as jcluster
+from repro.serving import simulator as jsim
+from repro.serving import workload as jworkload
 from repro.store import random_host_tensors as j_random_host_tensors
 from repro_torch import bridge
+from repro_torch.core.cost_model import H100, Hardware
+from repro_torch.serving import simulator as tsim
 from repro_torch.serving.api import RequestState, ServeConfig, build_system
+from repro_torch.serving.autoscaler import AutoscalePolicy
 from repro_torch.serving.cluster import Cluster, ClusterConfig
 from repro_torch.serving.workload import Request
 
@@ -347,15 +359,20 @@ def test_serve_config_derives_engine_and_cluster_configs():
     assert all(jc[k] == v for k, v in
                dataclasses.asdict(sc.cluster_config()).items())
     for f in dataclasses.fields(ServeConfig):   # the reference's defaults
+        if f.name == "hw":      # the port's: a nominal H100
+            assert ServeConfig().hw == H100
+            continue
         assert getattr(ServeConfig(), f.name) == \
             getattr(japi.ServeConfig(), f.name), f.name
 
 
 def test_unported_planes_are_refused_with_their_item(setup):
-    with pytest.raises(ValueError, match="analytic plane.*A6"):
-        ServeConfig(backend="sim")
-    with pytest.raises(ValueError, match="autoscaler.*A6"):
-        ServeConfig(disaggregated=True, autoscale=object())
+    """Only the mesh plane is still refused; the analytic backend and the
+    autoscaler (ROADMAP A6) are ported."""
+    assert ServeConfig(backend="sim").sim_config().hw == H100
+    assert ServeConfig(disaggregated=True,
+                       autoscale=AutoscalePolicy()).cluster_config() \
+        .autoscale == AutoscalePolicy()
     with pytest.raises(ValueError, match="mesh.*A8"):
         ServeConfig(disaggregated=True, mesh_shape=(2, 2))
     with pytest.raises(ValueError, match="unknown transport"):
@@ -533,3 +550,179 @@ def test_serve_cli_through_the_front_door(capsys, args):
         assert second["transport"]["host_dispatches_per_step"] == 1.0
         assert second["transport"]["hook_dispatches"] == 0
     assert out[2].startswith("generated:")
+
+
+def test_serve_cli_cluster_comparison_on_the_sim_plane(capsys):
+    """``--cluster``: S-LoRA vs InfiniLoRA on the analytic plane at the
+    full config, labelled as the nominal H100's modelled numbers."""
+    from repro_torch.launch import serve
+    assert serve.main(["--cluster", "--duration", "8", "--rate", "5"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    import json
+    assert out[0].startswith("s-lora") and out[1].startswith("infinilora")
+    assert all("(analytic, H100 nominal)" in ln for ln in out[:2])
+    res = json.loads(out[2])
+    assert set(res) == {"s-lora", "infinilora"}
+    assert all(r["n_finished"] > 0 for r in res.values())
+
+
+# ----------------------- sim backend (analytic plane) -------------------- #
+# the port prices with a nominal H100; against the reference it prices the
+# reference's default machine, so both planes model the same cluster
+REF_HW = Hardware(**dataclasses.asdict(jcm.V5E))
+MX = get_config("mixtral-8x7b")
+TMX = bridge.config_from(MX)
+
+
+def test_sim_serve_config_round_trips_equal_reference():
+    kw = dict(n_instances=3, max_batch=7, max_len=128, disaggregated=True,
+              adapter_cache_slots=11, policy="sjf", paged=True, page_size=16,
+              n_pages=40, prefill_chunk=32, step_time=0.5, n_adapters=64,
+              duration=45.0, server_replicas=2, gpus_per_instance=4,
+              server_gpus=4, placement_x=2, fast_kernels=False,
+              store_host_bytes=10**9, disk_bw=2e9, transport="fused",
+              hook_launch_us=3.0, failures=((1.0, 0),),
+              stragglers=((2.0, 1, 3.0),), adapter_ranks=(4, 8) * 32)
+    got = dataclasses.asdict(ServeConfig(hw=REF_HW, **kw).sim_config())
+    want = dataclasses.asdict(japi.ServeConfig(**kw).sim_config())
+    assert got.pop("hw") == want.pop("hw")
+    assert got == want
+    sim = tsim.SimConfig(n_instances=5, max_batch=96, disaggregated=True,
+                         server_cache_slots=33, duration=77.0, policy="sjf",
+                         n_adapters=128, fast_kernels=False)
+    lifted = ServeConfig.from_sim(sim)
+    assert lifted.backend == "sim" and lifted.hw == H100
+    # ServeConfig unifies the two cache-slot knobs; the one the mode never
+    # reads (here the coupled per-instance slots) does not round-trip
+    assert lifted.sim_config() == dataclasses.replace(
+        sim, instance_cache_slots=sim.server_cache_slots)
+    jlifted = japi.ServeConfig.from_sim(jsim.SimConfig(
+        **{f: getattr(sim, f) for f in ("n_instances", "max_batch",
+                                        "disaggregated", "server_cache_slots",
+                                        "duration", "policy", "n_adapters",
+                                        "fast_kernels")}))
+    a, b = dataclasses.asdict(lifted), dataclasses.asdict(jlifted)
+    a.pop("hw"), b.pop("hw")
+    assert a == b
+    ccfg = ClusterConfig(n_instances=3, n_slots=2, disaggregated=True,
+                         paged=True, transport="fused", hook_launch_us=2.0,
+                         autoscale=AutoscalePolicy(max_replicas=3))
+    up = ServeConfig.from_cluster(ccfg)
+    assert up.cluster_config() == ccfg
+    jup = japi.ServeConfig.from_cluster(jcluster.ClusterConfig(
+        n_instances=3, n_slots=2, disaggregated=True, paged=True,
+        transport="fused", hook_launch_us=2.0))
+    a, b = dataclasses.asdict(up), dataclasses.asdict(jup)
+    assert a.pop("autoscale") == {**dataclasses.asdict(AutoscalePolicy()),
+                                  "max_replicas": 3}
+    b.pop("autoscale"), a.pop("hw"), b.pop("hw")
+    assert a == b
+
+
+def _sim_pair(disagg, **kw):
+    base = dict(backend="sim", disaggregated=disagg,
+                n_instances=3 if disagg else 4, max_batch=128,
+                adapter_cache_slots=64, n_adapters=64, duration=30.0,
+                server_gpus=8)
+    base.update(kw)
+    return (build_system(ServeConfig(hw=REF_HW, **base), TMX),
+            japi.build_system(japi.ServeConfig(**base), MX))
+
+
+def _events(handles):
+    return [[(e.time, e.rid, e.kind, e.token, e.detail) for e in h.events]
+            for h in handles]
+
+
+@pytest.mark.parametrize("disagg", [False, True], ids=["coupled", "disagg"])
+def test_sim_backend_lifecycle_equals_reference(disagg):
+    """Every request walks QUEUED -> PREFILLING -> DECODING -> FINISHED
+    with output_len token events (token=None), as the reference's events
+    and Summary."""
+    reqs = jworkload.generate(64, rate=10, duration=30, seed=2)
+    got, want = [], []
+    for i, (system, out) in enumerate(zip(_sim_pair(disagg), (got, want))):
+        handles = system.submit_workload(
+            [Request(**dataclasses.asdict(r)) for r in reqs] if i == 0
+            else reqs)
+        system.drain()
+        out.extend([_events(handles), dataclasses.asdict(system.summary()),
+                    system.cache_stats(), system.transport_stats()])
+        for h in handles:
+            assert h.state.name == "FINISHED"
+            assert h.n_tokens == h.request.output_len
+            assert h.tokens == [] and list(h) == [None] * h.n_tokens
+    assert got[0] == want[0]
+    assert _same(got[1], want[1])
+    assert got[2:] == want[2:]
+    assert got[1]["n_finished"] > 0 and got[1]["n_censored"] == 0
+
+
+def test_sim_backend_cancellation_mid_flight_equals_reference():
+    reqs = jworkload.generate(64, rate=10, duration=30, seed=2)
+    res = []
+    for i, system in enumerate(_sim_pair(True)):
+        handles = system.submit_workload(
+            [Request(**dataclasses.asdict(r)) for r in reqs] if i == 0
+            else reqs)
+        victim = handles[10]
+        victim.cancel(at=victim.request.arrival + 0.05)
+        system.drain()
+        assert victim.state.name == "CANCELLED"
+        assert victim.n_tokens < victim.request.output_len
+        assert victim.request.finish < 0
+        assert all(h.state.name == "FINISHED" for h in handles
+                   if h is not victim)
+        assert all(c.active_count() == 0
+                   for c in system.backend.sim.caches.values())
+        s = system.summary(duration=40.0, warmup=0.0)
+        assert s.n_finished == len(handles) - 1 and s.n_cancelled == 1
+        res.append((_events(handles), dataclasses.asdict(s)))
+    assert res[0][0] == res[1][0]
+    assert _same(res[0][1], res[1][1])
+
+
+def test_sim_lone_cold_adapter_mid_run_submit_and_bad_ids_equal_reference():
+    """The reference's regressions on both packages, event for event: a
+    lone request whose adapter was mid-load at admission still finishes;
+    a mid-run submit with a past arrival joins NOW; out-of-range ids are
+    REJECTED at submit."""
+    out = []
+    for i, (port, ref) in enumerate([
+            (build_system(ServeConfig(backend="sim", n_instances=1,
+                                      max_batch=8, adapter_cache_slots=4,
+                                      n_adapters=4, duration=30.0,
+                                      hw=REF_HW), TMX),
+             japi.build_system(japi.ServeConfig(
+                 backend="sim", n_instances=1, max_batch=8,
+                 adapter_cache_slots=4, n_adapters=4, duration=30.0), MX)),
+            _sim_pair(False)]):
+        evs = []
+        for system in (port, ref):
+            if i == 0:
+                h = system.submit(prompt_len=64, adapter_id=1,
+                                  max_new_tokens=8, arrival=0.0)
+                system.drain()
+                assert h.state.name == "FINISHED" and h.n_tokens == 8
+                assert h.request.ttft > 0
+                evs.append(_events([h]))
+                continue
+            h1 = system.submit(prompt_len=32, adapter_id=0,
+                               max_new_tokens=8, arrival=0.0)
+            while system.now < 0.01 and not system.backend.idle():
+                system.step()
+            t = system.now
+            h2 = system.submit(prompt_len=32, adapter_id=1,
+                               max_new_tokens=8, arrival=0.0)
+            bad = [system.submit(prompt_len=8, adapter_id=a,
+                                 max_new_tokens=4) for a in (6400, -1)]
+            system.drain()
+            assert h1.state.name == h2.state.name == "FINISHED"
+            assert h2.request.decode_start >= t > 0
+            assert h2.request.arrival == 0.0
+            assert all(b.state.name == "REJECTED" and "adapter_id" in b.error
+                       for b in bad)
+            evs.append((_events([h1, h2]), [b.error for b in bad]))
+        out.append(evs)
+    for got, want in out:
+        assert got == want

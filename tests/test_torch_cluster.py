@@ -14,7 +14,7 @@
     composition, paged == dense, a tight page budget, prefill chunk-width
     invariance, tracing on == off; the prefetch thread stages only
     adapters no server slot holds, each once
-  - the autoscaler and the mesh plane are refused with their ROADMAP item
+  - the mesh plane is refused with its ROADMAP item
 
 Weights come from the JAX initialisers, bridged through numpy."""
 import copy
@@ -367,8 +367,11 @@ def test_cluster_run_leaves_callers_requests_untouched(setup):
 
 
 def test_cluster_refuses_unported_options_and_small_pools(setup):
-    with pytest.raises(ValueError, match="autoscaler.*A6"):
-        tcluster.ClusterConfig(autoscale=object())
+    """The mesh plane is refused with its item (the autoscaler is ported,
+    ROADMAP A6), and so are a missing or too small server pool."""
+    from repro_torch.serving.autoscaler import AutoscalePolicy
+    assert tcluster.ClusterConfig(
+        autoscale=AutoscalePolicy()).autoscale == AutoscalePolicy()
     with pytest.raises(ValueError, match="mesh.*A8"):
         tcluster.ClusterConfig(disaggregated=True, mesh_shape=(2, 1))
     with pytest.raises(ValueError, match="ServerPool"):
