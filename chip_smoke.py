@@ -89,7 +89,24 @@ port only. Phases, each of which fails the run with a non-zero exit:
    constants beside what the card gives (copies, a matmul) and its
    predictions beside phases 2, 5 and 6's measurements; (c) the S-LoRA vs
    InfiniLoRA comparison on the analytic plane (``launch/serve.py
-   --cluster``), modelled numbers labelled as such.
+   --cluster``), modelled numbers labelled as such;
+9. the reference's other decoder configs, each at its published widths:
+   (a) Mixtral-8x7B (depth 8 of 32, adapters of true rank 16/32/64/64 in
+   a rank-64 pool, phase 3's traffic) on the main path: the engine's host
+   and fused planes bit for bit with each capture holding one step's
+   kernels, the front door's fused run (counts set to 0 just before) with
+   the engine's tokens, the coupled plane through the front door,
+   coupled == disagg in lock step on the expert-FFN pool, and each plane's
+   step logits against the plain versions (held at depth 2, summed up at
+   4 and 8); (b) Qwen2-72B (depth 8 of 80) on the coupled plane through
+   the front door (seven ``bgmv`` a layer a step), paged == dense in lock
+   step, against the plain versions (held at depth 4, summed up at 8);
+   (c) every registered config at depth 1, one at a time: 2
+   requests of 8 tokens on every plane the reference serves it on (moe:
+   disaggregated, host == fused bit for bit, and coupled; dense and vlm:
+   coupled), held against the plain versions, then one decode step of 6
+   rows whose kernel calls are held to their plain versions and timed
+   beside their bounds; the peak device memory of each part.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -98,6 +115,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -734,30 +752,69 @@ def step_stats(torch, cfg, lk, lp, pos):
             "shape_ok": tuple(lk.shape) == (pos.shape[0], cfg.padded_vocab),
             "max_abs_diff": (a - b).abs().max().item(),
             "argmax_equal": int((tk == tp).sum()), "rows": int(act.sum()),
+            "max_abs_logit": b.abs().max().item(),
             # how far below the second version's best the first's pick is
             "worst_gap": (b.gather(1, tp[:, None])
                           - b.gather(1, tk[:, None])).max().item()}
 
 
-def hold_steps(steps_seen, what: str) -> dict:
-    """Summary of per-step comparisons; fails unless the median step's
-    logits agree within LOGIT_TOL and the greedy picks on ARGMAX_AGREE."""
+def step_summary(steps_seen) -> dict:
+    """Per-step comparisons summed up: the step logits' max abs difference
+    (median, max), the greedy picks that agree, the logits' scale."""
     diffs = sorted(s["max_abs_diff"] for s in steps_seen)
-    agree = sum(s["argmax_equal"] for s in steps_seen)
-    rows = sum(s["rows"] for s in steps_seen)
-    check(all(s["finite"] and s["shape_ok"] for s in steps_seen),
-          f"{what}: decode logits not finite or of the wrong shape")
-    check(statistics.median(diffs) <= LOGIT_TOL,
-          f"{what}: decode logits differ by a median "
-          f"{statistics.median(diffs)} > {LOGIT_TOL}")
-    check(agree >= ARGMAX_AGREE * rows,
-          f"{what}: greedy picks agree on only {agree} of {rows} rows")
     return {"step_logits_max_abs_diff": {
                 "median": statistics.median(diffs), "max": diffs[-1],
                 "steps_over_tol": sum(d > LOGIT_TOL for d in diffs),
                 "steps": len(diffs)},
-            "step_argmax_equal": agree, "step_rows": rows,
-            "step_worst_gap": max(s["worst_gap"] for s in steps_seen)}
+            "step_argmax_equal": sum(s["argmax_equal"] for s in steps_seen),
+            "step_rows": sum(s["rows"] for s in steps_seen),
+            "step_worst_gap": max(s["worst_gap"] for s in steps_seen),
+            "max_abs_logit": max(s["max_abs_logit"] for s in steps_seen)}
+
+
+def hold_steps(steps_seen, what: str) -> dict:
+    """``step_summary``; fails unless the median step's logits agree within
+    LOGIT_TOL and the greedy picks on ARGMAX_AGREE."""
+    out = step_summary(steps_seen)
+    diff = out["step_logits_max_abs_diff"]
+    agree, rows = out["step_argmax_equal"], out["step_rows"]
+    check(all(s["finite"] and s["shape_ok"] for s in steps_seen),
+          f"{what}: decode logits not finite or of the wrong shape")
+    check(diff["median"] <= LOGIT_TOL,
+          f"{what}: decode logits differ by a median {diff['median']} > "
+          f"{LOGIT_TOL} ({out})")
+    check(agree >= ARGMAX_AGREE * rows,
+          f"{what}: greedy picks agree on only {agree} of {rows} rows")
+    return out
+
+
+def shadow_run(torch, ops, ref, cfg, engine, requests, traffic, step_mod,
+               step_name, what: str, hold: bool = True):
+    """Serve ``requests`` on ``engine`` through the kernels; at every step
+    the plain versions first run on a copy of the KV, so both see the same
+    state and their logits are held together (``hold_steps``; with
+    ``hold`` False only summed up). Returns the served result (the
+    kernels' tokens) and the summary."""
+    from repro_torch.launch import serve
+
+    steps_seen = []
+    orig = getattr(step_mod, step_name)
+
+    def shadow(params_, cfg_, k, v, tokens, pos, *rest, **kw):
+        with plain_versions(ops, ref):
+            lp = orig(params_, cfg_, k.clone(), v.clone(), tokens, pos,
+                      *rest, **kw)[0]
+        lk, k, v = orig(params_, cfg_, k, v, tokens, pos, *rest, **kw)
+        steps_seen.append(step_stats(torch, cfg, lk, lp, pos))
+        return lk, k, v
+
+    setattr(step_mod, step_name, shadow)
+    try:
+        res = serve.serve(engine, requests, traffic)
+    finally:
+        setattr(step_mod, step_name, orig)
+    return res, (hold_steps(steps_seen, what) if hold
+                 else step_summary(steps_seen))
 
 
 def serve_path(torch, ops, ref, counters, cfg, engine, requests, traffic,
@@ -802,25 +859,11 @@ def serve_path(torch, ops, ref, counters, cfg, engine, requests, traffic,
     # 2. where the time goes
     prof = profile_steps(torch, engine(), requests)
 
-    # 3. the same requests again through the kernels; at every step the
-    # plain versions first run on a copy of the KV, so both see the same
-    # state and their logits can be held together
-    steps_seen = []
-    orig = getattr(step_mod, step_name)
-
-    def shadow(params_, cfg_, k, v, tokens, pos, *rest, **kw):
-        with plain_versions(ops, ref):
-            lp = orig(params_, cfg_, k.clone(), v.clone(), tokens, pos,
-                      *rest, **kw)[0]
-        lk, k, v = orig(params_, cfg_, k, v, tokens, pos, *rest, **kw)
-        steps_seen.append(step_stats(torch, cfg, lk, lp, pos))
-        return lk, k, v
-
-    setattr(step_mod, step_name, shadow)
-    try:
-        res_s = serve.serve(engine(), requests, traffic)
-    finally:
-        setattr(step_mod, step_name, orig)
+    # 3. the same requests again through the kernels, held at every step
+    # against the plain versions on the same state
+    res_s, held = shadow_run(torch, ops, ref, cfg, engine(), requests,
+                             traffic, step_mod, step_name,
+                             f"{step_name}, kernels vs plain versions")
 
     # 4. the same requests through the plain versions alone
     with plain_versions(ops, ref):
@@ -832,7 +875,6 @@ def serve_path(torch, ops, ref, counters, cfg, engine, requests, traffic,
                              if a != b), None)
     check(res_s["tokens"] == res["tokens"],
           f"{step_name}: two runs through the kernels gave different tokens")
-    held = hold_steps(steps_seen, f"{step_name}, kernels vs plain versions")
     print(json.dumps({
         "plane": step_name, **held,
         "plain_decode_ms_per_step": res_p["decode_ms_per_step"],
@@ -961,19 +1003,13 @@ def main_paths(torch, ops, paged, bgmv, ref, counters):
     # coupled plane; coupled == disagg on the pool of the expert-FFN
     # targets only (the disaggregated plane serves no attention target)
     # whose adapters the server pool holds
-    cfg2 = dataclasses.replace(cfg, n_layers=CHECK_LAYERS)
-    params2 = dict(params, layers=_first_layers(params["layers"],
-                                                CHECK_LAYERS))
-    pool2 = dataclasses.replace(pool, cfg=cfg2, tensors=_first_layers(
-        pool.tensors, CHECK_LAYERS))
+    cfg2, params2, pool2 = shallow(cfg, params, pool)
     lock_step(torch, [(transformer, "decode_step_slots")], cfg2, [
         Engine(cfg2, params2, dataclasses.replace(ecfg, paged=p),
                device="cuda", pool=pool2) for p in (True, False)],
         requests, traffic, "paged == dense")
     del pool, pool2
-    ffn = lora["pool"]
-    ffn2 = dataclasses.replace(ffn, cfg=cfg2, tensors=_first_layers(
-        ffn.tensors, CHECK_LAYERS))
+    ffn2 = shallow(cfg, params, lora["pool"])[2]
     lock_step(torch, [(transformer, "decode_step_slots"),
                       (disagg, "disagg_decode_step_slots")], cfg2, [
         Engine(cfg2, params2, ecfg, device="cuda", pool=ffn2),
@@ -1968,6 +2004,461 @@ def elastic_phase(torch, counters, smi, flush, cfg, params, fused_prof, hk,
     return cell["launches"]
 
 
+# ------------------------------ phase 9 ------------------------------ #
+MOE9, MOE9_LAYERS = "mixtral-8x7b", 8        # of 32
+DENSE9, DENSE9_LAYERS = "qwen2-72b", 8       # of 80
+RANKS9 = (16, 32, 64, 64)                    # true ranks, pool rank 64
+SWEEP_ROWS = 6                               # decode rows of the timed step
+
+
+def free_device(torch) -> None:
+    """Give back the device memory of what the last part dropped: engines,
+    transports and their graphs hold each other in cycles, which only the
+    collector frees."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def plane_check(cfg, res, traffic, what: str, want=None) -> None:
+    """Every request got all its tokens, each in the vocabulary (and, given
+    ``want``, the tokens of another run)."""
+    toks = res["tokens"]
+    if want is not None:
+        check(toks == want, f"{what}: tokens differ")
+    check(all(len(t) == traffic.new_tokens and
+              all(0 <= x < cfg.vocab_size for x in t) for t in toks.values()),
+          f"{what}: a request lacks tokens or one is out of the vocabulary")
+
+
+def shallow(cfg, params, pool, n: int = CHECK_LAYERS):
+    """The config, weights and adapter pool cut to their first ``n``
+    layers (views)."""
+    cfg2 = dataclasses.replace(cfg, n_layers=n)
+    params2 = dict(params, layers=_first_layers(params["layers"], n))
+    pool2 = dataclasses.replace(pool, cfg=dataclasses.replace(
+        pool.cfg, n_layers=n), tensors=_first_layers(pool.tensors, n))
+    return cfg2, params2, pool2
+
+
+def held_by_depth(torch, ops, ref, cfg, params, pool, engine_kw, requests,
+                  traffic, step_mod, step_name, what: str, depths) -> dict:
+    """The kernels against the plain versions on the same state
+    (``shadow_run``) at each (depth, held) of ``depths``: held to
+    LOGIT_TOL and ARGMAX_AGREE where ``held``, else summed up. Two sum
+    orders part by a bf16 rounding of an activation here and there, and
+    the logits' difference grows with depth, faster under top-2 routing
+    than under phase 3's top-8. ``engine_kw(pool)``: the Engine's adapter
+    arguments."""
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import Engine
+
+    out = {}
+    for n, hold in depths:
+        c, p, pl = shallow(cfg, params, pool, n)
+        res, out[f"depth_{n}"] = shadow_run(
+            torch, ops, ref, c, Engine(c, p, serve.ENGINE, device="cuda",
+                                       **engine_kw(pl)), requests, traffic,
+            step_mod, step_name, f"{what} (depth {n})", hold=hold)
+        plane_check(c, res, traffic, f"{what} (depth {n})")
+        out[f"depth_{n}"]["held"] = hold
+    return out
+
+
+def mixtral_cell(torch, ops, ref, counters, smi) -> dict:
+    """Phase 9(a): Mixtral-8x7B at full width (depth 8 of 32) on the main
+    path: the engine's host and fused planes bit for bit, each capture one
+    step's kernels; the front door's fused run (counts set to 0 just
+    before) == the engine's tokens; the coupled plane through the front
+    door; coupled == disagg in lock step on the expert-FFN pool; each plane
+    against the plain versions on the same state, held at depth
+    CHECK_LAYERS and summed up at depths LAYERS and 8 (``held_by_depth``)."""
+    from repro_torch.core import disagg
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.obs.clock import wall_time
+    from repro_torch.serving.engine import Engine
+
+    t0 = wall_time()
+    torch.cuda.reset_peak_memory_stats()
+    traffic = serve.Traffic(adapter_ranks=RANKS9)
+    cfg, params = serve.model(MOE9, layers=MOE9_LAYERS, seed=SEED,
+                              device="cuda")
+    weights = torch.cuda.memory_allocated()
+    lora = serve.build_pool(cfg, RANKS9, 1, seed=SEED, dtype=torch.bfloat16,
+                            device="cuda")
+    requests = serve.make_requests(cfg, traffic, SEED)
+    ecfg, L = serve.ENGINE, cfg.n_layers
+    print(f"phase 9(a): {cfg.name} d={cfg.d_model} H={cfg.n_heads} "
+          f"KV={cfg.n_kv_heads} E={cfg.n_experts} top-{cfg.top_k} "
+          f"ff={cfg.d_ff} layers={L} of 32; weights "
+          f"{weights / 2**30:.2f} GiB; an adapter "
+          f"{lora['pool'].bytes_per_adapter() / 2**30:.3f} GiB at rank "
+          f"{lora['pool'].rank}; prompts {[len(p) for _, p, _ in requests]}",
+          flush=True)
+    planes = {}
+    for transport, runs in (("host", 1), ("fused", 2)):
+        eng, planes[transport] = plane_runs(
+            torch, ops, cfg, params, ecfg, lora, transport, requests,
+            traffic, runs)
+        del eng
+    per_step = {"gmm": 3 * L, "bgmv_expert": 2 * L, "paged_attention": L}
+    out = {"engine": {**check_planes(cfg, planes["host"], planes["fused"],
+                                     "mixtral", per_step, 1),
+                      "host": summary(planes["host"]),
+                      "fused": summary(planes["fused"])}}
+    fused_tokens = planes["fused"]["runs"][-1]["tokens"]
+
+    # the main path through the front door, counts set to 0 just before
+    system = front_door(serve, params, lora["pool"], traffic,
+                        transport="fused")
+    res = served_with_counts(torch, counters, serve, system, requests,
+                             traffic)
+    check_served(cfg, res, traffic, fused_tokens, "mixtral front door "
+                 "(fused)", ("paged_attention", "bgmv_expert", "gmm"))
+    ts = res["transport_stats"]
+    check(ts["host_dispatches"] == ts["steps"] > 0 and
+          ts["hook_dispatches"] == 0,
+          f"mixtral front door: not one dispatch and no hook a step: {ts}")
+    system.close()
+    del system
+    launches = {"mixtral_front_door": res["launches"]}
+    out["front_door"] = {k: res[k] for k in ("rounds", "wall_ms_per_round",
+                                             "tokens_per_s", "launches")}
+
+    # the coupled plane through the front door, on the same pool (no
+    # q/k/v/o target): three expert deltas a layer, no bgmv
+    system = front_door(serve, params, lora["pool"], traffic,
+                        mode="coupled")
+    resc = served_with_counts(torch, counters, serve, system, requests,
+                              traffic)
+    plane_check(cfg, resc, traffic, "mixtral front door (coupled)")
+    lc = resc["launches"]
+    check(lc["bgmv"] == 0 and lc["bgmv_expert"] == 3 * lc["paged_attention"]
+          > 0 and lc["gmm"] > 0, f"mixtral coupled: launches {lc}")
+    system.close()
+    del system
+    launches["mixtral_front_door_coupled"] = lc
+    out["front_door_coupled"] = {k: resc[k] for k in (
+        "rounds", "wall_ms_per_round", "tokens_per_s", "launches")}
+    out["front_door_coupled"]["tokens_equal_disagg"] = sum(
+        a == b for rid in res["tokens"]
+        for a, b in zip(res["tokens"][rid], resc["tokens"][rid]))
+
+    # the invariant at depth CHECK_LAYERS, as phase 4 holds it (two sum
+    # orders part by a bf16 rounding here and there, and that compounds
+    # with depth); the server's slot pool holds every layer, the engines
+    # read its first ones
+    cfg2, params2, ffn2 = shallow(cfg, params, lora["pool"])
+    out["coupled_eq_disagg"] = lock_step(
+        torch, [(transformer, "decode_step_slots"),
+                (disagg, "disagg_decode_step_slots")], cfg2,
+        [Engine(cfg2, params2, ecfg, device="cuda", pool=ffn2),
+         Engine(cfg2, params2, ecfg, device="cuda",
+                server=lora["server"], pool=ffn2)], requests, traffic,
+        "mixtral coupled == disagg")
+    server = lora["server"]
+    for plane, kw, mod, step in (
+            ("disagg", lambda pl: {"server": server, "pool": pl}, disagg,
+             "disagg_decode_step_slots"),
+            ("coupled", lambda pl: {"pool": pl}, transformer,
+             "decode_step_slots")):
+        out[f"{plane}_vs_plain"] = held_by_depth(
+            torch, ops, ref, cfg, params, lora["pool"], kw, requests,
+            traffic, mod, step, f"mixtral {plane}, kernels vs plain "
+            f"versions", ((CHECK_LAYERS, True), (LAYERS, False), (L, False)))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["seconds"] = wall_time() - t0
+    print("phase 9(a) mixtral main path: " + json.dumps(out)
+          + f"; card {smi}", flush=True)
+    del params, lora
+    free_device(torch)
+    return launches
+
+
+def dense_cell(torch, ops, ref, counters, smi) -> dict:
+    """Phase 9(b): Qwen2-72B at full width (depth 8 of 80, the untied
+    152064-row head) on the coupled plane through the front door: seven
+    ``bgmv`` launches a layer a step, no expert kernel; paged == dense in
+    lock step; the kernels against the plain versions, held at depth
+    LAYERS and summed up at depth 8."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.obs.clock import wall_time
+    from repro_torch.serving.engine import Engine
+
+    t0 = wall_time()
+    torch.cuda.reset_peak_memory_stats()
+    traffic = serve.Traffic(adapter_ranks=RANKS9)
+    cfg, params = serve.model(DENSE9, layers=DENSE9_LAYERS, seed=SEED,
+                              device="cuda")
+    weights = torch.cuda.memory_allocated()
+    pool = serve.adapter_pool(cfg, "coupled", RANKS9, seed=SEED,
+                              dtype=torch.bfloat16, device="cuda")
+    requests = serve.make_requests(cfg, traffic, SEED)
+    ecfg = serve.ENGINE
+    print(f"phase 9(b): {cfg.name} d={cfg.d_model} H={cfg.n_heads} "
+          f"KV={cfg.n_kv_heads} ff={cfg.d_ff} vocab={cfg.vocab_size} "
+          f"layers={cfg.n_layers} of 80; weights {weights / 2**30:.2f} GiB; "
+          f"targets {pool.cfg.lora_targets}", flush=True)
+    system = front_door(serve, params, pool, traffic, mode="coupled")
+    res = served_with_counts(torch, counters, serve, system, requests,
+                             traffic)
+    plane_check(cfg, res, traffic, "qwen2-72b front door (coupled)")
+    lc = res["launches"]
+    n_tgt = len(pool.cfg.lora_targets)
+    check(lc["paged_attention"] > 0 and
+          lc["paged_attention"] % cfg.n_layers == 0 and
+          lc["bgmv"] == n_tgt * lc["paged_attention"] and
+          lc["bgmv_expert"] == lc["gmm"] == 0,
+          f"qwen2-72b coupled: launches {lc}, not {n_tgt} bgmv a layer a "
+          f"step and no expert kernel")
+    s = res["summary"]
+    check(s.n_cancelled == 0 and s.n_censored == 0 and s.n_finished > 0,
+          f"qwen2-72b: summary {s}")
+    system.close()
+    del system
+    out = {"front_door": {k: res[k] for k in (
+        "rounds", "wall_ms_per_round", "tokens_per_s", "launches")}}
+    cfg2, params2, pool2 = shallow(cfg, params, pool)
+    out["paged_eq_dense"] = lock_step(
+        torch, [(transformer, "decode_step_slots")], cfg2,
+        [Engine(cfg2, params2, dataclasses.replace(ecfg, paged=p),
+                device="cuda", pool=pool2) for p in (True, False)],
+        requests, traffic, "qwen2-72b paged == dense")
+    out["coupled_vs_plain"] = held_by_depth(
+        torch, ops, ref, cfg, params, pool, lambda pl: {"pool": pl},
+        requests, traffic, transformer, "decode_step_slots",
+        "qwen2-72b coupled, kernels vs plain versions",
+        ((LAYERS, True), (cfg.n_layers, False)))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["seconds"] = wall_time() - t0
+    print("phase 9(b) qwen2-72b coupled: " + json.dumps(out)
+          + f"; card {smi}", flush=True)
+    del params, pool
+    free_device(torch)
+    return {"qwen2_72b_front_door": lc}
+
+
+class _Recorder:
+    """A kernel wrapper that records each call and forwards it; the
+    wrapper's launch count (which it updates through its module's global)
+    stays the wrapper's own."""
+
+    def __init__(self, name, orig, calls):
+        self.name, self.orig, self.calls = name, orig, calls
+
+    @property
+    def launches(self):
+        return self.orig.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.orig.launches = n
+
+    def __call__(self, *args, **kw):
+        self.calls.append((self.name, args, kw))
+        return self.orig(*args, **kw)
+
+
+@contextlib.contextmanager
+def recorded(mods, calls: list):
+    """Record every call of the kernel wrappers ``mods`` ({name: module})
+    as (name, args, kwargs); each call still launches its kernel."""
+    saved = {name: getattr(mod, name) for name, mod in mods.items()}
+    for name, mod in mods.items():
+        setattr(mod, name, _Recorder(name, saved[name], calls))
+    try:
+        yield
+    finally:
+        for name, mod in mods.items():
+            setattr(mod, name, saved[name])
+
+
+def call_bound(torch, name, args, kw):
+    """(bound ms, bound by) of one recorded kernel call from its data: the
+    rows that hold data, the factors or weights those rows read, the pages
+    with a valid key, each output written once."""
+    if name == "paged_attention":
+        q, k, _, bt, pos = args
+        window = kw.get("window", 0)
+        B, KV, G, hd = q.shape
+        ps, nb = k.shape[1], bt.shape[1]
+        kp = (torch.arange(nb, device=q.device)[:, None] * ps
+              + torch.arange(ps, device=q.device)[None, :])[None]
+        p = pos.long()[:, None, None]
+        valid = (bt[:, :, None] >= 0) & (kp <= p) & (p >= 0)
+        if window:
+            valid &= kp > p - window
+        pages, keys = int(valid.any(-1).sum()), int(valid.sum())
+        n_bytes = (q.numel() * q.element_size()
+                   + pages * ps * KV * hd * k.element_size() * 2
+                   + bt.numel() * 4 + pos.numel() * 4 + q.numel() * 4)
+        return bound_ms(n_bytes, keys * KV * G * hd * 4)
+    if name == "gmm":
+        xe, w, sizes = args
+        E, _, d_in = xe.shape
+        d_out = w.shape[-1]
+        n_rows, used = int(sizes.sum()), int((sizes > 0).sum())
+        n_bytes = (n_rows * d_in * xe.element_size()
+                   + used * d_in * d_out * w.element_size() + E * 4
+                   + xe.shape[0] * xe.shape[1] * d_out * 4)
+        return bound_ms(n_bytes, 2 * n_rows * d_in * d_out)
+    x, A, B, ids = args[:4]
+    T, d_in = x.shape
+    r, d_out, el = A.shape[-1], B.shape[-1], A.element_size()
+    act = ids >= 0
+    n_act = int(act.sum())
+    if name == "bgmv":
+        n_ad = len(set(ids[act].tolist()))
+        n_bytes = (n_act * d_in * x.element_size()
+                   + n_ad * (d_in * r + r * d_out) * el + T * 4
+                   + T * d_out * 4)
+        return bound_ms(n_bytes, n_act * 2 * (d_in * r + r * d_out))
+    eids = args[4]
+    ranks = args[5] if len(args) > 5 else kw.get("ranks")
+    r_mod = (args[6] if len(args) > 6 else kw.get("r_mod", 0)) or r
+    col = torch.arange(r, device=x.device)
+    if ranks is not None:       # factor columns each row's mask keeps
+        cols = ((col[None, :] % r_mod) < ranks[:, None]).sum(-1)
+    else:
+        cols = torch.full((T,), r, device=x.device)
+    pairs = {}
+    for a, e, c in zip(ids[act].tolist(), eids[act].tolist(),
+                       cols[act].tolist()):
+        pairs[a, e] = max(pairs.get((a, e), 0), c)
+    n_bytes = (n_act * d_in * x.element_size()
+               + sum((d_in + d_out) * c * el for c in pairs.values())
+               + T * d_out * 4 + (3 if ranks is not None else 2) * T * 4)
+    n_ops = 2 * (d_in + d_out) * int(cols[act].sum())
+    return bound_ms(n_bytes, n_ops)
+
+
+def time_calls(torch, ref, flush, calls, kernels) -> list:
+    """Each recorded call of the port's kernels held against its plain
+    version on the same inputs and timed (CUDA events, L2 flushed, median
+    of 30), beside its bound."""
+    plain = {"paged_attention": lambda q, k, v, bt, pos, window=0:
+             ref.paged_attention_ref(q, k, v, bt, pos, window),
+             "bgmv": ref.bgmv_ref, "bgmv_expert": ref.bgmv_expert_ref,
+             "gmm": ref.gmm_ref}
+    tol = {"paged_attention": PAGED_TOL, "bgmv": BGMV_TOL,
+           "bgmv_expert": HOOK_TOL, "gmm": GMM_TOL}
+    out = []
+    for i, (name, args, kw) in enumerate(calls):
+        fn = kernels[name]
+        got, want = fn(*args, **kw), plain[name](*args, **kw)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        shapes = [list(a.shape) for a in args if hasattr(a, "shape")]
+        check(err <= tol[name], f"{name} at {shapes}: max abs err {err} > "
+              f"{tol[name]}")
+        check(bool(torch.isfinite(got).all()), f"{name}: not finite")
+        b_ms, b_by = call_bound(torch, name, args, kw)
+        ms = cuda_ms(torch, lambda: fn(*args, **kw), flush)
+        out.append({"kernel": name, "call": i, "shapes": shapes,
+                    "max_abs_err": err, "ms": ms, "bound_ms": b_ms,
+                    "bound_by": b_by})
+    return out
+
+
+def sweep_config(torch, ops, ref, counters, flush, kernels, mods, name,
+                 smi) -> dict:
+    """Phase 9(c), one config at full width and depth 1: 2 requests of 8
+    tokens on every plane the reference serves it on (moe: disaggregated
+    on the host and the fused transport, bit for bit, and coupled on all
+    its targets; dense and vlm: coupled), each held against the plain
+    versions on the same state; then one decode step of SWEEP_ROWS rows
+    on each plane, its kernel calls recorded, held to their plain versions
+    and timed beside their bounds."""
+    from repro_torch.core import disagg
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.obs.clock import wall_time
+    from repro_torch.serving.engine import Engine
+
+    t0 = wall_time()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = serve.model(name, layers=1, seed=SEED, device="cuda")
+    r = cfg.lora_rank
+    traffic = serve.Traffic(n_requests=2, adapter_ranks=(r // 2, r),
+                            prompt_len=(24, 40), new_tokens=8, first_wave=2)
+    requests = serve.make_requests(cfg, traffic, SEED)
+    timed_requests = serve.make_requests(cfg, dataclasses.replace(
+        traffic, n_requests=SWEEP_ROWS), SEED + 1)
+    ecfg = serve.ENGINE
+    planes = {}
+    if cfg.is_moe:
+        lora = serve.build_pool(cfg, traffic.adapter_ranks, 1, seed=SEED,
+                                dtype=torch.bfloat16, device="cuda")
+        planes["disagg"] = (lambda t="host": Engine(
+            cfg, params, ecfg, device="cuda", transport=t, **lora),
+            disagg, "disagg_decode_step_slots")
+    pool = serve.adapter_pool(cfg, "coupled", traffic.adapter_ranks,
+                              seed=SEED, dtype=torch.bfloat16,
+                              device="cuda")
+    planes["coupled"] = (lambda: Engine(cfg, params, ecfg, device="cuda",
+                                        pool=pool),
+                         transformer, "decode_step_slots")
+    out = {"config": name, "family": cfg.family, "d": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads], "hd": cfg.head_dim,
+           "ff": cfg.d_ff, "experts": [cfg.n_experts, cfg.top_k],
+           "rank": r, "vocab": cfg.vocab_size, "planes": {}}
+    for plane, (engine, mod, step) in planes.items():
+        for fn in counters.values():
+            fn.launches = 0
+        res, held = shadow_run(torch, ops, ref, cfg, engine(), requests,
+                               traffic, mod, step,
+                               f"{name} {plane}, kernels vs plain versions")
+        plane_check(cfg, res, traffic, f"{name} {plane}")
+        got = {"launches": {k: fn.launches for k, fn in counters.items()
+                            if fn.launches}, **held}
+        if plane == "disagg":
+            fused = serve.serve(engine("fused"), requests, traffic)
+            plane_check(cfg, fused, traffic, f"{name} fused == host",
+                        res["tokens"])
+            got["fused_tokens_equal_host"] = True
+        calls = []
+        eng = engine()
+        for rid, prompt, aid in timed_requests:
+            eng.add_request(rid, prompt, aid)
+        with recorded(mods, calls):
+            eng.step()
+        torch.cuda.synchronize()
+        got["decode_step"] = time_calls(torch, ref, flush, calls, kernels)
+        del eng
+        out["planes"][plane] = got
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["seconds"] = wall_time() - t0
+    print("phase 9(c) " + json.dumps(out) + f"; card {smi}", flush=True)
+    del params, pool, planes
+    free_device(torch)
+    return out
+
+
+def families_phase(torch, ops, ref, counters, flush, smi) -> dict:
+    """Phase 9: the reference's other decoder configs on the card."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels import bgmv, gmm, paged
+    from repro_torch.obs.clock import wall_time
+
+    t0 = wall_time()
+    launches = mixtral_cell(torch, ops, ref, counters, smi)
+    launches.update(dense_cell(torch, ops, ref, counters, smi))
+    kernels = {"paged_attention": paged.paged_attention, "bgmv": bgmv.bgmv,
+               "bgmv_expert": bgmv.bgmv_expert, "gmm": gmm.gmm}
+    mods = {"paged_attention": paged, "bgmv": bgmv, "bgmv_expert": bgmv,
+            "gmm": gmm}
+    sweep = [sweep_config(torch, ops, ref, counters, flush, kernels, mods,
+                          name, smi) for name in sorted(REGISTRY)]
+    print("phase 9 sweep, ms / bound ms by config and plane: " + json.dumps(
+        {s["config"]: {p: [[c["kernel"], c["ms"], c["bound_ms"]]
+                           for c in v["decode_step"]]
+                       for p, v in s["planes"].items()} for s in sweep}),
+          flush=True)
+    print(f"phase 9: {wall_time() - t0:.1f} s", flush=True)
+    return launches
+
+
 def _first_layers(tree, n: int):
     """Views of the first ``n`` layers of a layer-stacked tree."""
     if isinstance(tree, dict):
@@ -2023,6 +2514,8 @@ def main() -> int:
     launches["elastic"] = elastic_phase(torch, counters, smi, flush, cfg,
                                         params, fused_prof, hk, lora[1])
     del model, cfg, params
+    free_device(torch)
+    launches.update(families_phase(torch, ops, ref, counters, flush, smi))
 
     # "launches": the coupled plane's run for rows 1-3 and gmm, the
     # LoRA-kernel path's run for rows 4-8; each path's counted run in

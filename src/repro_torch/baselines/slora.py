@@ -37,8 +37,8 @@ def instance_cache_slots(cfg: ModelConfig, gpus: int, lora_frac: float,
 def slora_config(cfg: ModelConfig, n_instances: int, gpus_per_instance: int,
                  n_adapters: int, duration: float = 300.0,
                  lora_frac: float = 0.5, sjf: bool = False,
-                 max_batch: int = 128) -> SimConfig:
-    slots = instance_cache_slots(cfg, gpus_per_instance, lora_frac)
+                 max_batch: int = 128, hw: Hardware = H100) -> SimConfig:
+    slots = instance_cache_slots(cfg, gpus_per_instance, lora_frac, hw)
     return SimConfig(
         n_instances=n_instances, gpus_per_instance=gpus_per_instance,
         max_batch=max_batch, duration=duration, disaggregated=False,
@@ -46,7 +46,7 @@ def slora_config(cfg: ModelConfig, n_instances: int, gpus_per_instance: int,
         policy="sjf" if sjf else "fcfs",
         # coupled baseline still gets fast kernels + layerwise loading — the
         # comparison isolates the ARCHITECTURE, as in the paper
-        fast_kernels=True, layerwise_loading=True,
+        fast_kernels=True, layerwise_loading=True, hw=hw,
     )
 
 
@@ -64,5 +64,5 @@ def infinilora_config(cfg: ModelConfig, n_instances: int,
         max_batch=max_batch, duration=duration, disaggregated=True,
         server_gpus=server_gpus, server_cache_slots=max(slots, 1),
         placement_x=placement_x or min(4, server_gpus),
-        n_adapters=n_adapters,
+        n_adapters=n_adapters, hw=hw,
     )

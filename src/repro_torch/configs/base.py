@@ -1,21 +1,23 @@
 """Model configuration of the port: the fields of the reference's
-``ModelConfig`` that the disaggregated MoE serving path reads, with the
+``ModelConfig`` that the slot families (dense, moe, vlm) read, with the
 same defaults and the same ``reduced()`` rule (a tiny same-family config
 for CPU tests), and the parameter and adapter accounting the cost model,
-provisioning and the simulator price with (the moe family only; the
-other families come with ROADMAP A7)."""
+provisioning and the simulator price with. The ssm, hybrid and audio
+families, and their fields, come with ROADMAP A7d."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
 BYTES = {"bfloat16": 2, "float32": 4, "int8": 1, "float16": 2}
+# the families the slot engine serves (the reference's ``SLOT_FAMILIES``)
+SLOT_FAMILIES = ("dense", "moe", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # the port serves "moe"
+    family: str  # the port serves dense | moe | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -31,6 +33,9 @@ class ModelConfig:
     n_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
+    # modality frontend stub: data only (the slot engine ignores it)
+    frontend: str = ""  # "vit" | ""
+    frontend_tokens: int = 0
     sliding_window: int = 0  # 0 = full attention
     lora_rank: int = 64
     lora_targets: Tuple[str, ...] = ("q", "k", "v", "o", "gate", "up", "down")
@@ -57,16 +62,17 @@ class ModelConfig:
         return self.family in ("ssm", "hybrid")
 
     # ---------------------------- accounting --------------------------- #
-    def _need_moe(self, what: str) -> None:
-        if self.family != "moe":
+    def _need_slot_family(self, what: str) -> None:
+        if self.family not in SLOT_FAMILIES:
             raise ValueError(f"{self.name}: {what} of the {self.family!r} "
-                             f"family is not ported yet (ROADMAP A7)")
+                             f"family is not ported yet (ROADMAP A7d)")
 
     def param_count(self) -> int:
-        """Total parameter count of the moe family: embeddings, lm head,
-        final norm and per layer the dense attention, the router, the
-        experts (3 matrices each) and two norms."""
-        self._need_moe("param_count")
+        """Total parameter count: embeddings, lm head, final norm and per
+        layer the attention, two norms and the MLP (dense, vlm: 3 matrices
+        gated, 2 not) or the router and the experts (moe: 3 matrices
+        each)."""
+        self._need_slot_family("param_count")
         d, ff, V = self.d_model, self.d_ff, self.vocab_size
         hd, H, KV = self.head_dim, self.n_heads, self.n_kv_heads
         attn = d * H * hd + 2 * d * KV * hd + H * hd * d
@@ -75,10 +81,11 @@ class ModelConfig:
         emb = V * d
         head = 0 if self.tie_embeddings else V * d
         norms = 2 * d
-        router = d * self.n_experts
-        experts = self.n_experts * 3 * d * ff
-        return emb + head + d + self.n_layers * (attn + router + experts
-                                                 + norms)
+        if self.family == "moe":
+            ffn = d * self.n_experts + self.n_experts * 3 * d * ff
+        else:
+            ffn = (3 if self.gated_mlp else 2) * d * ff
+        return emb + head + d + self.n_layers * (attn + ffn + norms)
 
     def active_param_count(self) -> int:
         """Parameters a token activates (top_k of n_experts)."""
@@ -93,8 +100,8 @@ class ModelConfig:
     def lora_adapter_bytes(self, rank: Optional[int] = None,
                            dtype: str = "bfloat16") -> int:
         """Device bytes of ONE adapter (paper Fig. 1a): the attention
-        targets plus expert-specific factors on the MoE FFN targets."""
-        self._need_moe("lora_adapter_bytes")
+        targets plus the FFN targets, expert-specific on a MoE."""
+        self._need_slot_family("lora_adapter_bytes")
         r = rank or self.lora_rank
         d, ff = self.d_model, self.d_ff
         hd, H, KV = self.head_dim, self.n_heads, self.n_kv_heads
@@ -132,4 +139,6 @@ class ModelConfig:
         )
         if self.is_moe:
             changes.update(n_experts=4, top_k=2)
+        if self.frontend:
+            changes.update(frontend_tokens=8)
         return dataclasses.replace(self, **changes)

@@ -1,9 +1,11 @@
 """LoRA adapter pools, the counterpart of ``repro.core.adapter`` for the
-MoE family's targets: the attention projections (the coupled plane) and
-the expert FFN (both planes).
+slot families' targets: the attention projections and the FFN's
+gate/up/down, expert-specific on a MoE (the disaggregated plane serves
+only the expert FFN's; the coupled plane all of them).
 
-  attention target t : A (L, N, d_in, r)     B (L, N, r, d_out)
-  expert FFN target  : A (L, N, E, d, r)     B (L, N, E, r, ff)
+  attention target t  : A (L, N, d_in, r)     B (L, N, r, d_out)
+  dense FFN target    : A (L, N, d_in, r)     B (L, N, r, d_out)
+  expert FFN target   : A (L, N, E, d, r)     B (L, N, E, r, ff)
 
 A mixed-rank pool pads every adapter to the pool rank with exact +0.0 in
 the lanes past its true rank (the prefix-zero padding contract), so the

@@ -1,14 +1,18 @@
-"""Quickstart of the port: multi-LoRA serving of a tiny MoE model through
-the front door (``repro_torch.serving.api``), the counterpart of
+"""Quickstart of the port: multi-LoRA serving of a tiny model through the
+front door (``repro_torch.serving.api``), the counterpart of
 ``examples/quickstart.py``.
 
-Builds the reduced Qwen3-MoE config and a pool of LoRA adapters on the
-expert FFN, then submits requests, each with its own adapter, to a
-``ServeSystem`` on the main path (disaggregated LoRA Server, paged KV, the
-fused transport): continuous batching, per-token streaming, and a
-cancellation mid-decode, all from ``submit()`` handles.
+Builds the reduced config of ``--arch`` (default Qwen3-MoE) and a pool of
+LoRA adapters, then submits requests, each with its own adapter, to a
+``ServeSystem``: for a MoE arch on the main path (adapters on the expert
+FFN, disaggregated LoRA Server, paged KV, the fused transport), for a
+dense or vlm arch on the coupled plane (adapters on all its targets, paged
+KV): continuous batching, per-token streaming, and a cancellation
+mid-decode, all from ``submit()`` handles.
 
     PYTHONPATH=src python -m repro_torch.launch.quickstart --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.quickstart --device cpu \
+        --arch qwen2-1.5b
     PYTHONPATH=src python -m repro_torch.launch.quickstart   # on the card
 """
 from __future__ import annotations
@@ -18,7 +22,7 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.core.adapter import init_adapter_pool
 from repro_torch.models.model import init_params
 from repro_torch.serving.api import ServeConfig, build_system
@@ -27,19 +31,24 @@ from repro_torch.serving.api import ServeConfig, build_system
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--arch", default="qwen3-moe-235b-a22b",
+                    choices=list_archs(assigned_only=False))
     args = ap.parse_args(argv)
-    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b").reduced(),
-                              lora_targets=("gate", "up", "down"),
-                              lora_rank=4)
+    cfg = get_config(args.arch).reduced()
+    disagg = cfg.is_moe
+    cfg = dataclasses.replace(cfg, lora_rank=4, lora_targets=(
+        ("gate", "up", "down") if disagg else cfg.lora_targets))
+    ffn = (f"{cfg.n_experts} experts top-{cfg.top_k}" if disagg
+           else f"{cfg.family} MLP")
     print(f"model: {cfg.name} ({cfg.n_layers} layers, d={cfg.d_model}, "
-          f"{cfg.n_experts} experts top-{cfg.top_k}) on {args.device}")
+          f"{ffn}) on {args.device}")
     params = init_params(cfg, seed=0, device=args.device)
     pool = init_adapter_pool(cfg, 4, seed=1, rank=4, device=args.device)
     print(f"adapter pool: 4 adapters x {pool.bytes_per_adapter() / 1e6:.2f}"
           f" MB")
 
     system = build_system(
-        ServeConfig(backend="cluster", disaggregated=True, paged=True,
+        ServeConfig(backend="cluster", disaggregated=disagg, paged=True,
                     transport="fused", n_instances=1, max_batch=4,
                     max_len=48, adapter_cache_slots=4),
         cfg, params=params, pool=pool)

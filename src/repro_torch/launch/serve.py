@@ -1,8 +1,9 @@
 """Serving entry point of the port: multi-LoRA decode through the front
 door (``serving/api.py``: ``ServeConfig`` -> ``build_system`` ->
 ``submit``), disaggregated (the LoRA Server computes the MoE hooks'
-deltas) or coupled (the S-LoRA baseline: adapters applied inside the
-model), over a paged KV pool or, with ``--dense``, a dense slab. The
+deltas; MoE archs only) or coupled (the S-LoRA baseline: adapters applied
+inside the model; any registered arch, dense and vlm included), over a
+paged KV pool or, with ``--dense``, a dense slab. The
 disaggregated plane runs over a pool of ``--replicas`` LoRA-Server
 replicas through the ``--transport`` plane: "host" (per-hook host
 dispatch) or "fused" (one CUDA graph a decode step).
@@ -11,7 +12,10 @@ dispatch) or "fused" (one CUDA graph a decode step).
       --arch qwen3-moe-235b-a22b --layers 4 --requests 6 --mode coupled
   PYTHONPATH=src python -m repro_torch.launch.serve --transport fused \
       --replicas 2
-  PYTHONPATH=src python -m repro_torch.launch.serve --cluster --rate 25
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-72b \
+      --mode coupled
+  PYTHONPATH=src python -m repro_torch.launch.serve --cluster \
+      --arch mixtral-8x7b --rate 25
 
 Weights and adapters are random, drawn on the device from ``--seed``;
 nothing is downloaded. Requests arrive in two waves, so the second wave is
@@ -34,8 +38,9 @@ import numpy as np
 import torch
 
 from repro_torch.baselines import slora as presets
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.core.adapter import init_mixed_rank_pool
+from repro_torch.core.cost_model import H100, Hardware
 from repro_torch.core.lora_server import pool_tensors_from_adapter
 from repro_torch.models.model import init_params, resolve_device, resolve_dtype
 from repro_torch.obs.clock import wall_time
@@ -265,20 +270,21 @@ def build(arch: str, *, layers: Optional[int] = None, reduced: bool = False,
 
 def compare_planes(cfg, n_adapters: int = 8, rate: float = 25.0,
                    duration: float = 120.0, gpus_per_instance: int = 8,
-                   seed: int = 0) -> Dict[str, Dict]:
+                   seed: int = 0, hw: Hardware = H100) -> Dict[str, Dict]:
     """The S-LoRA vs InfiniLoRA comparison on the analytic plane (Fig. 11's
     presets: S-LoRA on 4 instances, InfiniLoRA on 3 plus a LoRA Server of
     ``gpus_per_instance`` GPUs), one Poisson workload of ``rate`` requests a
     second over ``n_adapters`` zipf adapters for ``duration`` virtual
-    seconds through ``backend="sim"``: each plane's ``Summary`` fields."""
+    seconds through ``backend="sim"``, priced on ``hw`` (the presets' cache
+    slots too): each plane's ``Summary`` fields."""
     reqs = workload.generate(n_adapters, rate=rate, duration=duration,
                              seed=seed)
     planes = {
         "s-lora": presets.slora_config(cfg, 4, gpus_per_instance,
-                                       n_adapters, duration),
+                                       n_adapters, duration, hw=hw),
         "infinilora": presets.infinilora_config(
             cfg, 3, gpus_per_instance, gpus_per_instance, n_adapters,
-            duration)}
+            duration, hw=hw)}
     out = {}
     for name, sim in planes.items():
         system = build_system(ServeConfig.from_sim(sim), cfg)
@@ -290,7 +296,9 @@ def compare_planes(cfg, n_adapters: int = 8, rate: float = 25.0,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-moe-235b-a22b")
+    ap.add_argument("--arch", default="qwen3-moe-235b-a22b",
+                    choices=list_archs(assigned_only=False),
+                    help="any registered config; disagg needs a MoE arch")
     ap.add_argument("--layers", type=int, default=4,
                     help="model depth (cut: the full depth does not fit one "
                          "card)")
@@ -333,6 +341,8 @@ def main(argv=None) -> int:
                   f"nominal)")
         print(json.dumps(res))
         return 0
+    if not get_config(args.arch).is_moe and args.mode == "disagg":
+        raise SystemExit("disaggregated hooks target MoE archs; use coupled")
     traffic = dataclasses.replace(Traffic(), n_requests=args.requests)
     if args.reduced:
         traffic = dataclasses.replace(traffic, prompt_len=(6, 20),

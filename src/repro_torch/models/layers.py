@@ -13,6 +13,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 
@@ -98,6 +99,29 @@ def embed(tokens, table):
 def unembed(x, table):
     """x: (B, S, d) -> logits (B, S, V) f32."""
     return mm_f32(x, table.t())
+
+
+# -------------------------------- MLP ---------------------------------- #
+def gelu(x):
+    """GELU in its tanh form, the default of the reference's
+    ``jax.nn.gelu`` (``approximate=True``)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp_act(g, u, cfg, dtype):
+    """The MLP's activation of its f32 gate/up products, cast to the
+    activations' dtype: silu(g) * u gated (SwiGLU), gelu(u) not."""
+    return (F.silu(g) * u if cfg.gated_mlp else gelu(u)).to(dtype)
+
+
+def mlp(x, p, cfg):
+    """SwiGLU (gated) or GELU MLP of the dense families. x: (B, S, d); p:
+    {gate (gated only), up (d, ff), down (ff, d)}. The products have an f32
+    result, the activation is cast to x's dtype, and the output too, as the
+    reference rounds."""
+    g = mm_f32(x, p["gate"]) if cfg.gated_mlp else None
+    act = mlp_act(g, mm_f32(x, p["up"]), cfg, x.dtype)
+    return mm_f32(act, p["down"]).to(x.dtype)
 
 
 # --------------------------- prefill attention ------------------------- #

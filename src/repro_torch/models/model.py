@@ -1,12 +1,14 @@
-"""Parameters of the MoE decoder LM, the counterpart of
-``repro.models.model`` for the moe family: the same tree of names and
+"""Parameters of the decoder LM, the counterpart of ``repro.models.model``
+for the slot families (dense, moe, vlm): the same tree of names and
 shapes (``param_specs``), drawn on the target device from a
 ``torch.Generator``.
 
   embed (Vp, d) | final_norm (d,) | lm_head (Vp, d) unless tied
   layers: ln1, ln2 (L, d) | attn: wq (L, d, H*hd), wk/wv (L, d, KV*hd),
-          wo (L, H*hd, d) | moe: router (L, d, E), gate/up (L, E, d, ff),
-          down (L, E, ff, d)
+          wo (L, H*hd, d), bq/bk/bv with qkv_bias
+          moe: router (L, d, E), gate/up (L, E, d, ff), down (L, E, ff, d)
+          mlp (dense, vlm): gate/up (L, d, ff), down (L, ff, d); no gate
+          when ``gated_mlp`` is False
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.configs.base import SLOT_FAMILIES
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -38,9 +42,9 @@ class PSpec(NamedTuple):
 
 
 def param_specs(cfg) -> Dict[str, Any]:
-    if cfg.family != "moe":
-        raise ValueError(f"the port serves the moe family, not "
-                         f"'{cfg.family}'")
+    if cfg.family not in SLOT_FAMILIES:
+        raise ValueError(f"the port serves the {', '.join(SLOT_FAMILIES)} "
+                         f"families, not '{cfg.family}' (ROADMAP A7d)")
     d, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     E, ff = cfg.n_experts, cfg.d_ff
@@ -50,15 +54,20 @@ def param_specs(cfg) -> Dict[str, Any]:
         attn.update(bq=PSpec((L, H * hd), "zeros"),
                     bk=PSpec((L, KV * hd), "zeros"),
                     bv=PSpec((L, KV * hd), "zeros"))
-    moe = {"router": PSpec((L, d, E), "small"), "up": PSpec((L, E, d, ff)),
-           "down": PSpec((L, E, ff, d))}
-    if cfg.gated_mlp:
-        moe["gate"] = PSpec((L, E, d, ff))
+    if cfg.is_moe:
+        ffn = {"router": PSpec((L, d, E), "small"),
+               "up": PSpec((L, E, d, ff)), "down": PSpec((L, E, ff, d))}
+        if cfg.gated_mlp:
+            ffn["gate"] = PSpec((L, E, d, ff))
+    else:
+        ffn = {"up": PSpec((L, d, ff)), "down": PSpec((L, ff, d))}
+        if cfg.gated_mlp:
+            ffn["gate"] = PSpec((L, d, ff))
     specs: Dict[str, Any] = {
         "embed": PSpec((V, d)),
         "final_norm": PSpec((d,), "zeros"),
         "layers": {"ln1": PSpec((L, d), "zeros"), "ln2": PSpec((L, d), "zeros"),
-                   "attn": attn, "moe": moe},
+                   "attn": attn, "moe" if cfg.is_moe else "mlp": ffn},
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = PSpec((V, d))

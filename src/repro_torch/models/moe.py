@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import mm_f32
+from repro_torch.models.layers import gelu, mm_f32
 
 F32 = torch.float32
 
@@ -97,8 +97,9 @@ def combine(y_slots, pair_slot, wts):
 
 def expert_ffn(xe, wg, wu, wd, lora=None, row_adapter=None,
                lora_scale: float = 1.0, group_sizes=None):
-    """Gated expert FFN. xe: (E, C, d); wg/wu: (E, d, f); wd: (E, f, d) ->
-    (E, C, d) f32. The base GEMMs run through ``ops.gmm``; with
+    """Expert FFN, gated (SwiGLU) or, with ``wg`` None, GELU. xe: (E, C, d);
+    wg/wu: (E, d, f); wd: (E, f, d) -> (E, C, d) f32. The base GEMMs run
+    through ``ops.gmm``; with
     ``group_sizes`` (E,) int32 (``dispatch``) it skips each expert's rows
     at or past its group size, which are pad rows (their output is 0, as
     the reference's einsum over the zero rows gives).
@@ -121,14 +122,17 @@ def expert_ffn(xe, wg, wu, wd, lora=None, row_adapter=None,
             rows_in.reshape(E * C, -1), lora[name]["A"], lora[name]["B"],
             row_adapter, row_e).reshape(E, C, -1) * lora_scale
 
-    g = ops.gmm(xe, wg, group_sizes)
+    g = None
+    if wg is not None:
+        g = ops.gmm(xe, wg, group_sizes)
+        dg = dl("gate", xe)
+        if dg is not None:
+            g = g + dg
     u = ops.gmm(xe, wu, group_sizes)
-    dg, du = dl("gate", xe), dl("up", xe)
-    if dg is not None:
-        g = g + dg
+    du = dl("up", xe)
     if du is not None:
         u = u + du
-    h = (F.silu(g) * u).to(xe.dtype)
+    h = (F.silu(g) * u if wg is not None else gelu(u)).to(xe.dtype)
     y = ops.gmm(h, wd, group_sizes)
     dd = dl("down", h)
     if dd is not None:
@@ -142,17 +146,16 @@ def moe_block(x, params, cfg, lora=None, ids_tok=None,
     local (single-device) plan, dropless when T*K <= 4096 as there.
     ``lora``: a layer's adapter factors (its gate/up/down are used; the
     coupled plane); ``ids_tok``: (B*S,) int32 adapter id per token."""
-    if not cfg.gated_mlp:
-        raise ValueError("the port serves gated (SwiGLU) experts")
     B, S, d = x.shape
     xf = x.reshape(-1, d)
     T = xf.shape[0]
     ids, wts = route(xf, params["router"], cfg.n_experts, cfg.top_k)
     C = capacity(T, cfg.top_k, cfg.n_experts, cfg.capacity_factor,
                  dropless=(T * cfg.top_k <= 4096))
-    y = _dispatch_compute_combine(xf, ids, wts, params["gate"], params["up"],
-                                  params["down"], cfg, C, lora=lora,
-                                  token_ads=ids_tok, lora_scale=lora_scale)
+    y = _dispatch_compute_combine(xf, ids, wts, params.get("gate"),
+                                  params["up"], params["down"], cfg, C,
+                                  lora=lora, token_ads=ids_tok,
+                                  lora_scale=lora_scale)
     return y.reshape(B, S, d).to(x.dtype)
 
 

@@ -1,15 +1,17 @@
-"""The slot engine's model steps for the moe family, the counterpart of
-``repro.models.transformer``: LoRA-free chunked prefill (under
-prefill/decode disaggregation prefill runs on LoRA-free instances, paper
-footnote 1) and the coupled (S-LoRA) decode step, which applies the
-adapters inside the model: q/k/v/o deltas through ``ops.bgmv`` and expert
-deltas through ``moe.moe_block``. Each decode layer writes its token's KV
-into a paged pool or a dense slab.
+"""The slot engine's model steps for the slot families (dense, moe, vlm),
+the counterpart of ``repro.models.transformer``: LoRA-free chunked prefill
+(under prefill/decode disaggregation prefill runs on LoRA-free instances,
+paper footnote 1) and the coupled (S-LoRA) decode step, which applies the
+adapters inside the model: q/k/v/o deltas through ``ops.bgmv``, expert
+deltas through ``moe.moe_block`` (moe) and the MLP's gate/up/down deltas
+through ``ops.bgmv`` (``_mlp_with_lora``; dense, vlm). Each decode layer
+writes its token's KV into a paged pool or a dense slab.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.base import SLOT_FAMILIES
 from repro_torch.kernels import ops
 from repro_torch.models import layers as ll
 from repro_torch.models import moe as moe_mod
@@ -24,6 +26,39 @@ def _delta(xf, lora_layer, name, ids_tok, scale):
         return None
     ab = lora_layer[name]
     return ops.bgmv(xf, ab["A"], ab["B"], ids_tok) * scale
+
+
+def _mlp_with_lora(h, mp, cfg, lora_layer, ids_tok, scale):
+    """The dense MLP with its gate/up/down adapters (the reference's exact
+    multi-LoRA MLP). h: (B, S, d). Each delta is added in f32: gate's and
+    up's to their f32 products before the activation, down's to the f32
+    output before the final cast."""
+    if lora_layer is None or not any(n in lora_layer
+                                     for n in ("gate", "up", "down")):
+        return ll.mlp(h, mp, cfg)
+    B, S, d = h.shape
+    xf = h.reshape(-1, d)
+
+    def with_delta(base, name):
+        dlt = _delta(xf, lora_layer, name, ids_tok, scale)
+        return base if dlt is None else base + dlt.reshape(base.shape)
+
+    g = with_delta(ll.mm_f32(h, mp["gate"]), "gate") if cfg.gated_mlp \
+        else None
+    act = ll.mlp_act(g, with_delta(ll.mm_f32(h, mp["up"]), "up"), cfg,
+                     h.dtype)
+    y = ll.mm_f32(act, mp["down"])
+    dlt = _delta(act.reshape(B * S, -1), lora_layer, "down", ids_tok, scale)
+    if dlt is not None:
+        y = y + dlt.reshape(y.shape)
+    return y.to(h.dtype)
+
+
+def _check_family(cfg, what: str) -> None:
+    if cfg.family not in SLOT_FAMILIES:
+        raise ValueError(f"{what} supports attention LMs "
+                         f"({', '.join(SLOT_FAMILIES)}), not {cfg.family} "
+                         f"(ROADMAP A7d)")
 
 
 # ------------------------------ decode ---------------------------------- #
@@ -77,10 +112,9 @@ def decode_step_slots(params, cfg, k_cache, v_cache, tokens, pos_vec,
     ``lora_ctx`` (``AdapterPool.lora_ctx``): adapter stacks, per-row int32
     ids (-1 = no delta) and the scale. Returns (logits (B, Vp) f32,
     k_cache, v_cache)."""
-    if cfg.family != "moe":
-        raise ValueError(f"the port's decode serves moe, not {cfg.family}")
+    _check_family(cfg, "slot decode")
     # the pool's layer-stacked factors {target: {A, B}}; a port pool holds
-    # only the MoE family's targets, so none needs filtering out
+    # only the targets of a slot family, so none needs filtering out
     stack = lora_ctx["adapters"] if lora_ctx is not None else None
     ids_tok = lora_ctx["ids"] if lora_ctx is not None else None
     scale = lora_ctx["scale"] if lora_ctx is not None else 1.0
@@ -93,8 +127,12 @@ def decode_step_slots(params, cfg, k_cache, v_cache, tokens, pos_vec,
                               v_cache[l], block_table, lora_layer, ids_tok,
                               scale)
         h = ll.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + moe_mod.moe_block(h, lp["moe"], cfg, lora=lora_layer,
+        if cfg.is_moe:
+            y = moe_mod.moe_block(h, lp["moe"], cfg, lora=lora_layer,
                                   ids_tok=ids_tok, lora_scale=scale)
+        else:
+            y = _mlp_with_lora(h, lp["mlp"], cfg, lora_layer, ids_tok, scale)
+        x = x + y
     x = ll.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = ll.unembed(x, params.get("lm_head", params["embed"]))
     return logits[:, 0], k_cache, v_cache
@@ -108,9 +146,8 @@ def prefill_chunk(params, cfg, tokens, k_ctx, v_ctx):
     KV (S_ctx sets the position offset and may be 0). Returns (k_chunk,
     v_chunk), each (L, B, C, KV, hd) post-RoPE, position-for-position what
     a monolithic forward over the whole prompt would cache. The last
-    layer's MoE is skipped: no returned KV depends on it."""
-    if cfg.family != "moe":
-        raise ValueError(f"the port's prefill serves moe, not {cfg.family}")
+    layer's MoE or MLP is skipped: no returned KV depends on it."""
+    _check_family(cfg, "chunked prefill")
     x = ll.embed(tokens, params["embed"])
     B, C, _ = x.shape
     pos0 = k_ctx.shape[2]
@@ -131,5 +168,6 @@ def prefill_chunk(params, cfg, tokens, k_ctx, v_ctx):
         vs.append(v)
         if l + 1 < cfg.n_layers:
             h = ll.rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + moe_mod.moe_block(h, lp["moe"], cfg)
+            x = x + (moe_mod.moe_block(h, lp["moe"], cfg) if cfg.is_moe
+                     else ll.mlp(h, lp["mlp"], cfg))
     return torch.stack(ks), torch.stack(vs)

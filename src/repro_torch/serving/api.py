@@ -50,7 +50,7 @@ from repro_torch.serving.autoscaler import Autoscaler, AutoscalePolicy, \
     ScaleAction
 from repro_torch.serving.cluster import Cluster, ClusterConfig, \
     refuse_unported
-from repro_torch.serving.engine import EngineConfig
+from repro_torch.serving.engine import EngineConfig, check_family
 from repro_torch.serving.metrics import Summary
 from repro_torch.serving.server_pool import ServerPool
 from repro_torch.serving.simulator import SimConfig, Simulation
@@ -625,6 +625,9 @@ class ServeSystem:
         if cfg.backend == "sim":
             self.backend: Backend = SimBackend(model, cfg, tracer=self.tracer)
         else:
+            # a family or plane the engines cannot serve is refused before
+            # the server pool's weights are made
+            check_family(model, disaggregated=cfg.disaggregated)
             if params is None or pool is None:
                 raise ValueError("backend='cluster' runs the real model: "
                                  "pass params= and pool= (or use "

@@ -49,7 +49,7 @@ from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.serving.autoscaler import Autoscaler, AutoscalePolicy, \
     ScaleAction, converge_replicas, pick_drain_candidate
 from repro_torch.serving.cache import LoRACache
-from repro_torch.serving.engine import Engine, EngineConfig
+from repro_torch.serving.engine import Engine, EngineConfig, check_family
 from repro_torch.serving.scheduler import InstanceState, Scheduler, \
     assign_adapters_greedy
 from repro_torch.serving.server_pool import ServerPool
@@ -135,6 +135,7 @@ class Cluster:
         # span tracer: virtual round-clock timestamps, wall clock only as
         # span attributes. NULL_TRACER = record nothing.
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        check_family(cfg, disaggregated=ccfg.disaggregated)
         if ccfg.disaggregated:
             if server_pool is None:
                 raise ValueError(

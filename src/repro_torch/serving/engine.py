@@ -30,10 +30,27 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.configs.base import SLOT_FAMILIES
 from repro_torch.models import cache as cache_mod
 from repro_torch.models import transformer
 from repro_torch.models.model import resolve_device
 from repro_torch.transport.base import make_transport
+
+
+def check_family(cfg, disaggregated: bool = False) -> None:
+    """Refuse, before anything is allocated, a model the slot engine cannot
+    serve: a family without a per-slot attention KV cache, or a non-MoE
+    model on the disaggregated plane (its hooks sit in the MoE FFN)."""
+    if cfg.family not in SLOT_FAMILIES:
+        raise ValueError(
+            f"slot engine requires a per-slot attention KV cache; family "
+            f"'{cfg.family}' has none (supported: "
+            f"{', '.join(SLOT_FAMILIES)}); the ssm/hybrid/audio families "
+            f"are not ported yet (ROADMAP A7d)")
+    if disaggregated and not cfg.is_moe:
+        raise ValueError(f"{cfg.name}: disaggregated hooks target MoE FFNs "
+                         f"(paper Fig. 3b); serve the '{cfg.family}' family "
+                         f"on the coupled plane")
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -76,6 +93,7 @@ class Engine:
     def __init__(self, cfg, params, ecfg: EngineConfig, server=None,
                  lora_scale: Optional[float] = None, device=None, pool=None,
                  transport="host"):
+        check_family(cfg, disaggregated=server is not None)
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg
