@@ -101,12 +101,33 @@ port only. Phases, each of which fails the run with a non-zero exit:
    4 and 8); (b) Qwen2-72B (depth 8 of 80) on the coupled plane through
    the front door (seven ``bgmv`` a layer a step), paged == dense in lock
    step, against the plain versions (held at depth 4, summed up at 8);
-   (c) every registered config at depth 1, one at a time: 2
+   (c) every registered slot-family config at depth 1, one at a time: 2
    requests of 8 tokens on every plane the reference serves it on (moe:
    disaggregated, host == fused bit for bit, and coupled; dense and vlm:
    coupled), held against the plain versions, then one decode step of 6
    rows whose kernel calls are held to their plain versions and timed
-   beside their bounds; the peak device memory of each part.
+   beside their bounds; the peak device memory of each part;
+10. the static-batch API (``Engine.prefill`` / ``decode``) and the
+   families only it serves: (a) qwen3-moe at full width, depth 4: 4
+   prompts of 128 tokens, 24 greedy steps, adapters of true rank
+   {8,16,32,32} in a rank-32 pool, through coupled on all seven targets
+   with bf16 and with int8 KV, coupled on gate/up/down, disaggregated
+   through a LoRAServer and through a 2-replica ServerPool; each counted
+   (counts set to 0 just before prefill and before decode; 4 ``bgmv`` + 3
+   ``bgmv_expert`` + 3 ``gmm`` a layer a step coupled, 2 ``bgmv_expert``
+   + 3 ``gmm`` disaggregated, 4 ``bgmv_expert`` over 2 replicas), timed,
+   and held against the plain versions on the same state at every step,
+   two runs bit for bit; coupled (gate/up/down) == disaggregated and
+   int8 against bf16 KV in lock step (each step's softmax within 0.05,
+   the median step's logits within 0.11, and two planted faults of the
+   int8 read beyond it); (b) rwkv6-3b, zamba2-2.7b and
+   seamless-m4t-large-v2 at their published widths and depths: f32
+   ``decode_step`` over 32 positions against one ``forward`` (within
+   1e-3; seamless against cross caches of 1024 frames; rwkv6-3b, whose
+   f32 rounding its group norm scales up, within 5e-2, with its chunked
+   forward, recurrent forward and decode held within 4e-9 in f64), and
+   the bf16 engine (4 prompts of 64 tokens, 32 steps) twice, bit for
+   bit, its ms/step, tokens/s and peak memory.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -115,6 +136,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -698,29 +720,36 @@ def port_kernels(csrc=CSRC) -> dict:
             for src in sorted(csrc.glob("*.cu"))}
 
 
-def profile_steps(torch, engine, requests, n_steps=4, plane=None):
-    """Device kernel time by name over a few decode steps of all requests,
-    and the device's busy share of the window (torch.profiler)."""
+def device_profile(torch, fn, n: int):
+    """({kernel name: (device us, launches)}, wall us) of ``n`` calls of
+    ``fn`` under torch.profiler, after one call outside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.obs.clock import wall_time
-    for rid, prompt, aid in requests:
-        engine.add_request(rid, prompt, aid)
-    engine.step()
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = wall_time()
-        for _ in range(n_steps):
-            engine.step()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (wall_time() - t0)
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            tot, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (tot + e.device_time_total, n + 1)
+            tot, k = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (tot + e.device_time_total, k + 1)
+    return by_name, wall_us
+
+
+def profile_steps(torch, engine, requests, n_steps=4, plane=None):
+    """Device kernel time by name over a few decode steps of all requests,
+    and the device's busy share of the window (torch.profiler)."""
+    for rid, prompt, aid in requests:
+        engine.add_request(rid, prompt, aid)
+    by_name, wall_us = device_profile(torch, engine.step, n_steps)
     busy_us = sum(t for t, _ in by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     port = {}   # every kernel of csrc/, in the top 12 or not: [ms, launches]
@@ -2438,6 +2467,7 @@ def sweep_config(torch, ops, ref, counters, flush, kernels, mods, name,
 def families_phase(torch, ops, ref, counters, flush, smi) -> dict:
     """Phase 9: the reference's other decoder configs on the card."""
     from repro_torch.configs import REGISTRY
+    from repro_torch.configs.base import SLOT_FAMILIES
     from repro_torch.kernels import bgmv, gmm, paged
     from repro_torch.obs.clock import wall_time
 
@@ -2448,14 +2478,528 @@ def families_phase(torch, ops, ref, counters, flush, smi) -> dict:
                "bgmv_expert": bgmv.bgmv_expert, "gmm": gmm.gmm}
     mods = {"paged_attention": paged, "bgmv": bgmv, "bgmv_expert": bgmv,
             "gmm": gmm}
+    # the slot engine's configs; the static API's own are phase 10's
     sweep = [sweep_config(torch, ops, ref, counters, flush, kernels, mods,
-                          name, smi) for name in sorted(REGISTRY)]
+                          name, smi) for name in sorted(REGISTRY)
+             if REGISTRY[name].family in SLOT_FAMILIES]
     print("phase 9 sweep, ms / bound ms by config and plane: " + json.dumps(
         {s["config"]: {p: [[c["kernel"], c["ms"], c["bound_ms"]]
                            for c in v["decode_step"]]
                        for p, v in s["planes"].items()} for s in sweep}),
           flush=True)
     print(f"phase 9: {wall_time() - t0:.1f} s", flush=True)
+    return launches
+
+
+# ------------------------------ phase 10 ----------------------------- #
+# (a) the static-batch API on qwen3-moe at depth LAYERS
+STATIC_B, STATIC_PROMPT, STATIC_STEPS = 4, 128, 24
+SOFTMAX_TOL = 0.05      # int8 vs bf16 KV: the reference's own bound
+# int8 vs bf16 KV, the median step's max |logit diff|: twice the sound
+# int8 read's reading, below the planted faults' (PERF.md, phase 10)
+INT8_LOGIT_TOL = 0.11
+# (b) the ssm, hybrid and audio families at full width and depth
+NEW_FAMILIES = ("rwkv6-3b", "zamba2-2.7b", "seamless-m4t-large-v2")
+# f32 decode_step vs forward over F32_STEPS tokens, held to F32_TOL.
+# rwkv6-3b's f32 logits part by more: at its first positions a head's
+# state holds one or two keys, its output's variance can fall to the
+# order of the per-head group norm's eps (64e-5), and that norm then
+# scales the f32 rounding of two sum orders up by as much as
+# 1/sqrt(eps) = 40 a layer, over 32 layers. Its algebra is held in f64
+# instead (the chunked forward, the recurrent one and the decode at full
+# width and depth, held to F64_TOL, ten times the largest reading); its
+# f32 readings, chunked and recurrent forward against the decode, are
+# held to RWKV_F32_TOL, twice the largest (PERF.md, phase 10)
+F32_TOL = 1e-3
+RWKV_F32_TOL = 5e-2
+F64_TOL = 4e-9
+F32_B, F32_STEPS, AUDIO_FRAMES = 2, 32, 1024
+FAMILY_B, FAMILY_PROMPT, FAMILY_STEPS = 4, 64, 32
+
+
+def _clone_cache(torch, cache) -> dict:
+    return {k: v.clone() if torch.is_tensor(v) else v
+            for k, v in cache.items()}
+
+
+@contextlib.contextmanager
+def shadowed(torch, ops, ref, mod, name, cfg, steps_seen):
+    """Every call of ``mod.<name>`` (a static decode step: params, cfg,
+    cache, ...) first runs the plain versions on a copy of the cache, then
+    the kernels on the cache itself; both logits are compared
+    (``step_stats``) and the kernels' result is returned."""
+    orig = getattr(mod, name)
+
+    def shadow(params_, cfg_, cache, *rest, **kw):
+        with plain_versions(ops, ref):
+            lp = orig(params_, cfg_, _clone_cache(torch, cache), *rest,
+                      **kw)[0]
+        lk, new = orig(params_, cfg_, cache, *rest, **kw)
+        rows = torch.zeros(lk.shape[0], dtype=torch.long, device=lk.device)
+        steps_seen.append(step_stats(torch, cfg, lk, lp, rows))
+        return lk, new
+
+    setattr(mod, name, shadow)
+    try:
+        yield
+    finally:
+        setattr(mod, name, orig)
+
+
+def profile_static(torch, fn, n: int = 3) -> dict:
+    """One static decode step (``fn``) under the profiler: host and device
+    ms a step, the device's busy share, CUDA launches a step and the top
+    kernels by device time."""
+    by_name, wall_us = device_profile(torch, fn, n)
+    busy_us = sum(t for t, _ in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    return {"wall_ms_per_step": wall_us / 1e3 / n,
+            "device_ms_per_step": busy_us / 1e3 / n,
+            "device_busy_share": busy_us / wall_us if wall_us else 0.0,
+            "cuda_launches_per_step": sum(k for _, k in by_name.values()) / n,
+            "top_kernels_ms_per_step": [[name[:60], t / 1e3 / n, k // n]
+                                        for name, (t, k) in ranked[:5]]}
+
+
+def static_lock_step(torch, cfg, runners, tok, steps: int):
+    """Step the runners (each ``tok -> logits`` over its own cache) in lock
+    step, every one fed the first one's greedy tokens: each step's logits
+    against the first's (``step_stats``) and the softmax's max
+    difference, a step's entries in the runners' order (runner i's at
+    [i - 1 :: len(runners) - 1])."""
+    steps_seen, soft = [], []
+    rows = torch.zeros(tok.shape[0], dtype=torch.long, device=tok.device)
+    V = cfg.vocab_size
+    for _ in range(steps):
+        lead, *others = [run(tok) for run in runners]
+        for lg in others:
+            steps_seen.append(step_stats(torch, cfg, lg, lead, rows))
+            soft.append((torch.softmax(lg[:, :V], -1)
+                         - torch.softmax(lead[:, :V], -1))
+                        .abs().max().item())
+        tok = torch.argmax(lead[:, :V], dim=-1)[:, None]
+    return steps_seen, soft
+
+
+def _static_runner(step, params, cfg, cache, *rest, route=None):
+    """``tok -> logits`` of one static decode step function over ``cache``
+    (threaded), routing a ServerPool before each step."""
+    state = {"cache": cache}
+
+    def run(tok):
+        if route is not None:
+            route()
+        logits, state["cache"] = step(params, cfg, state["cache"], tok,
+                                      *rest)
+        return logits
+    return run
+
+
+def static_variant(torch, ops, ref, counters, cfg, engine, prompts, ids,
+                   per_step, what: str) -> dict:
+    """One variant of the static API: ``Engine.prefill`` then
+    ``Engine.decode`` of STATIC_STEPS tokens, counted (counts set to 0
+    just before each) and timed; each decode kernel's launches a step held
+    to ``per_step`` x layers; then the same again with every step's
+    kernels held against the plain versions on the same state, its tokens
+    equal to the first run's bit for bit."""
+    from repro_torch.core import disagg
+    from repro_torch.models import transformer
+    from repro_torch.obs.clock import wall_time
+
+    L = cfg.n_layers
+    last = prompts[:, -1:]
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = wall_time()
+    cache = engine.prefill(prompts)
+    torch.cuda.synchronize()
+    prefill_s = wall_time() - t0
+    pre = {k: fn.launches for k, fn in counters.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = wall_time()
+    toks = engine.decode(cache, last, STATIC_STEPS, adapter_ids=ids)
+    torch.cuda.synchronize()
+    decode_s = wall_time() - t0
+    dec = {k: fn.launches for k, fn in counters.items()}
+    for name, n in per_step.items():
+        check(dec[name] == n * L * STATIC_STEPS,
+              f"{what}: {name} launched {dec[name]} times in "
+              f"{STATIC_STEPS} decode steps, not {n} x {L} layers a step")
+    others = {k: v for k, v in dec.items() if k not in per_step and v}
+    check(not others, f"{what}: unexpected launches {others}")
+    check(pre["gmm"] == 3 * (L - 1) and sum(pre.values()) == pre["gmm"],
+          f"{what}: prefill launches {pre} (3 gmm a layer, the last "
+          f"layer's FFN skipped)")
+    out = {"prefill_s": prefill_s, "prefill_launches": {
+               k: v for k, v in pre.items() if v},
+           "decode_ms_per_step": 1e3 * decode_s / STATIC_STEPS,
+           "tokens_per_s": toks.numel() / decode_s,
+           "decode_launches": {k: v for k, v in dec.items() if v},
+           "launches_per_step": {k: v // STATIC_STEPS
+                                 for k, v in dec.items() if v},
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"{what}: token out of the vocabulary")
+    mod, name = (disagg, "disagg_decode_step") if engine.server is not None \
+        else (transformer, "decode_step")
+    steps_seen = []
+    with shadowed(torch, ops, ref, mod, name, cfg, steps_seen):
+        again = engine.decode(engine.prefill(prompts), last, STATIC_STEPS,
+                              adapter_ids=ids)
+    check(bool((again == toks).all()),
+          f"{what}: two runs through the kernels gave different tokens")
+    out["kernels_vs_plain"] = hold_steps(steps_seen, f"{what}, kernels vs "
+                                         f"plain versions")
+    out["profile"] = profile_static(
+        torch, lambda: engine.decode(cache, last, 1, adapter_ids=ids))
+    out["launches"] = {k: pre[k] + dec[k] for k in counters}
+    return out, toks
+
+
+def static_cell(torch, ops, ref, counters, smi) -> dict:
+    """Phase 10(a): the static-batch API (``Engine.prefill`` / ``decode``)
+    on qwen3-moe at full width, depth LAYERS: STATIC_B prompts of
+    STATIC_PROMPT tokens, STATIC_STEPS greedy steps, adapters of true
+    ranks RANKS (one a row) in a rank-32 pool. Variants: coupled on all
+    seven targets with bf16 and with int8 KV, coupled on gate/up/down,
+    disaggregated through a LoRAServer and through a 2-replica
+    ServerPool; each against the plain versions (``static_variant``);
+    coupled (gate/up/down) == disaggregated and int8 against bf16 KV in
+    lock step."""
+    import numpy as np
+
+    from repro_torch.core import disagg
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.obs.clock import wall_time
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    t0 = wall_time()
+    dev = "cuda"
+    cfg, params = serve.model(ARCH, layers=LAYERS, seed=SEED, device=dev)
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (STATIC_B, STATIC_PROMPT)), device=dev)
+    ids = np.arange(STATIC_B, dtype=np.int32) % len(RANKS)
+    pool7 = serve.adapter_pool(cfg, "coupled", RANKS, seed=SEED,
+                               dtype=torch.bfloat16, device=dev)
+    two = serve.build_pool(cfg, RANKS, 2, seed=SEED, dtype=torch.bfloat16,
+                           device=dev)
+    ffn = two["pool"]
+    one = serve.build_pool(cfg, RANKS, 1, seed=SEED, dtype=torch.bfloat16,
+                           device=dev)["server"].replicas[0]
+    # the static API reads no slot layout: the dense one needs no page fit
+    ecfg = EngineConfig(max_len=STATIC_PROMPT + STATIC_STEPS + 8,
+                        paged=False)
+    q8 = dataclasses.replace(ecfg, kv_quant=True)
+    coupled7 = {"bgmv": 4, "bgmv_expert": 3, "gmm": 3}
+    coupled3 = {"bgmv_expert": 3, "gmm": 3}
+    dis = {"bgmv_expert": 2, "gmm": 3}
+    # a hook launches once on each replica that homes an active row's
+    # adapter: ids 0-3 sit on both of the pool's replicas
+    dis2 = {"bgmv_expert": 4, "gmm": 3}
+    variants = {
+        "coupled_bf16": (Engine(cfg, params, ecfg, pool=pool7, device=dev),
+                         coupled7),
+        "coupled_int8": (Engine(cfg, params, q8, pool=pool7, device=dev),
+                         coupled7),
+        "coupled_ffn": (Engine(cfg, params, ecfg, pool=ffn, device=dev),
+                        coupled3),
+        "disagg_server": (Engine(cfg, params, ecfg, server=one, pool=ffn,
+                                 device=dev), dis),
+        "disagg_pool2": (Engine(cfg, params, ecfg, server=two["server"],
+                                pool=ffn, device=dev), dis2),
+    }
+    print(f"phase 10(a): {cfg.name} static batch, depth {cfg.n_layers}, "
+          f"B={STATIC_B} x {STATIC_PROMPT} prompt tokens, {STATIC_STEPS} "
+          f"steps, ranks {RANKS}", flush=True)
+    out, launches, toks = {}, {}, {}
+    for name, (eng, per_step) in variants.items():
+        out[name], toks[name] = static_variant(
+            torch, ops, ref, counters, cfg, eng, prompts, ids, per_step,
+            f"static {name}")
+        launches[f"static_{name}"] = out[name].pop("launches")
+        print(f"phase 10(a) {name}: " + json.dumps(out[name]), flush=True)
+    # coupled (gate/up/down) == disaggregated, and int8 against bf16 KV, in
+    # lock step from one prefill each
+    ids_t = torch.as_tensor(ids, device=dev)
+    last = prompts[:, -1:]
+    e3, ed = variants["coupled_ffn"][0], variants["disagg_server"][0]
+    sp = two["server"]
+    runs = [_static_runner(transformer.decode_step, params, cfg,
+                           e3.prefill(prompts), ffn.lora_ctx(ids_t)),
+            _static_runner(disagg.disagg_decode_step, params, cfg,
+                           ed.prefill(prompts), one, ids_t, ffn.scale),
+            _static_runner(disagg.disagg_decode_step, params, cfg,
+                           ed.prefill(prompts), sp, ids_t, ffn.scale,
+                           route=lambda: sp.route_step(ids))]
+    seen, _ = static_lock_step(torch, cfg, runs, last, STATIC_STEPS)
+    sp.route_step(None)
+    out["coupled_eq_disagg"] = hold_steps(seen, "static coupled (gate/up/"
+                                          "down) == disagg")
+    eb, e8 = variants["coupled_bf16"][0], variants["coupled_int8"][0]
+    # int8 against bf16 KV, and planted faults of the int8 read that the
+    # limit must catch: the prompt's scales dropped (codes read raw) and
+    # halved (every prompt key and value read at half its size)
+    faults = {"prompt_scales_dropped": lambda c: c.fill_(1.0),
+              "prompt_scales_halved": lambda c: c.mul_(0.5)}
+    caches = [eb.prefill(prompts)] + [e8.prefill(prompts)
+                                      for _ in range(1 + len(faults))]
+    for fault, c in zip(faults.values(), caches[2:]):
+        fault(c["k_scale"])
+        fault(c["v_scale"])
+    runs = [_static_runner(transformer.decode_step, params, cfg, c,
+                           pool7.lora_ctx(ids_t)) for c in caches]
+    seen, soft = static_lock_step(torch, cfg, runs, last, STATIC_STEPS)
+    n = len(runs) - 1
+    sound = step_summary(seen[::n])
+    med = sound["step_logits_max_abs_diff"]["median"]
+    check(max(soft[::n]) < SOFTMAX_TOL, f"static int8 vs bf16 KV: a "
+          f"step's softmax differs by {max(soft[::n])} >= {SOFTMAX_TOL}")
+    check(med <= INT8_LOGIT_TOL, f"static int8 vs bf16 KV: the median "
+          f"step's logits differ by {med} > {INT8_LOGIT_TOL}")
+    planted = {}
+    for i, fault in enumerate(faults, 1):
+        fm = step_summary(seen[i::n])["step_logits_max_abs_diff"]["median"]
+        check(fm > INT8_LOGIT_TOL, f"static int8 vs bf16 KV: the planted "
+              f"fault {fault} reads {fm} <= {INT8_LOGIT_TOL}: the limit "
+              f"would not catch it")
+        planted[fault] = {"median_step_logits_max_abs_diff": fm,
+                          "softmax_max_abs_diff": max(soft[i::n])}
+    out["int8_vs_bf16"] = {"softmax_max_abs_diff": max(soft[::n]),
+                           "softmax_tol": SOFTMAX_TOL,
+                           "logit_tol": INT8_LOGIT_TOL, **sound,
+                           "planted_faults": planted}
+    out["free_run_tokens_equal"] = {
+        "coupled_ffn_vs_disagg_server": int((toks["coupled_ffn"]
+                                             == toks["disagg_server"]).sum()),
+        "disagg_server_vs_pool2": int((toks["disagg_server"]
+                                       == toks["disagg_pool2"]).sum()),
+        "int8_vs_bf16": int((toks["coupled_int8"]
+                             == toks["coupled_bf16"]).sum()),
+        "of": STATIC_B * STATIC_STEPS}
+    out["seconds"] = wall_time() - t0
+    print("phase 10(a) static API: " + json.dumps(
+        {k: out[k] for k in ("coupled_eq_disagg", "int8_vs_bf16",
+                             "free_run_tokens_equal", "seconds")})
+          + f"; card {smi}", flush=True)
+    del variants, params, pool7, two, one, runs, eb, e8, e3, ed
+    free_device(torch)
+    return launches
+
+
+@contextlib.contextmanager
+def wide_accumulation(torch):
+    """The port's f32 accumulations (the ``F32`` of the model modules)
+    widened to f64: with f64 weights every operation then runs in f64."""
+    from repro_torch.models import cache, layers, ssm
+    mods = (cache, layers, ssm)
+    for m in mods:
+        m.F32 = torch.float64
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.F32 = torch.float32
+
+
+def recurrent_forward(torch, ssm, transformer, params, cfg, toks):
+    """rwkv6's forward through its recurrent form (chunk 1): the decode's
+    arithmetic, but for the GEMMs' row counts."""
+    orig = ssm.rwkv6_time_mix
+    ssm.rwkv6_time_mix = functools.partial(orig, chunk=1)
+    try:
+        return transformer.forward(params, cfg, toks)[0]
+    finally:
+        ssm.rwkv6_time_mix = orig
+
+
+def rwkv_f64(torch, ssm, transformer, cfg, toks, logits32) -> dict:
+    """rwkv6 in f64 at full width and depth: the chunked forward, the
+    recurrent forward and ``decode_step`` over the same tokens, each held
+    to the decode within F64_TOL; each f32 path (``logits32``) against
+    its f64 twin."""
+    from repro_torch.models import cache as cache_mod
+    from repro_torch.models.model import init_params
+
+    f64 = torch.float64
+    with wide_accumulation(torch):
+        params = init_params(cfg, seed=SEED, dtype=f64, device="cuda")
+        got = {"forward": transformer.forward(params, cfg, toks)[0],
+               "recurrent_forward": recurrent_forward(
+                   torch, ssm, transformer, params, cfg, toks)}
+        cache = cache_mod.init_cache(cfg, toks.shape[0], toks.shape[1],
+                                     dtype=f64, device="cuda")
+        steps = []
+        for t in range(toks.shape[1]):
+            lg, cache = transformer.decode_step(params, cfg, cache,
+                                                toks[:, t:t + 1])
+            steps.append(lg)
+        got["decode"] = torch.stack(steps, 1)
+    check(all(v.dtype == f64 for v in got.values()),
+          f"{cfg.name} f64: logits not f64")
+    out = {"tol": F64_TOL}
+    for what in ("forward", "recurrent_forward"):
+        d = (got[what] - got["decode"]).abs().max().item()
+        check(d <= F64_TOL, f"{cfg.name} f64: {what} vs decode_step max "
+              f"|logit diff| {d} > {F64_TOL}")
+        out[f"{what}_vs_decode"] = d
+    out["f32_vs_f64"] = {k: (v.double() - got[k]).abs().max().item()
+                         for k, v in logits32.items()}
+    del params, cache, steps, got
+    free_device(torch)
+    return out
+
+
+def family_cell(torch, name: str, smi) -> dict:
+    """Phase 10(b), one of the ssm, hybrid and audio configs at its
+    published widths and depth. f32
+    weights: ``decode_step`` over F32_STEPS positions of F32_B rows against
+    one ``forward`` over the same tokens (seamless: cross caches from a
+    forward over AUDIO_FRAMES frames), held to F32_TOL; rwkv6 also
+    through its recurrent forward, held to RWKV_F32_TOL, and all three in
+    f64 (``rwkv_f64``), held to F64_TOL. bf16 weights:
+    ``Engine.prefill`` of FAMILY_B prompts of FAMILY_PROMPT tokens and
+    ``Engine.decode`` of FAMILY_STEPS steps (seamless: the cross caches of
+    a forward over AUDIO_FRAMES frames filled in between, the reference's
+    way to serve the encoder), twice, the tokens bit for bit."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import cache as cache_mod
+    from repro_torch.models import ssm, transformer
+    from repro_torch.models.model import init_params
+    from repro_torch.obs.clock import wall_time
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    t0 = wall_time()
+    dev, cfg = "cuda", get_config(name)
+    rng = np.random.default_rng(SEED)
+    audio = cfg.family == "audio"
+    out = {"config": name, "family": cfg.family, "layers": cfg.n_layers,
+           "d": cfg.d_model, "params_b": cfg.param_count() / 1e9}
+
+    def frames(B, dtype):
+        return torch.as_tensor(rng.standard_normal(
+            (B, AUDIO_FRAMES, cfg.d_model)) * 0.1, dtype=dtype, device=dev)
+
+    def fill_cross(cache, fe, params):
+        _, (_, (ck, cv)) = transformer.forward(
+            params, cfg, torch.zeros((fe.shape[0], 1), dtype=torch.long,
+                                     device=dev), frontend_emb=fe,
+            collect_kv=True)
+        cache["ck"][:, :, :AUDIO_FRAMES] = ck.to(cache["ck"].dtype)
+        cache["cv"][:, :, :AUDIO_FRAMES] = cv.to(cache["cv"].dtype)
+        cache["cross_len"] = AUDIO_FRAMES
+
+    # f32: decode_step against forward
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=SEED, dtype=torch.float32, device=dev)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (F32_B, F32_STEPS)), device=dev)
+    fe = frames(F32_B, torch.float32) if audio else None
+    fwd, aux = transformer.forward(params, cfg, toks, frontend_emb=fe,
+                                   collect_kv=audio)
+    cache = cache_mod.init_cache(cfg, F32_B, F32_STEPS, dtype=torch.float32,
+                                 device=dev)
+    if audio:
+        ck, cv = aux[1]
+        cache["ck"][:, :, :AUDIO_FRAMES] = ck.float()
+        cache["cv"][:, :, :AUDIO_FRAMES] = cv.float()
+        cache["cross_len"] = AUDIO_FRAMES
+    steps = []
+    for t in range(F32_STEPS):
+        lg, cache = transformer.decode_step(params, cfg, cache,
+                                            toks[:, t:t + 1])
+        steps.append(lg)
+    dec = torch.stack(steps, 1)
+    by_pos = (dec - fwd).abs().amax(dim=(0, 2))
+    rwkv = cfg.family == "ssm"
+    diff, tol = by_pos.max().item(), RWKV_F32_TOL if rwkv else F32_TOL
+    check(bool(torch.isfinite(dec).all()) and diff <= tol,
+          f"{name} f32: decode_step vs forward max |logit diff| {diff} > "
+          f"{tol}")
+    out["f32"] = {"decode_vs_forward_max_abs_logit_diff": diff,
+                  "first_positions": by_pos[:5].tolist(),
+                  "after_position_4": by_pos[5:].max().item(),
+                  "tol": tol, "max_abs_logit": fwd.abs().max().item(),
+                  "greedy_equal": int((dec.argmax(-1) == fwd.argmax(-1))
+                                      .sum()),
+                  "of": F32_B * F32_STEPS,
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if rwkv:
+        logits32 = {"forward": fwd, "decode": dec,
+                    "recurrent_forward": recurrent_forward(
+                        torch, ssm, transformer, params, cfg, toks)}
+        rec = (logits32["recurrent_forward"] - dec).abs().max().item()
+        check(rec <= tol, f"{name} f32: the recurrent forward vs "
+              f"decode_step max |logit diff| {rec} > {tol}")
+        out["f32"]["recurrent_forward_vs_decode"] = rec
+    del params, cache, steps
+    free_device(torch)
+    if rwkv:
+        out["f64"] = rwkv_f64(torch, ssm, transformer, cfg, toks, logits32)
+        del logits32
+    del fwd, dec, aux
+
+    # bf16: the static engine, twice
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=SEED, device=dev)
+    eng = Engine(cfg, params, EngineConfig(
+        max_len=FAMILY_PROMPT + FAMILY_STEPS, paged=False), device=dev)
+    prompts = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (FAMILY_B, FAMILY_PROMPT)), device=dev)
+    fe = frames(FAMILY_B, torch.bfloat16) if audio else None
+    runs = []
+    for _ in range(2):
+        t1 = wall_time()
+        cache = eng.prefill(prompts)
+        if audio:
+            fill_cross(cache, fe, params)
+        torch.cuda.synchronize()
+        t2 = wall_time()
+        got = eng.decode(cache, prompts[:, -1:], FAMILY_STEPS)
+        torch.cuda.synchronize()
+        t3 = wall_time()
+        runs.append((got, t2 - t1, t3 - t2))
+    out["profile"] = profile_static(
+        torch, lambda: eng.decode(cache, prompts[:, -1:], 1))
+    (a, pre_s, dec_s), (b, _, _) = runs
+    check(bool((a == b).all()), f"{name} bf16: two runs gave different "
+          f"tokens")
+    check(bool(((a >= 0) & (a < cfg.vocab_size)).all()),
+          f"{name} bf16: token out of the vocabulary")
+    out["bf16"] = {"prefill_s": [r[1] for r in runs],
+                   "decode_ms_per_step": [1e3 * r[2] / FAMILY_STEPS
+                                          for r in runs],
+                   "tokens_per_s": [a.numel() / r[2] for r in runs],
+                   "tokens_equal_twice": True,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    out["seconds"] = wall_time() - t0
+    print("phase 10(b) " + json.dumps(out) + f"; card {smi}", flush=True)
+    del params, eng, cache, runs
+    free_device(torch)
+    return out
+
+
+def static_phase(torch, ops, ref, counters, smi) -> dict:
+    """Phase 10: the static-batch API and the families only it serves."""
+    from repro_torch.obs.clock import wall_time
+
+    t0 = wall_time()
+    launches = static_cell(torch, ops, ref, counters, smi)
+    fams = [family_cell(torch, name, smi) for name in NEW_FAMILIES]
+    print("phase 10(b) summary: " + json.dumps({
+        f["config"]: {"f32_diff": f["f32"][
+            "decode_vs_forward_max_abs_logit_diff"],
+            "bf16_ms_per_step": f["bf16"]["decode_ms_per_step"][-1],
+            "peak_gib": f["bf16"]["peak_gib"],
+            "device_busy_share": f["profile"]["device_busy_share"]}
+        for f in fams}), flush=True)
+    print(f"phase 10: {wall_time() - t0:.1f} s", flush=True)
     return launches
 
 
@@ -2492,17 +3036,17 @@ def main() -> int:
             ln.strip() for ln in log.splitlines() if "Used" in ln or
             "spill" in ln), flush=True)
 
-    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
-    pa = paged_phase(torch, paged, ref, flush)
-    hk = hook_phase(torch, bgmv, ref, flush)
-    bg = bgmv_phase(torch, bgmv, ref, flush)
-    gm = gmm_phase(torch, gmm, ref, flush)
     counters = {"paged_attention": paged.paged_attention,
                 "bgmv_expert": bgmv.bgmv_expert, "bgmv": bgmv.bgmv,
                 "bgmv_ranked": bgmv.bgmv_ranked, "sgmv": sgmv.sgmv,
                 "sgmv_ranked": sgmv.sgmv_ranked,
                 "fused_sgmv": fused.fused_sgmv,
                 "fused_sgmv_ranked": fused.fused_sgmv_ranked, "gmm": gmm.gmm}
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    pa = paged_phase(torch, paged, ref, flush)
+    hk = hook_phase(torch, bgmv, ref, flush)
+    bg = bgmv_phase(torch, bgmv, ref, flush)
+    gm = gmm_phase(torch, gmm, ref, flush)
     lora = lora_path_phase(torch, ops, ref, counters, flush)
     repairs = repair_phase(torch, sgmv, fused, ref)
     launches, model, coupled_tokens = main_paths(torch, ops, paged, bgmv,
@@ -2516,6 +3060,7 @@ def main() -> int:
     del model, cfg, params
     free_device(torch)
     launches.update(families_phase(torch, ops, ref, counters, flush, smi))
+    launches.update(static_phase(torch, ops, ref, counters, smi))
 
     # "launches": the coupled plane's run for rows 1-3 and gmm, the
     # LoRA-kernel path's run for rows 4-8; each path's counted run in

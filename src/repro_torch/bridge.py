@@ -34,6 +34,37 @@ def to_tensor(a, device="cpu", dtype: Optional[torch.dtype] = None):
     return t.to(device=device, dtype=dtype or torch.float32)
 
 
+def _host_int(a) -> bool:
+    return np.ndim(a) == 0 and np.asarray(a).dtype.kind in "iu"
+
+
+def cache_from(ref_cache_np, device="cpu"):
+    """A static-batch cache of the port (``cache.init_cache``'s layout)
+    from a reference cache as numpy arrays: ``pos`` and ``cross_len``
+    become host ints; int8 codes, their f32 scales and the hybrid's int32
+    ``apos`` keep their dtypes; bf16 arrays stay bf16, f32 stay f32."""
+    out = {}
+    for name, a in ref_cache_np.items():
+        if _host_int(a):
+            out[name] = int(a)
+            continue
+        arr = np.asarray(a)
+        bf16 = arr.dtype.name == "bfloat16"
+        out[name] = to_tensor(arr, device,
+                              torch.bfloat16 if bf16 else torch.float32)
+    return out
+
+
+def cache_to_numpy(cache):
+    """The port's static-batch cache as numpy: tensors as arrays (bf16 as
+    f32, since numpy has no bf16; int8 codes stay int8), ints as int32
+    scalars, as the reference's ``pos``."""
+    return {name: (np.int32(t) if isinstance(t, int) else
+                   t.detach().cpu().to(torch.float32).numpy()
+                   if t.dtype == torch.bfloat16 else t.detach().cpu().numpy())
+            for name, t in cache.items()}
+
+
 def tree_to_tensors(tree, device="cpu", dtype: Optional[torch.dtype] = None):
     """Nested dicts of numpy arrays -> the same dicts of tensors."""
     if isinstance(tree, dict):

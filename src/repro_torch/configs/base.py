@@ -1,9 +1,10 @@
-"""Model configuration of the port: the fields of the reference's
-``ModelConfig`` that the slot families (dense, moe, vlm) read, with the
-same defaults and the same ``reduced()`` rule (a tiny same-family config
-for CPU tests), and the parameter and adapter accounting the cost model,
-provisioning and the simulator price with. The ssm, hybrid and audio
-families, and their fields, come with ROADMAP A7d."""
+"""Model configuration of the port: every field of the reference's
+``ModelConfig``, with the same defaults and the same ``reduced()`` rule (a
+tiny same-family config for CPU tests), and the parameter and adapter
+accounting the cost model, provisioning and the simulator price with.
+Families: dense | moe | vlm (served by the slot engine) and ssm (rwkv6) |
+hybrid (mamba2 + a shared attention block) | audio (encoder-decoder),
+which only the static-batch ``Engine.prefill`` / ``decode`` serves."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,7 +18,7 @@ SLOT_FAMILIES = ("dense", "moe", "vlm")
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # the port serves dense | moe | vlm
+    family: str  # dense | moe | hybrid | ssm | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -33,8 +34,19 @@ class ModelConfig:
     n_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
-    # modality frontend stub: data only (the slot engine ignores it)
-    frontend: str = ""  # "vit" | ""
+    # SSM (mamba2 / rwkv6)
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    rwkv: bool = False  # RWKV-6 token/channel mix instead of mamba2
+    # hybrid (zamba2): one shared attention block every k mamba layers
+    shared_attn_every: int = 0
+    # encoder-decoder (seamless)
+    n_enc_layers: int = 0
+    cross_kv_len: int = 4096
+    # modality frontend stub: frontend positions at the sequence's head
+    frontend: str = ""  # "vit" | "audio" | ""
     frontend_tokens: int = 0
     sliding_window: int = 0  # 0 = full attention
     lora_rank: int = 64
@@ -44,7 +56,7 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
-        if self.n_heads % max(self.n_kv_heads, 1):
+        if self.n_heads % max(self.n_kv_heads, 1) and not self.rwkv:
             raise ValueError(f"{self.name}: n_heads must be a multiple of "
                              f"n_kv_heads")
 
@@ -61,31 +73,65 @@ class ModelConfig:
     def is_ssm(self) -> bool:
         return self.family in ("ssm", "hybrid")
 
-    # ---------------------------- accounting --------------------------- #
-    def _need_slot_family(self, what: str) -> None:
-        if self.family not in SLOT_FAMILIES:
-            raise ValueError(f"{self.name}: {what} of the {self.family!r} "
-                             f"family is not ported yet (ROADMAP A7d)")
+    @property
+    def is_encdec(self) -> bool:
+        return self.n_enc_layers > 0
 
+    @property
+    def attention_free(self) -> bool:
+        """True when no layer does full softmax attention over the context."""
+        return self.family == "ssm" and self.rwkv or (
+            self.family == "ssm" and self.shared_attn_every == 0)
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """The ssm and hybrid families (linear in the context)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def d_inner(self) -> int:
+        """Mamba2 inner width."""
+        return self.ssm_expand * self.d_model
+
+    # ---------------------------- accounting --------------------------- #
     def param_count(self) -> int:
-        """Total parameter count: embeddings, lm head, final norm and per
-        layer the attention, two norms and the MLP (dense, vlm: 3 matrices
-        gated, 2 not) or the router and the experts (moe: 3 matrices
-        each)."""
-        self._need_slot_family("param_count")
+        """Total parameter count of the ``param_specs`` tree: embeddings, lm
+        head, final norm and per layer
+          dense, vlm : attention, 2 norms, MLP (3 matrices gated, 2 not)
+          moe        : attention, 2 norms, router, experts (3 each)
+          ssm (rwkv) : time mix (r, k, v, g, o, decay lora), channel mix,
+                       2 norms
+          hybrid     : a mamba2 layer each, plus one shared dense block
+          audio      : a dense layer per encoder and decoder layer, plus
+                       a cross attention and its norm per decoder layer"""
         d, ff, V = self.d_model, self.d_ff, self.vocab_size
         hd, H, KV = self.head_dim, self.n_heads, self.n_kv_heads
         attn = d * H * hd + 2 * d * KV * hd + H * hd * d
         if self.qkv_bias:
             attn += (H + 2 * KV) * hd
-        emb = V * d
-        head = 0 if self.tie_embeddings else V * d
         norms = 2 * d
-        if self.family == "moe":
-            ffn = d * self.n_experts + self.n_experts * 3 * d * ff
-        else:
-            ffn = (3 if self.gated_mlp else 2) * d * ff
-        return emb + head + d + self.n_layers * (attn + ffn + norms)
+        dense_layer = attn + (3 if self.gated_mlp else 2) * d * ff + norms
+        total = V * d + (0 if self.tie_embeddings else V * d) + d
+        fam = self.family
+        if fam in ("dense", "vlm"):
+            return total + self.n_layers * dense_layer
+        if fam == "moe":
+            experts = d * self.n_experts + self.n_experts * 3 * d * ff
+            return total + self.n_layers * (attn + experts + norms)
+        if fam == "ssm" and self.rwkv:
+            time_mix = 5 * d * d + 2 * d * 64 + 64 * d
+            channel_mix = 2 * d * ff + d * d
+            return total + self.n_layers * (time_mix + channel_mix + norms)
+        if fam == "hybrid":
+            di, N = self.d_inner, self.ssm_state
+            nh = di // self.ssm_head_dim
+            mamba = (d * (2 * di + 2 * N + nh) + self.ssm_conv * (di + 2 * N)
+                     + di * d + nh * 2 + d)
+            return total + self.n_layers * mamba + dense_layer
+        if fam == "audio":
+            return (total + (self.n_layers + self.n_enc_layers) * dense_layer
+                    + self.n_layers * (attn + norms))
+        raise ValueError(fam)
 
     def active_param_count(self) -> int:
         """Parameters a token activates (top_k of n_experts)."""
@@ -100,8 +146,9 @@ class ModelConfig:
     def lora_adapter_bytes(self, rank: Optional[int] = None,
                            dtype: str = "bfloat16") -> int:
         """Device bytes of ONE adapter (paper Fig. 1a): the attention
-        targets plus the FFN targets, expert-specific on a MoE."""
-        self._need_slot_family("lora_adapter_bytes")
+        targets plus the FFN targets, expert-specific on a MoE, over the
+        decoder's and the encoder's layers (the reference counts no ssm
+        target)."""
         r = rank or self.lora_rank
         d, ff = self.d_model, self.d_ff
         hd, H, KV = self.head_dim, self.n_heads, self.n_kv_heads
@@ -122,7 +169,7 @@ class ModelConfig:
             per_layer += e * (d * r + r * ff)
         if "down" in tgt:
             per_layer += e * (ff * r + r * d)
-        return per_layer * self.n_layers * BYTES[dtype]
+        return per_layer * (self.n_layers + self.n_enc_layers) * BYTES[dtype]
 
     def reduced(self) -> "ModelConfig":
         """Tiny same-family config for CPU tests (the reference's rule)."""
@@ -139,6 +186,12 @@ class ModelConfig:
         )
         if self.is_moe:
             changes.update(n_experts=4, top_k=2)
+        if self.is_ssm:
+            changes.update(ssm_state=16, ssm_head_dim=32)
+        if self.shared_attn_every:
+            changes.update(shared_attn_every=1, n_layers=2)
+        if self.is_encdec:
+            changes.update(n_enc_layers=2, cross_kv_len=32)
         if self.frontend:
             changes.update(frontend_tokens=8)
         return dataclasses.replace(self, **changes)

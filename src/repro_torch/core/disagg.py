@@ -11,7 +11,11 @@ added to the locally computed base GEMM outputs:
     y     = h W_d + server.compute("down", l, h-rows)
 
 ``server`` needs only the ``compute(hook, layer, rows, adapter_ids,
-expert_ids)`` contract.
+expert_ids)`` contract. Two decode steps share one MoE hook body
+(``_moe_hooks_layer``), so both stay token-identical to the coupled
+path: ``disagg_decode_step_slots`` (the slot engine, per-slot positions)
+and ``disagg_decode_step`` (the legacy static batch, one shared
+position).
 """
 from __future__ import annotations
 
@@ -88,3 +92,40 @@ def disagg_decode_step_slots(params, cfg, k_cache, v_cache, tokens, pos_vec,
     x = ll.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = ll.unembed(x, params.get("lm_head", params["embed"]))
     return logits[:, 0], k_cache, v_cache
+
+
+def _client_attn(x, lp, cfg, pos: int, k_c, v_c, positions):
+    """The static batch's LoRA-free attention half of a layer: this token's
+    KV written into one layer's (B, S, KV, hd) cache IN PLACE at ``pos``
+    (a host int). x: (B, 1, d) -> the residual after attention."""
+    h = ll.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = ll.qkv_project(h, lp["attn"], cfg)
+    q = ll.apply_rope(q, positions, cfg.rope_theta)
+    k = ll.apply_rope(k, positions, cfg.rope_theta)
+    att = ll.decode_attention_update(q[:, 0], k[:, 0], v[:, 0], k_c, v_c,
+                                     pos, window=cfg.sliding_window)[0]
+    return x + ll.out_project(att[:, None], lp["attn"])
+
+
+def disagg_decode_step(params, cfg, cache, tokens, server, adapter_ids,
+                       lora_scale: float):
+    """One decode step of a MoE model with disaggregated LoRA, for a static
+    batch (the legacy ``Engine.decode``). tokens: (B, 1); cache: a bf16
+    ``cache.init_cache`` dict (its KV written in place; no int8: the
+    engine refuses it); adapter_ids: (B,) int32 global ids on the device
+    (-1 = no delta). Returns (logits (B, V) f32, the new cache with
+    ``pos`` + 1)."""
+    if not cfg.is_moe:
+        raise ValueError("disaggregated hooks target MoE FFNs (paper Fig. 3b)")
+    pos = int(cache["pos"])
+    x = ll.embed(tokens, params["embed"])
+    positions = torch.full((tokens.shape[0], 1), pos, dtype=torch.long,
+                           device=x.device)
+    for l in range(cfg.n_layers):
+        lp = layer_params(params["layers"], l)
+        x = _client_attn(x, lp, cfg, pos, cache["k"][l], cache["v"][l],
+                         positions)
+        x = _moe_hooks_layer(x, lp, cfg, l, server, adapter_ids, lora_scale)
+    x = ll.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = ll.unembed(x, params.get("lm_head", params["embed"]))
+    return logits[:, 0], dict(cache, pos=pos + 1)

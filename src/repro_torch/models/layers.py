@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models.cache import quantize_kv
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -25,11 +26,12 @@ def mm_f32(a, b):
     """a @ b with an f32 result (a: (..., k), b: (k, m)). f32 operands
     multiply as they are; bf16 operands on the card accumulate in f32 and
     return f32 (cuBLAS ``out_dtype``), as the reference's
-    ``preferred_element_type=f32``. The batched expert GEMMs go to
-    ``ops.gmm``."""
+    ``preferred_element_type=f32``. Mixed operands (f32 activations on
+    bf16 weights, or the reverse) multiply in f32, as the reference
+    promotes them. The batched expert GEMMs go to ``ops.gmm``."""
     if a.dtype == F32 and b.dtype == F32:
         return a @ b
-    if a.device.type != "cuda":
+    if a.device.type != "cuda" or a.dtype != b.dtype:
         return a.to(F32) @ b.to(F32)
     lead = a.shape[:-1]
     return torch.mm(a.reshape(-1, a.shape[-1]), b,
@@ -172,20 +174,10 @@ def decode_attention_update_slots(q, k_new, v_new, k_cache, v_cache, pos_vec,
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
         cache[rows, idx] = torch.where(active, new.to(cache.dtype),
                                        cache[rows, idx])
-    qg = q.reshape(B, KV, H // KV, hd)
-    s = torch.einsum("bkgd,bskd->bkgs", qg.to(F32), k_cache.to(F32))
-    s = s * (1.0 / np.sqrt(hd))
     # the reference's mask: key positions below pos + 1 (and the window)
-    n_keys = (pos_vec.long() + 1)[:, None]
-    kp = torch.arange(S, device=q.device)[None, :]
-    valid = kp < n_keys
-    if window:
-        valid &= kp >= n_keys - window
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    m = s.amax(dim=-1)
-    e = torch.exp(s - m[..., None])
-    l = e.sum(dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", e, v_cache.to(F32))
+    _, l, o = _local_decode_scores(q.reshape(B, KV, H // KV, hd), k_cache,
+                                   v_cache, torch.arange(S, device=q.device),
+                                   pos_vec.long() + 1, window)
     out = o / l.clamp_min(1e-20)[..., None]
     return out.reshape(B, H, hd).to(q.dtype), k_cache, v_cache
 
@@ -229,3 +221,105 @@ def decode_attention_update_slots_paged(q, k_new, v_new, k_pool, v_pool,
                               block_table, pos_vec, window=window)
     return out.reshape(B, H, hd).to(q.dtype), k_pool, v_pool
 
+
+
+# ----------------------- static-batch decode ---------------------------- #
+# One shared host-int position ``pos`` for the whole batch (the legacy
+# ``Engine.prefill`` / ``decode`` API), on the local plan: the reference's
+# sequence-sharded branches are the mesh plane's.
+quantize_kv_token = quantize_kv   # one token's (B, KV, hd) -> (int8, scale)
+
+
+def _local_decode_scores(q, k, v, key_positions, pos, window, k_scale=None,
+                         v_scale=None):
+    """Partial decode attention over a KV slice, before the softmax's
+    normalisation. q: (B, KV, G, hd); k/v: (B, S, KV, hd), int8 with
+    their (B, S, KV, 1) scales; key_positions: (S,) absolute position per
+    key (-1 = empty); pos: keys below it are valid, a host int (one for
+    the batch) or a (B,) tensor (one per row). Returns (m, l, o): the
+    running max (B, KV, G), the sum of exponentials (B, KV, G) and the
+    weighted values (B, KV, G, hd), all f32. A row with no valid key
+    takes every key at the finite NEG_INF, as the reference."""
+    if k_scale is not None:
+        k = k.to(F32) * k_scale
+        v = v.to(F32) * v_scale
+    s = torch.einsum("bkgd,bskd->bkgs", q.to(F32), k.to(F32))
+    s = s * (1.0 / np.sqrt(q.shape[-1]))
+    kp = key_positions
+    if torch.is_tensor(pos):
+        kp, pos = kp[None, :], pos[:, None]
+    valid = (kp >= 0) & (kp < pos)
+    if window:
+        valid &= kp >= pos - window
+    vmask = valid[None, None, None, :] if valid.dim() == 1 \
+        else valid[:, None, None, :]
+    s = torch.where(vmask, s, NEG_INF)
+    m = s.amax(dim=-1)
+    e = torch.exp(s - m[..., None])
+    return m, e.sum(dim=-1), torch.einsum("bkgs,bskd->bkgd", e, v.to(F32))
+
+
+def _write_local(buf, new, idx: int) -> None:
+    """Write one token (B, KV, hd|1) at sequence index ``idx`` of
+    (B, S, KV, ...) IN PLACE, cast to the buffer's dtype; an index past
+    the buffer writes nothing (the reference's ownership mask)."""
+    if 0 <= idx < buf.shape[1]:
+        buf[:, idx] = new.to(buf.dtype)
+
+
+def decode_attention_update(q, k_new, v_new, k_cache, v_cache, pos: int, *,
+                            window: int = 0, k_scale=None, v_scale=None,
+                            key_positions=None, write_slot=None):
+    """This token's KV write + single-token decode attention.
+
+    q: (B, H, hd); k_new/v_new: (B, KV, hd) post-RoPE; k_cache/v_cache:
+    (B, S, KV, hd), with their (B, S, KV, 1) f32 scales when int8 (the
+    token is quantized on its way in); pos: tokens already cached, a host
+    int (this token becomes position ``pos``); write_slot: the cache slot
+    it goes to (default pos; a ring buffer passes pos % W); key_positions:
+    (S,) int32 absolute position per slot (ring), updated with the write.
+    Caches, scales and key_positions are updated IN PLACE.
+
+    Returns (out (B, H, hd), k_cache, v_cache, k_scale, v_scale,
+    key_positions)."""
+    B, H, hd = q.shape
+    S, KV = k_cache.shape[1:3]
+    slot = pos if write_slot is None else write_slot
+    if k_scale is not None:
+        (kq, ks), (vq, vs) = quantize_kv_token(k_new), quantize_kv_token(v_new)
+        for buf, new in ((k_cache, kq), (v_cache, vq), (k_scale, ks),
+                         (v_scale, vs)):
+            _write_local(buf, new, slot)
+    else:
+        _write_local(k_cache, k_new, slot)
+        _write_local(v_cache, v_new, slot)
+    if key_positions is not None:
+        if 0 <= slot < S:
+            key_positions[slot] = pos
+        kp = key_positions
+    else:
+        kp = torch.arange(S, device=q.device)
+    m, l, o = _local_decode_scores(q.reshape(B, KV, H // KV, hd), k_cache,
+                                   v_cache, kp, pos + 1, window, k_scale,
+                                   v_scale)
+    out = o / l.clamp_min(1e-20)[..., None]
+    return (out.reshape(B, H, hd).to(q.dtype), k_cache, v_cache, k_scale,
+            v_scale, key_positions)
+
+
+def decode_attention(q, k_cache, v_cache, pos: int, *, window: int = 0,
+                     kv_scales=None, key_positions=None):
+    """Read-only single-token attention over an existing cache (the audio
+    decoder's cross attention): keys below ``pos`` (a host int) are
+    valid. q: (B, H, hd); k_cache/v_cache: (B, S, KV, hd); kv_scales:
+    their (k_scale, v_scale) when int8. Returns (B, H, hd) in q's dtype."""
+    B, H, hd = q.shape
+    S, KV = k_cache.shape[1:3]
+    k_scale, v_scale = kv_scales if kv_scales is not None else (None, None)
+    kp = key_positions if key_positions is not None \
+        else torch.arange(S, device=q.device)
+    m, l, o = _local_decode_scores(q.reshape(B, KV, H // KV, hd), k_cache,
+                                   v_cache, kp, pos, window, k_scale,
+                                   v_scale)
+    out = o / l.clamp_min(1e-20)[..., None]
+    return out.reshape(B, H, hd).to(q.dtype)

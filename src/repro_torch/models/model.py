@@ -1,14 +1,22 @@
-"""Parameters of the decoder LM, the counterpart of ``repro.models.model``
-for the slot families (dense, moe, vlm): the same tree of names and
-shapes (``param_specs``), drawn on the target device from a
-``torch.Generator``.
+"""Parameters of every family, the counterpart of ``repro.models.model``:
+the same tree of names, shapes and init kinds (``param_specs``), drawn on
+the target device from a ``torch.Generator``. Per-layer leaves carry a
+leading layer dim (L), or (G, every) for the hybrid's mamba stack.
 
   embed (Vp, d) | final_norm (d,) | lm_head (Vp, d) unless tied
-  layers: ln1, ln2 (L, d) | attn: wq (L, d, H*hd), wk/wv (L, d, KV*hd),
-          wo (L, H*hd, d), bq/bk/bv with qkv_bias
+  dense, moe, vlm layers: ln1, ln2 (L, d) | attn: wq (L, d, H*hd),
+          wk/wv (L, d, KV*hd), wo (L, H*hd, d), bq/bk/bv with qkv_bias
           moe: router (L, d, E), gate/up (L, E, d, ff), down (L, E, ff, d)
           mlp (dense, vlm): gate/up (L, d, ff), down (L, ff, d); no gate
           when ``gated_mlp`` is False
+  ssm (rwkv6) layers: mu_r/k/v/g/w, cmu_k/r, w0, u, ln_w, ln_b, ln1, ln2
+          (L, d) | wr/wk/wv/wg/wo, cr (L, d, d) | w1 (L, d, 64),
+          w2 (L, 64, d) | ck (L, d, ff), cv (L, ff, d)
+  hybrid layers (G, every, ...): in_proj (d, 2di+2N+nh), conv_w (cw,
+          di+2N), A_log/dt_bias/D (nh,), norm (di,), out_proj (di, d) |
+          shared_attn: ln1, ln2 (d,), attn and mlp without a layer dim
+  audio: enc_layers {ln1, ln2, attn, mlp} (n_enc ...) | enc_norm (d,) |
+          layers {ln1, ln2, ln3, attn, cross, mlp} (L ...)
 """
 from __future__ import annotations
 
@@ -16,8 +24,6 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
-
-from repro_torch.configs.base import SLOT_FAMILIES
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -38,45 +44,107 @@ def resolve_dtype(dtype) -> torch.dtype:
 
 class PSpec(NamedTuple):
     shape: Tuple[int, ...]
-    init: str = "normal"   # normal | zeros | small
+    init: str = "normal"   # normal | zeros | ones | small
+
+
+def _attn_specs(cfg, Ls: Tuple[int, ...]) -> Dict[str, PSpec]:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    sp = {"wq": PSpec(Ls + (d, H * hd)), "wk": PSpec(Ls + (d, KV * hd)),
+          "wv": PSpec(Ls + (d, KV * hd)), "wo": PSpec(Ls + (H * hd, d))}
+    if cfg.qkv_bias:
+        sp.update(bq=PSpec(Ls + (H * hd,), "zeros"),
+                  bk=PSpec(Ls + (KV * hd,), "zeros"),
+                  bv=PSpec(Ls + (KV * hd,), "zeros"))
+    return sp
+
+
+def _mlp_specs(cfg, Ls: Tuple[int, ...]) -> Dict[str, PSpec]:
+    d, ff = cfg.d_model, cfg.d_ff
+    sp = {"up": PSpec(Ls + (d, ff)), "down": PSpec(Ls + (ff, d))}
+    if cfg.gated_mlp:
+        sp["gate"] = PSpec(Ls + (d, ff))
+    return sp
+
+
+def _moe_specs(cfg, L: int) -> Dict[str, PSpec]:
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    sp = {"router": PSpec((L, d, E), "small"), "up": PSpec((L, E, d, ff)),
+          "down": PSpec((L, E, ff, d))}
+    if cfg.gated_mlp:
+        sp["gate"] = PSpec((L, E, d, ff))
+    return sp
+
+
+def _mamba_specs(cfg, Ls: Tuple[int, ...]) -> Dict[str, PSpec]:
+    d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    nh = di // cfg.ssm_head_dim
+    return {
+        "in_proj": PSpec(Ls + (d, 2 * di + 2 * N + nh)),
+        "conv_w": PSpec(Ls + (cfg.ssm_conv, di + 2 * N)),
+        "A_log": PSpec(Ls + (nh,), "ones"),
+        "dt_bias": PSpec(Ls + (nh,), "zeros"),
+        "D": PSpec(Ls + (nh,), "ones"),
+        "norm": PSpec(Ls + (di,), "zeros"),
+        "out_proj": PSpec(Ls + (di, d)),
+    }
+
+
+def _rwkv_specs(cfg, L: int) -> Dict[str, PSpec]:
+    d, ff = cfg.d_model, cfg.d_ff
+    sp = {mu: PSpec((L, d), "zeros") for mu in (
+        "mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "cmu_k", "cmu_r")}
+    sp.update({w: PSpec((L, d, d)) for w in ("wr", "wk", "wv", "wg", "wo")})
+    sp.update(w0=PSpec((L, d), "zeros"), w1=PSpec((L, d, 64), "small"),
+              w2=PSpec((L, 64, d), "small"), u=PSpec((L, d), "zeros"),
+              ln_w=PSpec((L, d), "ones"), ln_b=PSpec((L, d), "zeros"),
+              ck=PSpec((L, d, ff)), cv=PSpec((L, ff, d)),
+              cr=PSpec((L, d, d)), ln1=PSpec((L, d), "zeros"),
+              ln2=PSpec((L, d), "zeros"))
+    return sp
 
 
 def param_specs(cfg) -> Dict[str, Any]:
-    if cfg.family not in SLOT_FAMILIES:
-        raise ValueError(f"the port serves the {', '.join(SLOT_FAMILIES)} "
-                         f"families, not '{cfg.family}' (ROADMAP A7d)")
     d, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    E, ff = cfg.n_experts, cfg.d_ff
-    attn = {"wq": PSpec((L, d, H * hd)), "wk": PSpec((L, d, KV * hd)),
-            "wv": PSpec((L, d, KV * hd)), "wo": PSpec((L, H * hd, d))}
-    if cfg.qkv_bias:
-        attn.update(bq=PSpec((L, H * hd), "zeros"),
-                    bk=PSpec((L, KV * hd), "zeros"),
-                    bv=PSpec((L, KV * hd), "zeros"))
-    if cfg.is_moe:
-        ffn = {"router": PSpec((L, d, E), "small"),
-               "up": PSpec((L, E, d, ff)), "down": PSpec((L, E, ff, d))}
-        if cfg.gated_mlp:
-            ffn["gate"] = PSpec((L, E, d, ff))
-    else:
-        ffn = {"up": PSpec((L, d, ff)), "down": PSpec((L, ff, d))}
-        if cfg.gated_mlp:
-            ffn["gate"] = PSpec((L, d, ff))
-    specs: Dict[str, Any] = {
-        "embed": PSpec((V, d)),
-        "final_norm": PSpec((d,), "zeros"),
-        "layers": {"ln1": PSpec((L, d), "zeros"), "ln2": PSpec((L, d), "zeros"),
-                   "attn": attn, "moe" if cfg.is_moe else "mlp": ffn},
-    }
+    specs: Dict[str, Any] = {"embed": PSpec((V, d)),
+                             "final_norm": PSpec((d,), "zeros")}
     if not cfg.tie_embeddings:
         specs["lm_head"] = PSpec((V, d))
+
+    def norms(n, Ls):
+        return {f"ln{i}": PSpec(Ls + (d,), "zeros") for i in range(1, n + 1)}
+
+    fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        specs["layers"] = {**norms(2, (L,)), "attn": _attn_specs(cfg, (L,))}
+        if cfg.is_moe:
+            specs["layers"]["moe"] = _moe_specs(cfg, L)
+        else:
+            specs["layers"]["mlp"] = _mlp_specs(cfg, (L,))
+    elif fam == "ssm" and cfg.rwkv:
+        specs["layers"] = _rwkv_specs(cfg, L)
+    elif fam == "hybrid":
+        every = cfg.shared_attn_every
+        specs["layers"] = _mamba_specs(cfg, (L // every, every))
+        specs["shared_attn"] = {**norms(2, ()), "attn": _attn_specs(cfg, ()),
+                                "mlp": _mlp_specs(cfg, ())}
+    elif fam == "audio":
+        E = cfg.n_enc_layers
+        specs["enc_layers"] = {**norms(2, (E,)),
+                               "attn": _attn_specs(cfg, (E,)),
+                               "mlp": _mlp_specs(cfg, (E,))}
+        specs["enc_norm"] = PSpec((d,), "zeros")
+        specs["layers"] = {**norms(3, (L,)), "attn": _attn_specs(cfg, (L,)),
+                           "cross": _attn_specs(cfg, (L,)),
+                           "mlp": _mlp_specs(cfg, (L,))}
+    else:
+        raise ValueError(fam)
     return specs
 
 
 def _make(spec: PSpec, dtype, device, gen) -> torch.Tensor:
-    if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init in ("zeros", "ones"):
+        fill = torch.zeros if spec.init == "zeros" else torch.ones
+        return fill(spec.shape, dtype=dtype, device=device)
     scale = 0.02 if spec.init == "normal" else 0.006
     fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
     scale = min(scale, 1.0 / np.sqrt(max(fan_in, 1)))

@@ -1,11 +1,21 @@
-"""The slot engine's model steps for the slot families (dense, moe, vlm),
-the counterpart of ``repro.models.transformer``: LoRA-free chunked prefill
+"""Model forward passes, the counterpart of ``repro.models.transformer``.
+
+The slot engine's steps (dense, moe, vlm): LoRA-free chunked prefill
 (under prefill/decode disaggregation prefill runs on LoRA-free instances,
-paper footnote 1) and the coupled (S-LoRA) decode step, which applies the
-adapters inside the model: q/k/v/o deltas through ``ops.bgmv``, expert
-deltas through ``moe.moe_block`` (moe) and the MLP's gate/up/down deltas
-through ``ops.bgmv`` (``_mlp_with_lora``; dense, vlm). Each decode layer
-writes its token's KV into a paged pool or a dense slab.
+paper footnote 1) and the coupled (S-LoRA) decode step over per-slot
+positions, each decode layer writing its token's KV into a paged pool or a
+dense slab.
+
+The static batch's (every family; ``Engine.prefill`` / ``decode``): the
+parallel ``forward`` (dense / moe / vlm decoder LMs, rwkv6, the zamba2
+hybrid, the audio encoder-decoder) and ``decode_step``, one token at one
+shared host-int position over ``cache.init_cache``'s caches.
+
+The coupled plane applies the adapters inside the model: q/k/v/o deltas
+through ``ops.bgmv``, expert deltas through ``moe.moe_block`` (moe) and
+the MLP's gate/up/down deltas through ``ops.bgmv`` (``_mlp_with_lora``;
+dense, vlm). The ssm, hybrid and audio families take no adapter in the
+model, as in the reference.
 """
 from __future__ import annotations
 
@@ -15,6 +25,7 @@ from repro_torch.configs.base import SLOT_FAMILIES
 from repro_torch.kernels import ops
 from repro_torch.models import layers as ll
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
 from repro_torch.models.model import layer_params
 
 
@@ -57,8 +68,31 @@ def _mlp_with_lora(h, mp, cfg, lora_layer, ids_tok, scale):
 def _check_family(cfg, what: str) -> None:
     if cfg.family not in SLOT_FAMILIES:
         raise ValueError(f"{what} supports attention LMs "
-                         f"({', '.join(SLOT_FAMILIES)}), not {cfg.family} "
-                         f"(ROADMAP A7d)")
+                         f"({', '.join(SLOT_FAMILIES)}), not {cfg.family}; "
+                         f"use the legacy prefill/decode API")
+
+
+def _qkv_with_deltas(h, ap, cfg, lora_layer, ids_tok, scale):
+    """q (B,S,H,hd), k/v (B,S,KV,hd) of h (B, S, d) with their adapters'
+    deltas, each cast to its target's dtype before the add (where the
+    reference rounds); RoPE not applied."""
+    q, k, v = ll.qkv_project(h, ap, cfg)
+    if lora_layer is None:
+        return q, k, v
+    xf = h.reshape(-1, h.shape[-1])
+    out = []
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        dlt = _delta(xf, lora_layer, name, ids_tok, scale)
+        out.append(t if dlt is None else t + dlt.reshape(t.shape).to(t.dtype))
+    return tuple(out)
+
+
+def _out_with_delta(att, ap, lora_layer, ids_tok, scale):
+    """The out projection of att (B, S, H, hd) plus its adapter's delta."""
+    B, S = att.shape[:2]
+    y = ll.out_project(att, ap)
+    dlt = _delta(att.reshape(B * S, -1), lora_layer, "o", ids_tok, scale)
+    return y if dlt is None else y + dlt.reshape(y.shape).to(y.dtype)
 
 
 # ------------------------------ decode ---------------------------------- #
@@ -72,17 +106,9 @@ def attn_decode_slots(x, lp, cfg, positions, pos_vec, k_l, v_l, block_table,
 
     Deltas round where the reference rounds: each is cast to its target's
     dtype before the add."""
-    B = x.shape[0]
     h = ll.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    q, k, v = ll.qkv_project(h, lp["attn"], cfg)
-    if lora_layer is not None:
-        xf = h.reshape(B, -1)
-        qkv = []
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            dlt = _delta(xf, lora_layer, name, ids_tok, lora_scale)
-            qkv.append(t if dlt is None else
-                       t + dlt.reshape(t.shape).to(t.dtype))
-        q, k, v = qkv
+    q, k, v = _qkv_with_deltas(h, lp["attn"], cfg, lora_layer, ids_tok,
+                               lora_scale)
     q = ll.apply_rope(q, positions, cfg.rope_theta)
     k = ll.apply_rope(k, positions, cfg.rope_theta)
     if block_table is None:
@@ -93,12 +119,8 @@ def attn_decode_slots(x, lp, cfg, positions, pos_vec, k_l, v_l, block_table,
         att, _, _ = ll.decode_attention_update_slots_paged(
             q[:, 0], k[:, 0], v[:, 0], k_l, v_l, block_table, pos_vec,
             window=cfg.sliding_window)
-    att = att[:, None]                                      # (B, 1, H, hd)
-    y = ll.out_project(att, lp["attn"])
-    dlt = _delta(att.reshape(B, -1), lora_layer, "o", ids_tok, lora_scale)
-    if dlt is not None:
-        y = y + dlt.reshape(y.shape).to(y.dtype)
-    return x + y
+    return x + _out_with_delta(att[:, None], lp["attn"], lora_layer, ids_tok,
+                               lora_scale)
 
 
 def decode_step_slots(params, cfg, k_cache, v_cache, tokens, pos_vec,
@@ -171,3 +193,296 @@ def prefill_chunk(params, cfg, tokens, k_ctx, v_ctx):
             x = x + (moe_mod.moe_block(h, lp["moe"], cfg) if cfg.is_moe
                      else ll.mlp(h, lp["mlp"], cfg))
     return torch.stack(ks), torch.stack(vs)
+
+
+# ===================== the static batch (every family) ================= #
+def _lora_parts(lora_ctx, seq: int = 1):
+    """(layer-stacked factors, per-token ids, scale) of a ``lora_ctx``;
+    each row's id repeated over its ``seq`` tokens."""
+    if lora_ctx is None:
+        return None, None, 1.0
+    ids = lora_ctx["ids"]
+    if seq > 1:
+        ids = ids.repeat_interleave(seq)
+    return lora_ctx["adapters"], ids, lora_ctx["scale"]
+
+
+def attn_block(x, ap, cfg, positions, *, causal=True, window=0,
+               kv_override=None, rope=True, lora_layer=None, ids_tok=None,
+               lora_scale=1.0):
+    """x: (B, S, d) -> (y (B, S, d), (k, v) post-RoPE for caching).
+    ``kv_override``: the (k, v) to attend over instead (cross attention,
+    no mask); only q is then used from x."""
+    q, k, v = _qkv_with_deltas(x, ap, cfg, lora_layer, ids_tok, lora_scale)
+    if rope:
+        q = ll.apply_rope(q, positions, cfg.rope_theta)
+        k = ll.apply_rope(k, positions, cfg.rope_theta)
+    if kv_override is not None:
+        k, v = kv_override
+        attn = ll.causal_attention(q, k, v, causal=False)
+    else:
+        attn = ll.causal_attention(q, k, v, causal=causal, window=window)
+    return _out_with_delta(attn, ap, lora_layer, ids_tok, lora_scale), (k, v)
+
+
+def _positions(B: int, S: int, device):
+    return torch.arange(S, device=device).expand(B, S)
+
+
+def forward(params, cfg, tokens, frontend_emb=None, kind="prefill",
+            lora_ctx=None, collect_kv=False, unembed=True):
+    """Parallel forward. tokens: (B, S_text); frontend_emb: (B, S_front, d)
+    (vlm: put ahead of the text; audio: the encoder's input frames).
+
+    Returns (logits (B, S, Vp) f32, aux): aux holds the K/V stacks
+    (L, B, S, KV, hd) when ``collect_kv`` (audio: ((k, v), (ck, cv)) of
+    the self and cross attention; hybrid: ((k, v) (G, ...), (h, conv)
+    (G, every, ...))), or rwkv's final states (tm, cm, wkv), as the
+    reference. ``unembed=False`` (the KV-only prefill of a decoder LM)
+    skips the last layer's FFN, the final norm and the lm head, on which
+    no K/V depends, and returns (None, aux). ``kind="train"`` is refused:
+    training is ROADMAP A9."""
+    if kind == "train":
+        raise ValueError("forward(kind='train') needs the training plane "
+                         "(ROADMAP A9); the port runs prefill and decode")
+    fam = cfg.family
+    if fam == "audio":
+        return _forward_encdec(params, cfg, tokens, frontend_emb, collect_kv)
+    if fam == "ssm" and cfg.rwkv:
+        return _forward_rwkv(params, cfg, tokens)
+    if fam == "hybrid":
+        return _forward_hybrid(params, cfg, tokens, collect_kv)
+
+    x = ll.embed(tokens, params["embed"])
+    if cfg.frontend and frontend_emb is not None:
+        x = torch.cat([frontend_emb.to(x.dtype), x], dim=1)
+    B, S, _ = x.shape
+    positions = _positions(B, S, x.device)
+    stack, ids_tok, scale = _lora_parts(lora_ctx, S)
+    ks, vs = [], []
+    for l in range(cfg.n_layers):
+        lp = layer_params(params["layers"], l)
+        lora_layer = layer_params(stack, l) if stack is not None else None
+        h = ll.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        att, (k, v) = attn_block(h, lp["attn"], cfg, positions,
+                                 window=cfg.sliding_window,
+                                 lora_layer=lora_layer, ids_tok=ids_tok,
+                                 lora_scale=scale)
+        x = x + att
+        ks.append(k)
+        vs.append(v)
+        if not unembed and l + 1 == cfg.n_layers:
+            break
+        h = ll.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        if cfg.is_moe:
+            y = moe_mod.moe_block(h, lp["moe"], cfg, lora=lora_layer,
+                                  ids_tok=ids_tok, lora_scale=scale)
+        else:
+            y = _mlp_with_lora(h, lp["mlp"], cfg, lora_layer, ids_tok, scale)
+        x = x + y
+    kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
+    if not unembed:
+        return None, kvs
+    return _logits(params, cfg, x), kvs
+
+
+def _logits(params, cfg, x):
+    x = ll.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return ll.unembed(x, params.get("lm_head", params["embed"]))
+
+
+def _forward_rwkv(params, cfg, tokens):
+    """RWKV-6: time mix then channel mix a layer, each from a zero state."""
+    x = ll.embed(tokens, params["embed"])
+    state0 = ssm.rwkv6_init_state(cfg, x.shape[0], x.device)
+    states = []
+    for l in range(cfg.n_layers):
+        lp = layer_params(params["layers"], l)
+        y, st = ssm.rwkv6_time_mix(ll.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                                   lp, cfg, state0)
+        x = x + y
+        y, st = ssm.rwkv6_channel_mix(
+            ll.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg, st)
+        x = x + y
+        states.append(st)
+    return _logits(params, cfg, x), tuple(torch.stack(s)
+                                          for s in zip(*states))
+
+
+def _shared_block(x, sp, cfg, positions, window):
+    """The hybrid's weight-shared attention + MLP block."""
+    att, kv = attn_block(ll.rms_norm(x, sp["ln1"], cfg.norm_eps), sp["attn"],
+                         cfg, positions, window=window)
+    x = x + att
+    return x + ll.mlp(ll.rms_norm(x, sp["ln2"], cfg.norm_eps), sp["mlp"],
+                      cfg), kv
+
+
+def _mamba_layer(layers, g: int, j: int) -> dict:
+    """Views of the hybrid's mamba layer j of group g."""
+    return {k: v[g, j] for k, v in layers.items()}
+
+
+def _forward_hybrid(params, cfg, tokens, collect_kv):
+    """Zamba2: per group, the shared block then ``every`` mamba2 layers."""
+    x = ll.embed(tokens, params["embed"])
+    B, S, _ = x.shape
+    positions = _positions(B, S, x.device)
+    every = cfg.shared_attn_every
+    kvs, states = [], []
+    for g in range(cfg.n_layers // every):
+        x, kv = _shared_block(x, params["shared_attn"], cfg, positions,
+                              cfg.sliding_window)
+        kvs.append(kv)
+        for j in range(every):
+            y, st = ssm.mamba2_forward(x, _mamba_layer(params["layers"], g, j),
+                                       cfg, None)
+            x = x + y
+            states.append(st)
+    aux = (None, None)
+    if collect_kv:
+        G = len(kvs)
+        aux = (tuple(torch.stack(t) for t in zip(*kvs)),
+               tuple(torch.stack(t).reshape(G, every, *t[0].shape)
+                     for t in zip(*states)))
+    return _logits(params, cfg, x), aux
+
+
+def _forward_encdec(params, cfg, tokens, frontend_emb, collect_kv):
+    """The audio encoder-decoder: a bidirectional encoder over the frames
+    (run in bf16 whatever the weights, as the reference casts them), then
+    the decoder with self and cross attention."""
+    enc = frontend_emb.to(torch.bfloat16)
+    B, Se, _ = enc.shape
+    enc_pos = _positions(B, Se, enc.device)
+    for l in range(cfg.n_enc_layers):
+        lp = layer_params(params["enc_layers"], l)
+        att, _ = attn_block(ll.rms_norm(enc, lp["ln1"], cfg.norm_eps),
+                            lp["attn"], cfg, enc_pos, causal=False)
+        enc = enc + att
+        enc = enc + ll.mlp(ll.rms_norm(enc, lp["ln2"], cfg.norm_eps),
+                           lp["mlp"], cfg)
+    enc = ll.rms_norm(enc, params["enc_norm"], cfg.norm_eps)
+
+    x = ll.embed(tokens, params["embed"])
+    dec_pos = _positions(B, x.shape[1], x.device)
+    kvs = []
+    for l in range(cfg.n_layers):
+        lp = layer_params(params["layers"], l)
+        att, kv = attn_block(ll.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                             lp["attn"], cfg, dec_pos)
+        x = x + att
+        # cross attention: k/v of the encoder's output by this layer's weights
+        _, ck, cv = ll.qkv_project(enc, lp["cross"], cfg)
+        catt, _ = attn_block(ll.rms_norm(x, lp["ln2"], cfg.norm_eps),
+                             lp["cross"], cfg, dec_pos, rope=False,
+                             kv_override=(ck, cv))
+        x = x + catt
+        x = x + ll.mlp(ll.rms_norm(x, lp["ln3"], cfg.norm_eps), lp["mlp"],
+                       cfg)
+        kvs.append((kv, (ck, cv)))
+    aux = None
+    if collect_kv:
+        aux = tuple(tuple(torch.stack([layer[i][j] for layer in kvs])
+                          for j in range(2)) for i in range(2))
+    return _logits(params, cfg, x), aux
+
+
+def decode_step(params, cfg, cache, tokens, lora_ctx=None):
+    """One token for a static batch, every family. tokens: (B, 1); cache:
+    ``cache.init_cache``'s dict, its ``pos`` a host int (this token's
+    position). The KV buffers (k/v and their scales, the hybrid's ring
+    ak/av/apos) are written IN PLACE; the recurrent states (rwkv's
+    tm/cm/wkv, the hybrid's h/conv) are replaced by the new ones, in the
+    activations' dtype as the reference's scan returns them. ``lora_ctx``
+    applies to the dense, moe and vlm families. Returns (logits (B, Vp)
+    f32, the new cache: a new dict with ``pos`` + 1)."""
+    fam = cfg.family
+    pos = int(cache["pos"])
+    x = ll.embed(tokens, params["embed"])
+    positions = torch.full((tokens.shape[0], 1), pos, dtype=torch.long,
+                           device=x.device)
+    new = dict(cache, pos=pos + 1)
+    if fam in ("dense", "moe", "vlm", "audio"):
+        stack, ids_tok, scale = _lora_parts(None if fam == "audio"
+                                            else lora_ctx)
+        quant = "k_scale" in cache
+        for l in range(cfg.n_layers):
+            lp = layer_params(params["layers"], l)
+            lora_layer = layer_params(stack, l) if stack is not None else None
+            h = ll.rms_norm(x, lp["ln1"], cfg.norm_eps)
+            q, k, v = _qkv_with_deltas(h, lp["attn"], cfg, lora_layer,
+                                       ids_tok, scale)
+            q = ll.apply_rope(q, positions, cfg.rope_theta)
+            k = ll.apply_rope(k, positions, cfg.rope_theta)
+            att = ll.decode_attention_update(
+                q[:, 0], k[:, 0], v[:, 0], cache["k"][l], cache["v"][l], pos,
+                window=cfg.sliding_window,
+                k_scale=cache["k_scale"][l] if quant else None,
+                v_scale=cache["v_scale"][l] if quant else None)[0]
+            x = x + _out_with_delta(att[:, None], lp["attn"], lora_layer,
+                                    ids_tok, scale)
+            h = ll.rms_norm(x, lp["ln2"], cfg.norm_eps)
+            if fam == "audio":
+                cp = lp["cross"]
+                cq = ll.mm_f32(h, cp["wq"])
+                if cfg.qkv_bias:
+                    cq = cq + cp["bq"].to(torch.float32)
+                cq = cq.to(h.dtype).reshape(h.shape[0], cfg.n_heads,
+                                            cfg.head_dim)
+                catt = ll.decode_attention(cq, cache["ck"][l], cache["cv"][l],
+                                           int(cache["cross_len"]))
+                x = x + ll.out_project(catt[:, None], cp)
+                y = ll.mlp(ll.rms_norm(x, lp["ln3"], cfg.norm_eps),
+                           lp["mlp"], cfg)
+            elif cfg.is_moe:
+                y = moe_mod.moe_block(h, lp["moe"], cfg, lora=lora_layer,
+                                      ids_tok=ids_tok, lora_scale=scale)
+            else:
+                y = _mlp_with_lora(h, lp["mlp"], cfg, lora_layer, ids_tok,
+                                   scale)
+            x = x + y
+    elif fam == "ssm" and cfg.rwkv:
+        states = []
+        for l in range(cfg.n_layers):
+            lp = layer_params(params["layers"], l)
+            st = ssm.RWKV6State(cache["tm"][l], cache["cm"][l],
+                                cache["wkv"][l])
+            y, st = ssm.rwkv6_time_mix(ll.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                                       lp, cfg, st, chunk=1)
+            x = x + y
+            y, st = ssm.rwkv6_channel_mix(
+                ll.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg, st)
+            x = x + y
+            states.append(st)
+        new["tm"], new["cm"], new["wkv"] = (torch.stack(s)
+                                            for s in zip(*states))
+    elif fam == "hybrid":
+        sp, every = params["shared_attn"], cfg.shared_attn_every
+        slot = pos % cache["ak"].shape[2]
+        states = []
+        for g in range(cfg.n_layers // every):
+            # the shared block against the ring buffer of the window's KV
+            h = ll.rms_norm(x, sp["ln1"], cfg.norm_eps)
+            q, k, v = ll.qkv_project(h, sp["attn"], cfg)
+            q = ll.apply_rope(q, positions, cfg.rope_theta)
+            k = ll.apply_rope(k, positions, cfg.rope_theta)
+            att = ll.decode_attention_update(
+                q[:, 0], k[:, 0], v[:, 0], cache["ak"][g], cache["av"][g], pos,
+                window=cfg.sliding_window, key_positions=cache["apos"],
+                write_slot=slot)[0]
+            x = x + ll.out_project(att[:, None], sp["attn"])
+            x = x + ll.mlp(ll.rms_norm(x, sp["ln2"], cfg.norm_eps), sp["mlp"],
+                           cfg)
+            for j in range(every):
+                y, st = ssm.mamba2_decode_step(
+                    x, _mamba_layer(params["layers"], g, j), cfg,
+                    ssm.Mamba2State(cache["h"][g, j], cache["conv"][g, j]))
+                x = x + y
+                states.append(st)
+        G = cfg.n_layers // every
+        new["h"], new["conv"] = (torch.stack(s).reshape(G, every, *s[0].shape)
+                                 for s in zip(*states))
+    else:
+        raise ValueError(fam)
+    return _logits(params, cfg, x)[:, 0], new

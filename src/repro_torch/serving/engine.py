@@ -15,12 +15,19 @@ layouts:
   dense         : ``EngineConfig(paged=False)``; a slab of max_len rows per
                   slot, gathered into the step's rows and scattered back
 
-The engine owns ``n_slots`` persistent decode slots. A request is admitted
+The engine owns ``n_slots`` persistent decode slots (dense, moe and vlm
+models; the KV is made at the first admission). A request is admitted
 into a free slot at a step boundary: its prompt, all but the last token,
 runs through fixed-width LoRA-free prefill chunks whose KV goes straight
 into the slot's pages or rows. ``step()`` decodes one token for every
 occupied slot: occupied slots are packed into a power-of-two bucket and
 padding rows run with position -1 and adapter -1.
+
+The legacy static-batch API, ``prefill`` / ``decode``, serves every
+family (ssm, hybrid and audio only there) and int8 KV
+(``EngineConfig.kv_quant``): one batch of prompts at one shared position,
+through ``transformer.decode_step`` or, with a server and adapter ids,
+``disagg.disagg_decode_step``.
 """
 from __future__ import annotations
 
@@ -31,26 +38,32 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import SLOT_FAMILIES
+from repro_torch.core import disagg
 from repro_torch.models import cache as cache_mod
 from repro_torch.models import transformer
 from repro_torch.models.model import resolve_device
 from repro_torch.transport.base import make_transport
 
 
-def check_family(cfg, disaggregated: bool = False) -> None:
-    """Refuse, before anything is allocated, a model the slot engine cannot
-    serve: a family without a per-slot attention KV cache, or a non-MoE
-    model on the disaggregated plane (its hooks sit in the MoE FFN)."""
-    if cfg.family not in SLOT_FAMILIES:
-        raise ValueError(
-            f"slot engine requires a per-slot attention KV cache; family "
-            f"'{cfg.family}' has none (supported: "
-            f"{', '.join(SLOT_FAMILIES)}); the ssm/hybrid/audio families "
-            f"are not ported yet (ROADMAP A7d)")
+def _check_plane(cfg, disaggregated: bool) -> None:
     if disaggregated and not cfg.is_moe:
         raise ValueError(f"{cfg.name}: disaggregated hooks target MoE FFNs "
                          f"(paper Fig. 3b); serve the '{cfg.family}' family "
                          f"on the coupled plane")
+
+
+def check_family(cfg, disaggregated: bool = False) -> None:
+    """Refuse, before anything is allocated, a model the slot engine cannot
+    serve: a family without a per-slot attention KV cache (the reference's
+    message), or a non-MoE model on the disaggregated plane (its hooks sit
+    in the MoE FFN)."""
+    if cfg.family not in SLOT_FAMILIES:
+        raise ValueError(
+            f"slot engine requires a per-slot attention KV cache; family "
+            f"'{cfg.family}' has none (supported: "
+            f"{', '.join(SLOT_FAMILIES)}). Use the legacy prefill/decode "
+            f"API for ssm/hybrid/audio models.")
+    _check_plane(cfg, disaggregated)
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -70,6 +83,7 @@ class EngineConfig:
     page_size: int = 8
     n_pages: Optional[int] = None  # None -> n_slots * ceil(max_len / page)
     prefill_chunk: int = 16        # rounded up to a page multiple when paged
+    kv_quant: bool = False         # int8 KV: the legacy prefill/decode only
 
 
 @dataclasses.dataclass
@@ -88,12 +102,15 @@ class Engine:
     disagrees with the pool's is refused. The ``transport`` ("host",
     "fused", or a prebuilt transport shared by several engines) runs its
     decode steps. Coupled otherwise, with the adapters of ``pool`` (an
-    AdapterPool; None serves the base model), and no transport."""
+    AdapterPool; None serves the base model), and no transport. Any family
+    takes the legacy ``prefill`` / ``decode``; the slot path
+    (``add_request`` / ``step``) refuses the ssm, hybrid and audio ones
+    and ``kv_quant`` at the first admission, as the reference."""
 
     def __init__(self, cfg, params, ecfg: EngineConfig, server=None,
                  lora_scale: Optional[float] = None, device=None, pool=None,
                  transport="host"):
-        check_family(cfg, disaggregated=server is not None)
+        _check_plane(cfg, disaggregated=server is not None)
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg
@@ -128,18 +145,27 @@ class Engine:
             self._free: List[int] = list(range(self.total_pages - 1, -1, -1))
             self.peak_pages = 0
         self._chunk = min(chunk, ecfg.max_len)
+        # the slot KV is made at the first admission: legacy static-batch
+        # users do not pay for it
         self._k = self._v = None
-        self._alloc_kv()
         self.prefill_chunks = 0   # chunks run since the engine was made
 
     def _alloc_kv(self) -> None:
+        check_family(self.cfg)
+        if self.ecfg.kv_quant:
+            # the slot steps carry no k_scale/v_scale: an int8 cache there
+            # would be unscaled truncation
+            raise ValueError(
+                "slot engine does not support int8 KV quantization; "
+                "use the legacy prefill/decode API for kv_quant")
         if self.ecfg.paged:
             kv = cache_mod.init_paged_cache(self.cfg, self.total_pages,
                                             self.ecfg.page_size,
                                             device=self.device)
         else:
             kv = cache_mod.init_cache(self.cfg, self.ecfg.n_slots,
-                                      self.ecfg.max_len, device=self.device)
+                                      self.ecfg.max_len,
+                                      device=self.device)
         self._k, self._v = kv["k"], kv["v"]
 
     # ----------------------- slot bookkeeping ----------------------- #
@@ -361,3 +387,93 @@ class Engine:
             self._k[:, occ] = k[:, :n_occ]
             self._v[:, occ] = v[:, :n_occ]
         return torch.argmax(logits[:, : self.cfg.vocab_size], dim=-1).tolist()
+
+    # ------------------ legacy static-batch API ------------------------ #
+    def prefill(self, tokens, frontend_emb=None) -> Dict:
+        """tokens: (B, S_prompt) -> a ``cache.init_cache`` cache primed with
+        the prompt (``max_len`` positions, int8 with ``kv_quant``).
+
+        Dense, moe and vlm prompts without a frontend run as ONE parallel
+        LoRA-free ``forward(collect_kv=True, unembed=False)``, their KV
+        written (or quantized) into the cache. The ssm, hybrid and audio
+        families, and any prompt with ``frontend_emb``, replay the prompt
+        token by token through ``decode_step``, as the reference does: a
+        vlm's frontend is then dropped, and an audio model's cross cache
+        stays empty (the caller fills ck/cv/cross_len from
+        ``forward(..., frontend_emb, collect_kv=True)``)."""
+        dev = self.device
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        B, S = tokens.shape
+        cache = cache_mod.init_cache(self.cfg, B, self.ecfg.max_len,
+                                     self.ecfg.kv_quant, device=dev)
+        if self.cfg.family in SLOT_FAMILIES and S > 0 \
+                and frontend_emb is None:
+            if S > self.ecfg.max_len:
+                raise ValueError(f"prompt length {S} vs max_len "
+                                 f"{self.ecfg.max_len}")
+            _, (k_rows, v_rows) = transformer.forward(
+                self.params, self.cfg, tokens, collect_kv=True,
+                unembed=False)
+            if self.ecfg.kv_quant:
+                for name, rows in (("k", k_rows), ("v", v_rows)):
+                    q, scale = cache_mod.quantize_kv(rows)
+                    cache[name][:, :, :S] = q
+                    cache[name + "_scale"][:, :, :S] = scale
+            else:
+                cache["k"][:, :, :S] = k_rows.to(cache["k"].dtype)
+                cache["v"][:, :, :S] = v_rows.to(cache["v"].dtype)
+            cache["pos"] = S
+            return cache
+        for t in range(S):
+            _, cache = transformer.decode_step(self.params, self.cfg, cache,
+                                               tokens[:, t:t + 1])
+        return cache
+
+    def decode(self, cache: Dict, last_token, steps: int,
+               adapter_ids=None) -> torch.Tensor:
+        """Greedy-decode ``steps`` tokens from a ``prefill`` cache (its KV
+        written in place). last_token: (B, 1); adapter_ids: (B,) global
+        adapter ids, one a row (-1 = none). With a server and ids each step
+        is ``disagg.disagg_decode_step`` (a ``ServerPool`` routed from the
+        host-side ids before each step), else ``transformer.decode_step``
+        with the pool's adapters (coupled; None without ids). Returns the
+        tokens (B, steps) int32 on the device, no host sync a step.
+
+        A disaggregated decode over an int8 cache is refused: the
+        reference's runs it without the scales and gets garbage."""
+        dev = self.device
+        tok = torch.as_tensor(last_token, device=dev).long()
+        tok = tok.reshape(tok.shape[0], 1)
+        disagg_plane = self.server is not None and adapter_ids is not None
+        if disagg_plane and "k_scale" in cache:
+            raise ValueError(
+                "disaggregated decode does not support int8 KV "
+                "quantization: serve kv_quant on the coupled plane")
+        ids = ids_host = lora_ctx = None
+        if adapter_ids is not None:
+            ids_host = np.asarray(adapter_ids.cpu() if torch.is_tensor(
+                adapter_ids) else adapter_ids, np.int32).reshape(-1)
+            ids = torch.as_tensor(ids_host, device=dev)
+            if self.pool is not None and self.server is None:
+                lora_ctx = self.pool.lora_ctx(ids)
+        route = getattr(self.server, "route_step", None) \
+            if disagg_plane else None
+        out = []
+        for _ in range(steps):
+            if disagg_plane:
+                if route is not None:
+                    route(ids_host)
+                try:
+                    logits, cache = disagg.disagg_decode_step(
+                        self.params, self.cfg, cache, tok, self.server, ids,
+                        self.lora_scale)
+                finally:
+                    if route is not None:
+                        route(None)
+            else:
+                logits, cache = transformer.decode_step(
+                    self.params, self.cfg, cache, tok, lora_ctx)
+            logits = logits[:, : self.cfg.vocab_size]
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            out.append(tok)
+        return torch.cat(out, dim=1).to(torch.int32)

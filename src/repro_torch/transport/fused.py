@@ -36,6 +36,7 @@ forget the graphs captured over it (``forget_kv``).
 """
 from __future__ import annotations
 
+import gc
 import weakref
 from typing import Dict, List, Optional
 
@@ -340,12 +341,22 @@ class FusedTransport:
         torch.cuda.synchronize(dev)
         warm_s = wall_time() - t0
         before = ops.launch_counts()
-        # entering the capture empties the allocator's cache, so the pool's
-        # growth is read from inside it
-        with torch.cuda.graph(step.graph, pool=self._pool, stream=s):
-            reserved = torch.cuda.memory_reserved(dev)
-            t0 = wall_time()
-            step.tokens = run()
+        # a CUDAGraph freed during the capture (a dead engine's graphs in a
+        # reference cycle, found by the collector at some allocation) resets
+        # on the capturing stream, which invalidates the capture: hold the
+        # collector off until the capture ends
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            # entering the capture empties the allocator's cache, so the
+            # pool's growth is read from inside it
+            with torch.cuda.graph(step.graph, pool=self._pool, stream=s):
+                reserved = torch.cuda.memory_reserved(dev)
+                t0 = wall_time()
+                step.tokens = run()
+        finally:
+            if collecting:
+                gc.enable()
         capture_s = wall_time() - t0
         after = ops.launch_counts()
         self.captures.append({

@@ -1,12 +1,12 @@
 """The port's config registry against the JAX reference's, on the CPU:
 
-  - the registry holds every dense, moe and vlm config of the reference
-    (``ASSIGNED``, ``PAPER``, ``list_archs``), field for field, and the
-    fields the port leaves out sit at the reference's defaults
+  - the registry holds every config of the reference (``ASSIGNED``,
+    ``PAPER``, ``list_archs``), field for field
   - ``param_count``, ``active_param_count``, ``lora_adapter_bytes`` (ranks
     8, 32, 64, the config's own, float32, an attention-only target set, a
     GELU MLP) and ``reduced()`` equal the reference's
-  - the ssm, hybrid and audio configs are refused naming ROADMAP A7d
+  - the ssm, hybrid and audio configs resolve, with the reference's
+    accounting and ``reduced()``
   - ``launch/serve.py --cluster --arch mixtral-8x7b`` (``compare_planes``
     and the command line) and the front door's sim backend on every
     config (both planes on qwen2-72b) give the reference's numbers when
@@ -31,7 +31,8 @@ from repro_torch.serving.api import ServeConfig, build_system
 from repro_torch.serving.workload import Request
 
 NAMES = sorted(configs.REGISTRY)
-UNPORTED = sorted(configs.UNPORTED)
+# the families only the legacy static-batch API serves
+STATIC_ONLY = ("rwkv6-3b", "zamba2-2.7b", "seamless-m4t-large-v2")
 # a port Hardware with the reference's default constants: both packages
 # price the same machine
 REF_HW = Hardware(**dataclasses.asdict(jcm.V5E))
@@ -50,30 +51,29 @@ def _same(a, b) -> bool:
 
 
 def test_registry_holds_the_reference_slot_families():
+    """Since the static-batch API the registry is the reference's whole:
+    the 11 slot-family configs and the three that only it serves."""
     ref = jconfigs.REGISTRY
     slot = {n for n, c in ref.items() if c.family in ("dense", "moe", "vlm")}
-    assert set(configs.REGISTRY) == slot and len(slot) == 11
-    assert set(configs.UNPORTED) == set(ref) - slot
-    assert {n: ref[n].family for n in configs.UNPORTED} == configs.UNPORTED
-    assert set(configs.ASSIGNED) == set(jconfigs.ASSIGNED) & slot
+    assert len(slot) == 11 and set(ref) - slot == set(STATIC_ONLY)
+    assert set(configs.REGISTRY) == set(ref) and len(ref) == 14
+    assert not hasattr(configs, "UNPORTED")
+    assert set(configs.ASSIGNED) == set(jconfigs.ASSIGNED)
     assert set(configs.PAPER) == set(jconfigs.PAPER)
     for assigned_only in (True, False):
-        assert configs.list_archs(assigned_only) == [
-            n for n in jconfigs.list_archs(assigned_only) if n in slot]
+        assert configs.list_archs(assigned_only) == \
+            jconfigs.list_archs(assigned_only)
 
 
 @pytest.mark.parametrize("name", NAMES)
 def test_config_fields_equal_reference(name):
-    """Every field of the port's config equals the reference's; every
-    field the port leaves out (ssm, hybrid, encoder) is at the reference's
-    default, so the port drops nothing the config sets."""
+    """Every field of the port's config equals the reference's, and the
+    port has every field the reference has."""
     got, want = configs.get_config(name), jconfigs.get_config(name)
+    assert PORT_FIELDS == [f.name for f in dataclasses.fields(want)]
     assert {f: getattr(got, f) for f in PORT_FIELDS} == \
         {f: getattr(want, f) for f in PORT_FIELDS}
     assert bridge.config_from(want) == got
-    for f in dataclasses.fields(want):
-        if f.name not in PORT_FIELDS:
-            assert getattr(want, f.name) == f.default, f.name
 
 
 def _accounting(c):
@@ -103,13 +103,23 @@ def test_reduced_equals_reference(name):
     assert got.frontend_tokens == (8 if got.frontend else 0)
 
 
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_families_raise_naming_a7d(name):
-    with pytest.raises(KeyError, match="A7d"):
-        configs.get_config(name)
-    cfg = bridge.config_from(jconfigs.get_config(name))
-    with pytest.raises(ValueError, match="A7d"):
-        cfg.param_count()
+@pytest.mark.parametrize("name", STATIC_ONLY)
+def test_static_only_families_resolve_as_reference(name):
+    """rwkv6-3b (ssm), zamba2-2.7b (hybrid) and seamless-m4t-large-v2
+    (audio): ``get_config`` resolves each; ``param_count``,
+    ``active_param_count``, ``lora_adapter_bytes`` and ``reduced()`` (its
+    ssm, hybrid and encoder rules) equal the reference's; the properties
+    the families read too."""
+    got, want = configs.get_config(name), jconfigs.get_config(name)
+    for c, j in ((got, want), (got.reduced(), want.reduced())):
+        assert dataclasses.asdict(c) == dataclasses.asdict(j)
+        assert c.param_count() == j.param_count()
+        assert c.active_param_count() == j.active_param_count()
+        for rank in (None, 8, 32):
+            assert c.lora_adapter_bytes(rank) == j.lora_adapter_bytes(rank)
+        for prop in ("is_ssm", "is_encdec", "attention_free",
+                     "sub_quadratic", "d_inner"):
+            assert getattr(c, prop) == getattr(j, prop), prop
 
 
 def test_cluster_comparison_equals_reference():

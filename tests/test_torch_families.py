@@ -18,7 +18,10 @@ biases, which makes qwen2, smollm and internvl2 one model):
   - a dense pool's layout and bytes; ``expert_ffn``'s GELU branch; the
     quickstart on a dense arch
   - a non-MoE model on the disaggregated plane is refused with its
-    message: by the engine, the cluster, the front door and the launcher
+    message: by the engine, the cluster, the front door and the launcher;
+    an ssm model's first slot admission with the reference's message
+  - ``param_specs`` of the ssm, hybrid and audio families equals the
+    reference's tree
   - on the card (``gpu``): the same engine runs through the kernels
 
 Weights, adapter pools and prompts are numpy draws from a fixed seed at the
@@ -450,15 +453,20 @@ MOE_ONLY = "disaggregated hooks target MoE"
 
 
 def test_engine_refuses_non_moe_server_before_allocating():
-    """A server with a dense model is refused at construction, and so is a
-    family without a per-slot KV cache, before any KV is made."""
+    """A server with a dense model is refused at construction, before any
+    KV is made. An ssm model's engine is made (it serves the legacy
+    static-batch API), and its first slot admission is refused with the
+    reference's message, before any KV is made."""
     _, _, _, tcfg, tparams, tpool, _ = _setup("qwen2")
     ecfg = tengine.EngineConfig(**ENGINE)
     with pytest.raises(ValueError, match=MOE_ONLY):
         tengine.Engine(tcfg, tparams, ecfg, server=object(), device="cpu")
     ssm = dataclasses.replace(tcfg, family="ssm")
-    with pytest.raises(ValueError, match="A7d"):
-        tengine.Engine(ssm, tparams, ecfg, pool=tpool, device="cpu")
+    eng = tengine.Engine(ssm, tparams, ecfg, pool=tpool, device="cpu")
+    with pytest.raises(ValueError, match="Use the legacy prefill/decode API "
+                                         "for ssm/hybrid/audio models"):
+        eng.add_request(0, [1, 2, 3], 0)
+    assert eng._k is None and eng.free_slots() == eng.n_slots
 
 
 def test_front_door_and_cluster_refuse_disaggregated_dense():
@@ -489,9 +497,23 @@ def test_launcher_refuses_disagg_on_a_dense_arch(capsys):
                      "--device", "cpu"])
 
 
+def _spec_tree(specs):
+    """{path: (shape, init)} of a ``param_specs`` tree (either package's)."""
+    out = {}
+    for k, v in specs.items():
+        if isinstance(v, dict):
+            out.update({f"{k}/{p}": s for p, s in _spec_tree(v).items()})
+        else:
+            out[k] = (tuple(v.shape), v.init)
+    return out
+
+
 def test_param_specs_take_the_slot_families():
     """The dense/vlm tree: an ``mlp`` subtree (no gate when not gated), no
-    ``moe``; the unported families are refused."""
+    ``moe``. The ssm, hybrid and audio trees (rwkv's mixes, the hybrid's
+    (G, every) mamba stack and its ``shared_attn``, the audio
+    ``enc_layers``, ``enc_norm``, ``cross`` and ``ln3``) are the
+    reference's, shapes and init kinds, full and reduced."""
     for case in DENSE:
         jcfg, params, _, tcfg, *_ = _setup(case)
         specs = tmodel.param_specs(tcfg)
@@ -499,8 +521,11 @@ def test_param_specs_take_the_slot_families():
         got = {k: v.shape for k, v in specs["layers"]["mlp"].items()}
         assert got == {k: v.shape for k, v in
                        params["layers"]["mlp"].items()}
-    with pytest.raises(ValueError, match="A7d"):
-        tmodel.param_specs(dataclasses.replace(tcfg, family="audio"))
+    for name in ("rwkv6-3b", "zamba2-2.7b", "seamless-m4t-large-v2"):
+        for jcfg in (get_config(name), get_config(name).reduced()):
+            assert _spec_tree(tmodel.param_specs(
+                bridge.config_from(jcfg))) == \
+                _spec_tree(jmodel.param_specs(jcfg))
 
 
 # ------------------------------ on the card ----------------------------- #

@@ -2,9 +2,8 @@
 the CPU:
 
   - ``configs/base.py``: ``param_count``, ``active_param_count`` and
-    ``lora_adapter_bytes`` equal the reference's for every moe config;
-    the families the port does not serve yet (ssm, hybrid, audio) are
-    refused naming ROADMAP A7d
+    ``lora_adapter_bytes`` equal the reference's for every moe config
+    and for the ssm, hybrid and audio ones
   - ``core/placement.py``: every strategy's ``owner``, groups, experts and
     layers per device equal the reference's
   - ``core/cost_model.py`` and ``core/protocol.py``: every function equals
@@ -73,17 +72,23 @@ def test_param_accounting_equals_reference(name):
 
 
 def test_other_families_are_refused_naming_a7():
-    """The dense and vlm families are accounted since ROADMAP A7b (see
-    tests/test_torch_configs.py); the ssm, hybrid and audio ones wait for
-    A7d."""
+    """The ssm, hybrid and audio families are accounted as the reference
+    does (they were refused before the static-batch API): rwkv's time and
+    channel mix, the hybrid's mamba layers and one shared block, the
+    audio decoder's cross attention and the encoder's layers in the
+    adapter bytes; full and reduced, every rank."""
     for name, family in (("rwkv6-3b", "ssm"), ("zamba2-2.7b", "hybrid"),
                          ("seamless-m4t-large-v2", "audio")):
-        cfg = _port_cfg(name)
+        ref, cfg = get_config(name), _port_cfg(name)
         assert cfg.family == family
-        for fn in (cfg.param_count, cfg.active_param_count,
-                   cfg.lora_adapter_bytes):
-            with pytest.raises(ValueError, match="A7d"):
-                fn()
+        for c, j in ((cfg, ref), (cfg.reduced(), ref.reduced())):
+            assert c.param_count() == j.param_count()
+            assert c.active_param_count() == j.active_param_count()
+            for rank in (None, 4, 16):
+                assert c.lora_adapter_bytes(rank) == \
+                    j.lora_adapter_bytes(rank)
+            assert c.lora_adapter_bytes(8, "float32") == \
+                j.lora_adapter_bytes(8, "float32")
 
 
 # ------------------------------ placement -------------------------------- #
