@@ -127,7 +127,22 @@ port only. Phases, each of which fails the run with a non-zero exit:
    f32 rounding its group norm scales up, within 5e-2, with its chunked
    forward, recurrent forward and decode held within 4e-9 in f64), and
    the bf16 engine (4 prompts of 64 tokens, 32 steps) twice, bit for
-   bit, its ms/step, tokens/s and peak memory.
+   bit, its ms/step, tokens/s and peak memory;
+11. the mesh-sharded serving plane at the serving cell, on a grid of
+   cuda:0 and cuda:1 where two cards are visible, else cuda:0 twice (each
+   line prints the visible cards, the grid, peer access and the card):
+   (a) the main path under a (2, 1) mesh, a pool of 2 replicas built
+   partitioned, host and fused planes through the engine (counts set to
+   0 just before the fused run): the tokens of the engine without a mesh
+   bit for bit, one dispatch a fused step, each capture 2 x 3 ``gmm`` + 2
+   ``bgmv_expert`` + 1 ``paged_attention`` a layer; decode ms/step with
+   and without the mesh, graph pool and server pool bytes; (b) grids
+   (4, 1) and (2, 2) at depth 2, fused: the same tokens; (c) the EP x PP
+   LoRA Server at (2, 1), (1, 2), (2, 2) at the hooks' full-width shapes
+   (8192 rows, 64 active): each hook of every layer equal to the flat
+   server's, x launches a hook, timed beside it; (d) the front door with
+   ``mesh_shape=(2, 1)``: "needs 2 devices" on one card; on two, both
+   transports give phase 7's main path tokens.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.
@@ -1061,16 +1076,17 @@ def slot_bytes(cfg, r: int) -> int:
 
 
 def plane_runs(torch, ops, cfg, params, ecfg, lora, transport, requests,
-               traffic, runs):
+               traffic, runs, mesh_ctx=None):
     """``runs`` serves of the same requests by one engine of ``transport``
-    (so the fused plane captures in the first and replays after); each
-    run's tokens, ms/step, tokens/s and kernel launches, and the engine's
-    transport stats after the first run and after all."""
+    (so the fused plane captures in the first and replays after; under
+    ``mesh_ctx`` when given); each run's tokens, ms/step, tokens/s and
+    kernel launches, and the engine's transport stats after the first run
+    and after all."""
     from repro_torch.launch import serve
     from repro_torch.serving.engine import Engine
 
     eng = Engine(cfg, params, ecfg, device="cuda", transport=transport,
-                 **lora)
+                 mesh_ctx=mesh_ctx, **lora)
     out = {"runs": []}
     for i in range(runs):
         before = ops.launch_counts()
@@ -1092,12 +1108,13 @@ def plane_runs(torch, ops, cfg, params, ecfg, lora, transport, requests,
 
 
 def check_planes(cfg, host, fused, what: str, per_step: dict,
-                 replicas: int) -> dict:
+                 replicas: int, blocks: int = 1) -> dict:
     """Hold the fused plane to the host plane: the same tokens in every
     run, one dispatch and no hook call a step, each capture holding one
     step's kernels (the host plane's per step; with R > 1 the host plane
     launches the hook once per engaged replica), no Python launch on a
-    replay; host: 2 x L hook calls a step."""
+    replay; host: 2 x L hook calls a step. ``blocks``: the expert blocks
+    of a mesh, each a ``gmm`` of its own, in prefill too."""
     L = cfg.n_layers
     want = host["runs"][0]["tokens"]
     for plane in (host, fused):
@@ -1119,7 +1136,7 @@ def check_planes(cfg, host, fused, what: str, per_step: dict,
         check(cap["launches"] == per_step, f"{what}: a capture holds "
               f"{cap['launches']}, one step launches {per_step}")
     chunks = host["runs"][0]["prefill_chunks"]
-    prefill = 3 * (L - 1) * chunks
+    prefill = 3 * blocks * (L - 1) * chunks
     host_run = host["runs"][0]["launches"]
     for name, n in per_step.items():
         if name != "bgmv_expert" or replicas == 1:
@@ -2375,6 +2392,8 @@ def time_calls(torch, ref, flush, calls, kernels) -> list:
     out = []
     for i, (name, args, kw) in enumerate(calls):
         fn = kernels[name]
+        # each call writes a fresh output: the plain versions take no out=
+        kw = {k: v for k, v in kw.items() if k != "out"}
         got, want = fn(*args, **kw), plain[name](*args, **kw)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
@@ -3003,6 +3022,339 @@ def static_phase(torch, ops, ref, counters, smi) -> dict:
     return launches
 
 
+# ------------------------------ phase 11 ----------------------------- #
+MESH = (2, 1)                  # the main path's grid: experts over "data"
+MESH_GRIDS = ((4, 1), (2, 2))  # 11(b), at depth CHECK_LAYERS
+SERVER_GRIDS = ((2, 1), (1, 2), (2, 2))    # 11(c), (ep, pp)
+HOOK_ROWS_A_EXPERT = 64        # 11(c): 8192 hook rows at 128 experts
+HOOK_TOKENS = 8                # 11(c): 8 tokens top-8, 64 active rows
+
+
+def mesh_cards(torch) -> dict:
+    """What every line of phase 11 prints of the machine: the visible
+    cards, the grid's devices (cuda:0, cuda:1 where two cards are visible,
+    else cuda:0 twice) and whether the two cards reach each other's memory
+    (a copy without peer access goes through the host)."""
+    n = torch.cuda.device_count()
+    devs = [torch.device("cuda", i) for i in range(min(n, 2))]
+    if len(devs) < 2:
+        devs = devs * 2
+    peer = torch.cuda.can_device_access_peer(0, 1) if n >= 2 else None
+    return {"cards": n, "grid": [str(d) for d in devs],
+            "peer_access": peer, "devices": devs}
+
+
+def mesh_ctx_of(cfg, shape, devs):
+    """The expert-parallel ctx of a ``shape`` grid over ``devs`` (cycled
+    over its positions)."""
+    from repro_torch.distributed import steps
+    from repro_torch.launch.mesh import make_serve_mesh
+    n = shape[0] * shape[1]
+    return steps.expert_parallel_ctx(
+        make_serve_mesh(*shape, devices=[devs[i % len(devs)]
+                                         for i in range(n)]), cfg)
+
+
+def mesh_print(what: str, out: dict, head: dict, smi: str) -> None:
+    print(f"phase 11{what}: " + json.dumps(
+        {**{k: head[k] for k in ("cards", "grid", "peer_access")}, **out})
+        + f"; card {smi}", flush=True)
+
+
+def mesh_gmm_hold(torch, ops, ref, cfg, ecfg, params, sharded) -> dict:
+    """11(a): the mesh's block ``gmm`` launches at the main path's own
+    shapes, after its counted runs. ``moe.expert_gmm`` over layer 0's
+    gate, up and down blocks (on the grid's devices) at the decode
+    dispatch (6 rows, dropless C) and at one prefill chunk, each held
+    bit for bit to one ``ops.gmm`` over all E experts and within GMM_TOL
+    of the plain version (rows past their group size are zero)."""
+    from repro_torch.models import moe
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 111)
+    E, K = cfg.n_experts, cfg.top_k
+    out, worst = {}, 0.0
+    for label, T in (("decode", 6), ("prefill_chunk", ecfg.prefill_chunk)):
+        C = moe.capacity(T, K, E, cfg.capacity_factor,
+                         dropless=T * K <= 4096)
+        picks = torch.stack([torch.randperm(E, generator=g, device=dev)[:K]
+                             for _ in range(T)]).reshape(-1)
+        sizes = torch.bincount(picks, minlength=E).to(torch.int32)
+        live = (torch.arange(C, device=dev)[None, :]
+                < sizes[:, None])[..., None]
+        out[label] = {"tokens": T, "C": C}
+        for name in ("gate", "up", "down"):
+            whole = params["layers"]["moe"][name][0]
+            blocks = sharded["layers"]["moe"][name][0]
+            xe = torch.randn(E, C, whole.shape[1], generator=g, device=dev)
+            xe = torch.where(live, xe, 0.0).bfloat16()
+            got = moe.expert_gmm(xe, blocks, sizes)
+            one = ops.gmm(xe, whole, sizes)
+            want = ref.gmm_ref(xe, whole, sizes)
+            torch.cuda.synchronize()
+            check(bool(torch.equal(got, one)), f"11(a) {label} {name}: the "
+                  f"blocks' gmm differs from one launch over {E} experts")
+            err = (got - want).abs().max().item()
+            check(err <= GMM_TOL, f"11(a) {label} {name}: blocks' gmm max "
+                  f"abs err {err} > {GMM_TOL}")
+            out[label][name] = err
+            worst = max(worst, err)
+            del xe, got, one, want
+    out["equal_one_launch"] = True
+    out["max_abs_err"] = worst
+    out["block_devices"] = [str(b.device) for b in
+                            sharded["layers"]["moe"]["up"].blocks]
+    return out
+
+
+def mesh_main_path(torch, ops, ref, counters, cfg, params, ecfg,
+                   head) -> tuple:
+    """11(a): the main path under a (2, 1) mesh at the serving cell, a
+    pool of 2 replicas built partitioned, host and fused planes through
+    the engine, against the same engine without a mesh (a duplicated
+    pool): tokens bit for bit, one dispatch a fused step, each capture 2 x
+    3 gmm, 2 bgmv_expert and 1 paged_attention a layer; ms/step, graph
+    pool and server pool bytes; then the block launches held alone
+    (``mesh_gmm_hold``). Returns (the record, the mesh fused run's
+    launches, counts set to 0 just before it)."""
+    from repro_torch.distributed import steps
+    from repro_torch.launch import serve
+
+    traffic = serve.Traffic(adapter_ranks=RANKS)
+    requests = serve.make_requests(cfg, traffic, SEED)
+    L = cfg.n_layers
+    ctx = mesh_ctx_of(cfg, MESH, head["devices"])
+    sharded = steps.shard_serve_params(params, ctx)
+    per_step = {"gmm": 3 * ctx.size * L, "bgmv_expert": 2 * L,
+                "paged_attention": L}
+    planes, pool_bytes, out = {}, {}, {}
+    launches = {name: 0 for name in counters}
+    for mesh in (False, True):
+        lora = serve.build_pool(cfg, RANKS, 2, seed=SEED,
+                                dtype=torch.bfloat16, device="cuda",
+                                partition_slots=mesh)
+        sp = lora["server"]
+        pool_bytes["partitioned" if mesh else "duplicated"] = {
+            "slots_a_replica": [r.M for r in sp.replicas],
+            "bytes": sum(r.cache_bytes() for r in sp.replicas)}
+        for tr in ("host", "fused"):
+            key = ("mesh " if mesh else "") + tr
+            for fn in counters.values():
+                fn.launches = 0
+            _, planes[key] = plane_runs(
+                torch, ops, cfg, sharded if mesh else params, ecfg, lora,
+                tr, requests, traffic, TIMED_RUNS + 1,
+                mesh_ctx=ctx if mesh else None)
+            if mesh and tr == "fused":
+                launches.update(planes[key]["runs"][0]["launches"])
+        del lora, sp
+        free_device(torch)
+    want = planes["host"]["runs"][0]["tokens"]
+    held = check_planes(cfg, planes["host"], planes["fused"], "11(a) "
+                        "no mesh", {**per_step, "gmm": 3 * L}, 2)
+    held = check_planes(cfg, planes["mesh host"], planes["mesh fused"],
+                        "11(a) mesh", per_step, 2, blocks=ctx.size)
+    for run in planes["mesh host"]["runs"]:
+        check(run["tokens"] == want, "11(a): the mesh's tokens differ from "
+              "the engine's without a mesh")
+    first = planes["mesh host"]["runs"][0]
+    steps_n = first["decode_steps"]
+    host_run = dict(first["launches"])
+    # the prefill chunks' gmm: 3 a block a layer but the last
+    host_run["gmm"] = host_run.get("gmm", 0) - \
+        3 * ctx.size * (L - 1) * first["prefill_chunks"]
+    out.update({
+        "tokens_equal_no_mesh": True, "held": held,
+        "expert_blocks": ctx.size, "block_devices": [str(d) for d in
+                                                     ctx.devices],
+        "per_fused_step": per_step,
+        "host_plane_per_step": {n: host_run.get(n, 0) / steps_n for n in
+                                ("gmm", "bgmv_expert", "paged_attention")},
+        "decode_ms_per_step": {k: summary(v)["decode_ms_per_step"]
+                               for k, v in planes.items()},
+        "decode_ms_per_step_mean": {
+            k: statistics.mean(summary(v)["decode_ms_per_step"])
+            for k, v in planes.items()},
+        "fused_stats": {k: planes[k]["stats_first_run"] for k in planes
+                        if k.endswith("fused")},
+        "graph_pool_bytes": {k: sum(c["pool_bytes_added"]
+                                    for c in planes[k]["captures"])
+                             for k in planes if k.endswith("fused")},
+        "server_pool": pool_bytes,
+        "expert_gmm_held": mesh_gmm_hold(torch, ops, ref, cfg, ecfg, params,
+                                         sharded)})
+    return out, launches
+
+
+def mesh_grids(torch, ops, cfg, params, ecfg, head) -> dict:
+    """11(b): grids (4, 1) and (2, 2) at depth CHECK_LAYERS, fused: the
+    tokens of the engine without a mesh."""
+    from repro_torch.distributed import steps
+    from repro_torch.launch import serve
+
+    traffic = serve.Traffic(adapter_ranks=RANKS)
+    requests = serve.make_requests(cfg, traffic, SEED)
+    cfg2 = dataclasses.replace(cfg, n_layers=CHECK_LAYERS)
+    params2 = dict(params, layers=_first_layers(params["layers"],
+                                                CHECK_LAYERS))
+    out, base = {}, None
+    for shape in (None,) + MESH_GRIDS:
+        ctx = None if shape is None else mesh_ctx_of(cfg2, shape,
+                                                     head["devices"])
+        lora = serve.build_pool(cfg2, RANKS, 2, seed=SEED,
+                                dtype=torch.bfloat16, device="cuda",
+                                partition_slots=shape is not None)
+        p = params2 if ctx is None else steps.shard_serve_params(params2,
+                                                                  ctx)
+        _, run = plane_runs(torch, ops, cfg2, p, ecfg, lora, "fused",
+                            requests, traffic, 1, mesh_ctx=ctx)
+        toks = run["runs"][0]["tokens"]
+        if shape is None:
+            base = toks
+            continue
+        check(toks == base, f"11(b) {shape}: tokens differ from the "
+              f"engine's without a mesh")
+        out[str(shape)] = {"expert_blocks": ctx.size,
+                           "block_devices": [str(d) for d in ctx.devices],
+                           "tokens_equal_no_mesh": True,
+                           "captures": [c["launches"]
+                                        for c in run["captures"]]}
+        del lora
+        free_device(torch)
+    return out
+
+
+def hook_rows(torch, cfg):
+    """11(c)'s rows at the hooks' full-width shapes: E * 64 dispatch rows,
+    expert-major; 8 tokens each routed to top_k distinct experts (64
+    active rows), token t on adapter t % 4; the other rows -1."""
+    E, C = cfg.n_experts, HOOK_ROWS_A_EXPERT
+    g = torch.Generator().manual_seed(SEED + 11)
+    ids = torch.full((E * C,), -1, dtype=torch.int32)
+    fill = [0] * E
+    for t in range(HOOK_TOKENS):
+        for e in torch.randperm(E, generator=g)[:cfg.top_k].tolist():
+            ids[e * C + fill[e]] = t % len(RANKS)
+            fill[e] += 1
+    eids = torch.arange(E * C, dtype=torch.int32) // C
+    rows = {hook: torch.randn((E * C, d), generator=g).to(torch.bfloat16)
+            .cuda() for hook, d in (("up", cfg.d_model),
+                                    ("down", cfg.d_ff))}
+    return rows, ids.cuda(), eids.cuda()
+
+
+def server_mesh_cell(torch, flush, cfg, head) -> dict:
+    """11(c): the EP x PP LoRA Server at (x, y) in SERVER_GRIDS, adapters
+    of true ranks RANKS in a rank-32 pool at depth LAYERS: each hook of
+    every layer torch.equal to the flat server's, x bgmv_expert launches a
+    hook, and its time beside the flat server's (layer 0)."""
+    from repro_torch.core.lora_server import (LoRAServer, ServerConfig,
+                                              make_server_mesh,
+                                              pool_tensors_from_adapter)
+    from repro_torch.kernels import bgmv
+    from repro_torch.launch import serve
+
+    pool = serve.adapter_pool(cfg, "disagg", RANKS, seed=SEED,
+                              dtype=torch.bfloat16, device="cuda")
+    rows, ids, eids = hook_rows(torch, cfg)
+
+    def server(x, y, mesh=None):
+        srv = LoRAServer(cfg, ServerConfig(m=x * y, x=x, y=y,
+                                           cache_slots=len(RANKS),
+                                           rank=pool.rank),
+                         dtype=torch.bfloat16, device="cuda", mesh=mesh)
+        for a in range(len(RANKS)):
+            srv.insert(a, pool_tensors_from_adapter(pool, a),
+                       rank=pool.rank_of(a))
+        return srv
+
+    flat = server(1, 1)
+    out = {"rows": int(ids.numel()), "active_rows": int((ids >= 0).sum()),
+           "pool_rank": pool.rank, "true_ranks": list(RANKS),
+           "flat_ms": {h: cuda_ms(torch, lambda h=h: flat.compute(
+               h, 0, rows[h], ids, eids), flush) for h in rows}}
+    for x, y in SERVER_GRIDS:
+        devs = head["devices"]
+        srv = server(x, y, make_server_mesh(
+            x, y, [devs[i % len(devs)] for i in range(x * y)]))
+        for hook in rows:
+            for layer in range(cfg.n_layers):
+                before = bgmv.bgmv_expert.launches
+                got = srv.compute(hook, layer, rows[hook], ids, eids)
+                check(bgmv.bgmv_expert.launches - before == x,
+                      f"11(c) ({x}, {y}): not {x} launches a hook")
+                check(torch.equal(got, flat.compute(hook, layer,
+                                                    rows[hook], ids, eids)),
+                      f"11(c) ({x}, {y}) {hook} hook, layer {layer}: "
+                      f"differs from the flat server")
+        out[f"({x}, {y})"] = {
+            "equal_flat": True, "launches_a_hook": x,
+            "placement": srv.placement().describe(),
+            "ms": {h: cuda_ms(torch, lambda h=h: srv.compute(
+                h, 0, rows[h], ids, eids), flush) for h in rows}}
+        del srv
+        free_device(torch)
+    return out
+
+
+def mesh_front_door(torch, cfg, params, want_fused, head) -> dict:
+    """11(d): the front door with mesh_shape=(2, 1), which takes distinct
+    cards: on one card it raises "needs 2 devices"; on two the fused and
+    the host plane serve phase 7's main path tokens."""
+    from repro_torch.launch import serve
+
+    traffic = serve.Traffic(adapter_ranks=RANKS)
+    requests = serve.make_requests(cfg, traffic, SEED)
+    pool = serve.adapter_pool(cfg, "disagg", RANKS, seed=SEED,
+                              dtype=torch.bfloat16, device="cuda")
+    if head["cards"] < 2:
+        try:
+            front_door(serve, params, pool, traffic, transport="fused",
+                       mesh_shape=MESH)
+        except ValueError as e:
+            check("needs 2 devices" in str(e), f"11(d): {e}")
+            return {"one_card": True, "refused": str(e)}
+        check(False, "11(d): a (2, 1) mesh was built on one card")
+    out = {"one_card": False}
+    for tr in ("fused", "host"):
+        system = front_door(serve, params, pool, traffic, transport=tr,
+                            mesh_shape=MESH)
+        res = serve.serve_system(system, requests, traffic)
+        check(res["tokens"] == want_fused, f"11(d) {tr}: the tokens under "
+              f"the mesh differ from phase 7's")
+        out[tr] = {"rounds": res["rounds"],
+                   "wall_ms_per_round": res["wall_ms_per_round"],
+                   "transport_stats": res["transport_stats"]}
+        del system
+        free_device(torch)
+    out["tokens_equal_phase7"] = True
+    return out
+
+
+def mesh_phase(torch, ops, ref, counters, flush, smi, cfg, params, ecfg,
+               want_fused) -> dict:
+    """Phase 11: the mesh-sharded serving plane (11(a)-(d)). Returns the
+    launches of the mesh's main path run (11(a), fused)."""
+    from repro_torch.obs.clock import wall_time
+
+    t0 = wall_time()
+    head = mesh_cards(torch)
+    a, launches = mesh_main_path(torch, ops, ref, counters, cfg, params,
+                                 ecfg, head)
+    mesh_print("(a) main path under a (2, 1) mesh", a, head, smi)
+    mesh_print("(b) grids at depth 2", mesh_grids(torch, ops, cfg, params,
+                                                   ecfg, head), head, smi)
+    mesh_print("(c) EP x PP LoRA Server", server_mesh_cell(
+        torch, flush, cfg, head), head, smi)
+    mesh_print("(d) front door", mesh_front_door(torch, cfg, params,
+                                                 want_fused, head),
+               head, smi)
+    free_device(torch)
+    print(f"phase 11: {wall_time() - t0:.1f} s", flush=True)
+    return launches
+
+
 def _first_layers(tree, n: int):
     """Views of the first ``n`` layers of a layer-stacked tree."""
     if isinstance(tree, dict):
@@ -3057,6 +3409,8 @@ def main() -> int:
                                      fused_tokens, coupled_tokens))
     launches["elastic"] = elastic_phase(torch, counters, smi, flush, cfg,
                                         params, fused_prof, hk, lora[1])
+    launches["mesh"] = mesh_phase(torch, ops, ref, counters, flush, smi,
+                                  *model, fused_tokens)
     del model, cfg, params
     free_device(torch)
     launches.update(families_phase(torch, ops, ref, counters, flush, smi))

@@ -11,18 +11,22 @@ added to the locally computed base GEMM outputs:
     y     = h W_d + server.compute("down", l, h-rows)
 
 ``server`` needs only the ``compute(hook, layer, rows, adapter_ids,
-expert_ids)`` contract. Two decode steps share one MoE hook body
-(``_moe_hooks_layer``), so both stay token-identical to the coupled
-path: ``disagg_decode_step_slots`` (the slot engine, per-slot positions)
-and ``disagg_decode_step`` (the legacy static batch, one shared
-position).
+expert_ids)`` contract. Under a mesh the params hold the expert weights
+in blocks (``distributed.steps.shard_serve_params``) and the three base
+expert GEMMs run expert-parallel (``moe.expert_gmm``): a pure map over
+blocks of experts with no collective, so the tokens are those of one
+device, bit for bit.
+
+Two decode steps share one MoE hook body (``_moe_hooks_layer``), so both
+stay token-identical to the coupled path: ``disagg_decode_step_slots``
+(the slot engine, per-slot positions) and ``disagg_decode_step`` (the
+legacy static batch, one shared position).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
 from repro_torch.models import layers as ll
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer
@@ -32,7 +36,8 @@ from repro_torch.models.model import layer_params
 def _moe_hooks_layer(x, lp, cfg, l: int, server, adapter_ids,
                      lora_scale: float):
     """One MoE layer with the two server hook points. x: (B, 1, d) residual
-    after attention; adapter_ids: (B,) global ids (-1 rows get no delta)."""
+    after attention; adapter_ids: (B,) global ids (-1 rows get no delta).
+    Expert weights held in blocks run their GEMMs expert-parallel."""
     B = x.shape[0]
     E, K, d = cfg.n_experts, cfg.top_k, cfg.d_model
     h = ll.rms_norm(x, lp["ln2"], cfg.norm_eps)
@@ -51,15 +56,15 @@ def _moe_hooks_layer(x, lp, cfg, l: int, server, adapter_ids,
     # hook 1: up/gate, base GEMMs on the client + server delta; the base
     # GEMMs skip each expert's pad rows (ops.gmm, as moe.expert_ffn)
     mp = lp["moe"]
-    g = ops.gmm(xe, mp["gate"], sizes)
-    u = ops.gmm(xe, mp["up"], sizes)
+    g = moe_mod.expert_gmm(xe, mp["gate"], sizes)
+    u = moe_mod.expert_gmm(xe, mp["up"], sizes)
     d_up = server.compute("up", l, rows, row_adapter, row_expert)
     d_up = d_up.reshape(E, C, -1) * lora_scale
     dg, du = d_up.chunk(2, dim=-1)
     act = (F.silu(g + dg) * (u + du)).to(x.dtype)
 
     # hook 2: down
-    y = ops.gmm(act, mp["down"], sizes)
+    y = moe_mod.expert_gmm(act, mp["down"], sizes)
     d_dn = server.compute("down", l, act.reshape(E * C, -1), row_adapter,
                           row_expert)
     y = y + d_dn.reshape(E, C, -1) * lora_scale
@@ -78,8 +83,9 @@ def disagg_decode_step_slots(params, cfg, k_cache, v_cache, tokens, pos_vec,
     tokens: (B, 1); pos_vec: (B,) int32 (-1 = inactive row, whose adapter
     id must be -1 too); k_cache/v_cache: paged pools (L, n_pages,
     page_size, KV, hd) with ``block_table`` (B, nb) int32, or dense rows
-    (L, B, S, KV, hd) without; written in place. Returns (logits (B, V)
-    f32, k_cache, v_cache)."""
+    (L, B, S, KV, hd) without; written in place. Expert weights held in
+    blocks (``shard_serve_params``) run expert-parallel over their devices.
+    Returns (logits (B, V) f32, k_cache, v_cache)."""
     if not cfg.is_moe:
         raise ValueError("disaggregated hooks target MoE FFNs (paper Fig. 3b)")
     x = ll.embed(tokens, params["embed"])

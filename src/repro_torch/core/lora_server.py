@@ -1,5 +1,5 @@
-"""The disaggregated LoRA Server (paper §3-§5), the counterpart of the flat
-(single-device) path of ``repro.core.lora_server``.
+"""The disaggregated LoRA Server (paper §3-§5), the counterpart of
+``repro.core.lora_server``.
 
 The server owns a slot pool of resident adapters (capacity M) and computes
 the LoRA deltas of remote LLM instances, twice per MoE layer:
@@ -7,10 +7,21 @@ the LoRA deltas of remote LLM instances, twice per MoE layer:
   hook "up"   : rows x (R, d)  -> fused gate|up deltas (R, 2*ff)
   hook "down" : rows h (R, ff) -> down delta (R, d)
 
-Slot pools are layer-major within a pipeline stage, (y, L_stage, M, E, ...),
-as in the reference; each slot carries its adapter's true rank, and the
-hook bounds every row's contraction at it through the mask
-(col % r) < rank. ``compute`` runs the hook kernel (``kernels.ops``).
+Flat path (no mesh): slot pools layer-major within a pipeline stage,
+(y, L_stage, M, E, ...), on one device, as in the reference. EP_x-PP_y
+path (``mesh`` of axes ("ep", "pp"), ``make_server_mesh``): experts
+block-sharded over "ep", layers interleaved over "pp" stages (layer l ->
+stage l % y). Position (e, s) holds its own contiguous block
+(L_stage, M, E/x, ...): stage s's layers, experts [e*E/x, (e+1)*E/x). A
+hook's rows arrive expert-major (the dispatch's E*C rows), so its x equal
+row blocks are the aligned expert partition (paper §4.1): block e runs on
+position (e, l % y) with local expert ids. The reference adds the other
+stages' exact zeros (a psum over "pp"); the port computes only the owning
+stage, the same values up to the sign of a zero.
+
+Each slot carries its adapter's true rank, and the hook bounds every row's
+contraction at it through the mask (col % r) < rank. ``compute`` runs the
+hook kernel (``kernels.ops``).
 The id -> slot table and the slot ranks live on the device in buffers of
 fixed address, written in place on every insert and evict (a table that
 must grow gets a new buffer), so a hook call needs no round trip to the
@@ -25,10 +36,22 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core.adapter import AdapterPool
+from repro_torch.core.placement import Placement
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import Mesh, grid, visible_cards
 from repro_torch.models.model import resolve_device
 
 _LUT_MIN = 64   # initial id -> slot table length
+POOL_NAMES = ("up_A", "up_B", "down_A", "down_B")
+
+
+def make_server_mesh(x: int, y: int, devices=None) -> Mesh:
+    """The LoRA Server's EP_x-PP_y grid, axes ("ep", "pp"): the first x*y
+    visible cards by default, else ``devices`` (one device fills every
+    position)."""
+    if devices is None:
+        devices = visible_cards(x * y, f"a server mesh ({x}, {y})")
+    return Mesh(grid(devices, (x, y)), ("ep", "pp"))
 
 
 @dataclasses.dataclass
@@ -41,32 +64,50 @@ class ServerConfig:
 
 
 class LoRAServer:
-    """Slot table + slot pools + the hook computation (flat path)."""
+    """Slot table + slot pools + the hook computation: the flat path, or
+    the EP_x-PP_y path over ``mesh`` (whose first position holds the slot
+    tables)."""
 
     def __init__(self, model_cfg, server_cfg: ServerConfig,
-                 dtype=torch.bfloat16, device=None):
-        if server_cfg.x != 1 or server_cfg.m != server_cfg.y:
-            raise ValueError("the port's server runs the flat path only "
-                             "(x = 1, m = y); the mesh path comes later")
+                 dtype=torch.bfloat16, device=None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = model_cfg
         self.scfg = server_cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
         E = max(model_cfg.n_experts, 1)
         L, M, r = model_cfg.n_layers, server_cfg.cache_slots, server_cfg.rank
         d, ff = model_cfg.d_model, model_cfg.d_ff
         self.E, self.L, self.M, self.r = E, L, M, r
-        self.y = server_cfg.y
+        self.x, self.y = server_cfg.x, server_cfg.y
         self.L_stage = -(-L // self.y)
         self.n_up = 2 if model_cfg.gated_mlp else 1
         ru = self.n_up * r
-        lead = (self.y, self.L_stage, M, E)
-
-        def zeros(*shape):
-            return torch.zeros(lead + shape, dtype=dtype, device=self.device)
-
         # the fused "up" operator has rank n_up*r (block-diagonal B)
-        self.pool = {"up_A": zeros(d, ru), "up_B": zeros(ru, self.n_up * ff),
-                     "down_A": zeros(ff, r), "down_B": zeros(r, d)}
+        shapes = {"up_A": (d, ru), "up_B": (ru, self.n_up * ff),
+                  "down_A": (ff, r), "down_B": (r, d)}
+        if mesh is None:
+            self.device = resolve_device(device)
+            lead = (self.y, self.L_stage, M, E)
+            self.pool = {n: torch.zeros(lead + s, dtype=dtype,
+                                        device=self.device)
+                         for n, s in shapes.items()}
+        else:
+            if tuple(mesh.devices.shape) != (self.x, self.y) or \
+                    tuple(mesh.axis_names) != ("ep", "pp"):
+                raise ValueError(f"server mesh {mesh.shape} is not the "
+                                 f"config's ep={self.x} x pp={self.y}")
+            if E % self.x:
+                raise ValueError(f"{E} experts do not split over ep="
+                                 f"{self.x}")
+            self.device = mesh.first
+            self.E_loc = E // self.x
+            lead = (self.L_stage, M, self.E_loc)
+            # position (e, s): stage s's layers, expert block e
+            self.blocks = {
+                (e, s): {n: torch.zeros(lead + sh, dtype=dtype,
+                                        device=mesh.devices[e, s])
+                         for n, sh in shapes.items()}
+                for e in range(self.x) for s in range(self.y)}
         self.slot_of: Dict[int, int] = {}
         self.free_slots = list(range(M))
         # per-slot TRUE rank (0 = empty slot), host copy and device copy
@@ -133,10 +174,17 @@ class LoRAServer:
         self.mutations += 1
 
     def _write_slot(self, slot: int, tensors) -> None:
-        for name, buf in self.pool.items():
+        for name in POOL_NAMES:
             src = tensors[name]
             for l in range(self.L):
-                buf[l % self.y, l // self.y, slot].copy_(src[l])
+                s, li = l % self.y, l // self.y
+                if self.mesh is None:
+                    self.pool[name][s, li, slot].copy_(src[l])
+                    continue
+                for e in range(self.x):
+                    e0 = e * self.E_loc
+                    self.blocks[(e, s)][name][li, slot].copy_(
+                        src[l, e0:e0 + self.E_loc])
         self.slot_writes[slot] += 1
         self.mutations += 1
 
@@ -160,7 +208,13 @@ class LoRAServer:
                            self.r).to(torch.int32)
 
     def cache_bytes(self) -> int:
-        return sum(a.numel() * a.element_size() for a in self.pool.values())
+        pools = [self.pool] if self.mesh is None else self.blocks.values()
+        return sum(a.numel() * a.element_size() for p in pools
+                   for a in p.values())
+
+    def placement(self) -> Placement:
+        return Placement.make("hybrid", self.scfg.m, self.M, self.L, self.E,
+                              x=self.x)
 
     # --------------------------- compute --------------------------- #
     def compute(self, hook: str, layer: int, rows, adapter_ids, expert_ids):
@@ -168,11 +222,33 @@ class LoRAServer:
         here); expert_ids: (R,). Returns the deltas (R, d_out) f32."""
         stage, li = layer % self.y, layer // self.y
         slots = self.resolve_slots(adapter_ids).to(torch.int32)
-        A = self.pool["up_A" if hook == "up" else "down_A"][stage, li]
-        B = self.pool["up_B" if hook == "up" else "down_B"][stage, li]
-        return ops.bgmv_expert(rows.contiguous(), A, B, slots,
-                               expert_ids.to(torch.int32),
-                               self.row_ranks(slots), self.r)
+        a, b = ("up_A", "up_B") if hook == "up" else ("down_A", "down_B")
+        eids = expert_ids.to(torch.int32)
+        ranks = self.row_ranks(slots)
+        if self.mesh is None:
+            return ops.bgmv_expert(rows.contiguous(), self.pool[a][stage, li],
+                                   self.pool[b][stage, li], slots, eids,
+                                   ranks, self.r)
+        # the aligned expert partition: row block e holds experts
+        # [e*E_loc, (e+1)*E_loc) and runs on the owning stage's position
+        R = rows.shape[0]
+        if R % self.x:
+            raise ValueError(f"{R} hook rows do not split over ep={self.x}")
+        n, home = R // self.x, rows.device
+        out = torch.empty((R, self.blocks[(0, stage)][b].shape[-1]),
+                          dtype=torch.float32, device=home)
+        local = eids % self.E_loc
+        for e in range(self.x):
+            blk, dev = self.blocks[(e, stage)], self.mesh.devices[e, stage]
+            part = slice(e * n, (e + 1) * n)
+            call = (rows[part].to(dev).contiguous(), blk[a][li], blk[b][li],
+                    slots[part].to(dev), local[part].to(dev),
+                    ranks[part].to(dev), self.r)
+            if dev == home:
+                ops.bgmv_expert(*call, out=out[part])
+            else:
+                out[part].copy_(ops.bgmv_expert(*call))
+        return out
 
 
 def pool_tensors_from_adapter(pool: AdapterPool, adapter_id: int):

@@ -11,9 +11,8 @@ placement maps each (a, l, e) cell to a server device. Strategies:
                 (x*y == m). Paper's hybrid; x = intra-node degree default.
 
 ``owner`` answers "which device serves (a,l,e)"; ``layer_group`` gives the
-sync scope per layer; both feed the cost model and the simulator. The
-reference's ``from_mesh_shape`` (labelling a serving mesh in placement
-terms) comes with the mesh plane (ROADMAP A8).
+sync scope per layer; both feed the cost model and the simulator.
+``from_mesh_shape`` labels a serving mesh in placement terms.
 """
 from __future__ import annotations
 
@@ -54,6 +53,16 @@ class Placement:
             return Placement(strategy, m, n_adapters, n_layers, n_experts,
                              x=1, y=m)
         return Placement(strategy, m, n_adapters, n_layers, n_experts)
+
+    @classmethod
+    def from_mesh_shape(cls, mesh_shape, n_adapters: int, n_layers: int,
+                        n_experts: int) -> "Placement":
+        """Label a serving mesh (``ServeConfig.mesh_shape`` = (data,
+        model)) in placement terms: the decode rule-set stripes experts over
+        "data", so the mesh runs the EP strategy at degree ``data``."""
+        data, _ = mesh_shape
+        return cls.make("ep", max(int(data), 1), n_adapters, n_layers,
+                        n_experts)
 
     # ------------------------------------------------------------------ #
     def owner(self, adapter: int, layer: int, expert: int) -> int:

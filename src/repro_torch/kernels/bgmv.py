@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels._launch import (check_cuda, check_int32, dtype_code,
-                                         raise_on_error)
+                                         out_buffer, raise_on_error)
 
 VEC_BYTES = 16  # the kernels stream the factors in 16-byte vectors
 
@@ -92,12 +92,13 @@ def _bgmv(name, x, A, B, ids, ranks: Optional[torch.Tensor]):
     # the shrink/expand pair's h (csrc/bgmv.cu takes it from this many rows)
     h_g = (torch.empty((T, r), dtype=torch.float32, device=dev)
            if T >= lib.bgmv_pair_rows() else None)
-    err = lib.bgmv_launch(
-        dtype_code(name, x), dtype_code(name, A), x.data_ptr(), A.data_ptr(),
-        B.data_ptr(), ids.data_ptr(),
-        ranks.data_ptr() if ranks is not None else None,
-        h_g.data_ptr() if h_g is not None else None, out.data_ptr(), T, N,
-        d_in, r, d_out, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.bgmv_launch(
+            dtype_code(name, x), dtype_code(name, A), x.data_ptr(),
+            A.data_ptr(), B.data_ptr(), ids.data_ptr(),
+            ranks.data_ptr() if ranks is not None else None,
+            h_g.data_ptr() if h_g is not None else None, out.data_ptr(), T,
+            N, d_in, r, d_out, torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(name, err)
     return out
 
@@ -126,8 +127,9 @@ bgmv_ranked.launches = 0
 
 
 def bgmv_expert(x, A, B, ids, eids, ranks: Optional[torch.Tensor] = None,
-                r_mod: int = 0):
-    """Launch the CUDA kernel on CUDA tensors (see module docstring)."""
+                r_mod: int = 0, out: Optional[torch.Tensor] = None):
+    """Launch the CUDA kernel on CUDA tensors (see module docstring); the
+    kernel writes every row of ``out`` when one is given."""
     name = "bgmv_expert"
     operands = [x, A, B, ids, eids] + ([ranks] if ranks is not None else [])
     dev = check_cuda(name, *operands)
@@ -145,7 +147,7 @@ def bgmv_expert(x, A, B, ids, eids, ranks: Optional[torch.Tensor] = None,
     lib = _lib(name, 9, 7)
     _check_factors(name, A, B)
     r_mod = int(r_mod) or r
-    out = torch.empty((T, d_out), dtype=torch.float32, device=dev)
+    out = out_buffer(name, out, (T, d_out), dev)
     if T == 0:
         return out
     # the kernel's d_in splits (csrc/bgmv_expert.cu plans them); the active
@@ -153,12 +155,13 @@ def bgmv_expert(x, A, B, ids, eids, ranks: Optional[torch.Tensor] = None,
     splits = lib.bgmv_expert_splits(dtype_code(name, A), d_in, r)
     meta = torch.empty((T + 1, 4), dtype=torch.int32, device=dev)
     part = torch.empty((T, splits, r), dtype=torch.float32, device=dev)
-    err = lib.bgmv_expert_launch(
-        dtype_code(name, x), dtype_code(name, A), x.data_ptr(), A.data_ptr(),
-        B.data_ptr(), ids.data_ptr(), eids.data_ptr(),
-        ranks.data_ptr() if ranks is not None else None, meta.data_ptr(),
-        part.data_ptr(), out.data_ptr(), T, N, E, d_in, r, d_out, r_mod,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.bgmv_expert_launch(
+            dtype_code(name, x), dtype_code(name, A), x.data_ptr(),
+            A.data_ptr(), B.data_ptr(), ids.data_ptr(), eids.data_ptr(),
+            ranks.data_ptr() if ranks is not None else None, meta.data_ptr(),
+            part.data_ptr(), out.data_ptr(), T, N, E, d_in, r, d_out, r_mod,
+            torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(name, err)
     bgmv_expert.launches += 1
     return out

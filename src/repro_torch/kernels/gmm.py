@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels._launch import (check_cuda, check_int32, dtype_code,
-                                         raise_on_error)
+                                         out_buffer, raise_on_error)
 from repro_torch.kernels.bgmv import VEC_BYTES
 
 
@@ -30,8 +30,10 @@ def _lib():
     return lib
 
 
-def gmm(xe, w, group_sizes: Optional[torch.Tensor] = None):
-    """Launch the CUDA kernel on CUDA tensors (see module docstring)."""
+def gmm(xe, w, group_sizes: Optional[torch.Tensor] = None,
+        out: Optional[torch.Tensor] = None):
+    """Launch the CUDA kernel on CUDA tensors (see module docstring); the
+    kernel writes every element of ``out`` when one is given."""
     name = "gmm"
     operands = [xe, w] + ([group_sizes] if group_sizes is not None else [])
     dev = check_cuda(name, *operands)
@@ -49,15 +51,16 @@ def gmm(xe, w, group_sizes: Optional[torch.Tensor] = None):
     if f % vec or w.data_ptr() % VEC_BYTES:
         raise ValueError(f"{name}: f={f} must be a multiple of {vec} and w "
                          f"16-byte aligned")
-    out = torch.empty((E, C, f), dtype=torch.float32, device=dev)
+    out = out_buffer(name, out, (E, C, f), dev)
     if out.numel() == 0:
         return out
-    err = _lib().gmm_launch(
-        dtype_code(name, xe), dtype_code(name, w), xe.data_ptr(),
-        w.data_ptr(),
-        group_sizes.data_ptr() if group_sizes is not None else None,
-        out.data_ptr(), E, C, d, f,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = _lib().gmm_launch(
+            dtype_code(name, xe), dtype_code(name, w), xe.data_ptr(),
+            w.data_ptr(),
+            group_sizes.data_ptr() if group_sizes is not None else None,
+            out.data_ptr(), E, C, d, f,
+            torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(name, err)
     gmm.launches += 1
     return out

@@ -37,12 +37,14 @@ def bgmv(x, A, B, ids):
 
 
 def bgmv_expert(x, A, B, ids, eids, ranks: Optional[torch.Tensor] = None,
-                r_mod: int = 0):
+                r_mod: int = 0, out: Optional[torch.Tensor] = None):
     """Per-row expert-LoRA shrink-expand with an optional true-rank mask
-    -> (T, d_out) f32 (see kernels/bgmv.py)."""
+    -> (T, d_out) f32, written into ``out`` when given (see
+    kernels/bgmv.py)."""
     if x.device.type == "cpu":
-        return _ref.bgmv_expert_ref(x, A, B, ids, eids, ranks, r_mod)
-    return _bgmv.bgmv_expert(x, A, B, ids, eids, ranks, r_mod)
+        return _into(out, _ref.bgmv_expert_ref(x, A, B, ids, eids, ranks,
+                                               r_mod))
+    return _bgmv.bgmv_expert(x, A, B, ids, eids, ranks, r_mod, out=out)
 
 
 def bgmv_ranked(x, A, B, ids, ranks):
@@ -93,12 +95,18 @@ def fused_sgmv_ranked(seg_rows, seg_slot, seg_eid, seg_rank, A, B):
                                     A, B)
 
 
-def gmm(xe, w, group_sizes: Optional[torch.Tensor] = None):
-    """Grouped expert GEMM -> (E, C, f) f32, rows past group_sizes zero
-    (see kernels/gmm.py)."""
+def gmm(xe, w, group_sizes: Optional[torch.Tensor] = None,
+        out: Optional[torch.Tensor] = None):
+    """Grouped expert GEMM -> (E, C, f) f32, rows past group_sizes zero,
+    written into ``out`` when given (see kernels/gmm.py)."""
     if xe.device.type == "cpu":
-        return _ref.gmm_ref(xe, w, group_sizes)
-    return _gmm.gmm(xe, w, group_sizes)
+        return _into(out, _ref.gmm_ref(xe, w, group_sizes))
+    return _gmm.gmm(xe, w, group_sizes, out=out)
+
+
+def _into(out: Optional[torch.Tensor], y: torch.Tensor) -> torch.Tensor:
+    """The plain version's ``y``, copied into ``out`` when one is given."""
+    return y if out is None else out.copy_(y)
 
 
 def launch_counts() -> dict:

@@ -71,13 +71,14 @@ def paged_attention(q, k_pool, v_pool, block_tables, pos, *, window: int = 0):
     l_part = torch.empty_like(m_part)
     acc_part = torch.empty((B, KV, n_split, G, hd), dtype=torch.float32,
                            device=dev)
-    err = _lib()(
-        dtype_code(name, q), dtype_code(name, k_pool), q.data_ptr(),
-        k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
-        pos.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-        acc_part.data_ptr(), out.data_ptr(), B, KV, G, hd, P, ps, nb,
-        int(window), pps, n_split, 1.0 / math.sqrt(hd),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = _lib()(
+            dtype_code(name, q), dtype_code(name, k_pool), q.data_ptr(),
+            k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
+            pos.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
+            acc_part.data_ptr(), out.data_ptr(), B, KV, G, hd, P, ps, nb,
+            int(window), pps, n_split, 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(name, err)
     paged_attention.launches += 1
     return out

@@ -99,19 +99,20 @@ def _call(name, lib, dims, seg_rows, A, B, slots, eids, ranks, index, out,
     n_seg = S if index is None else index.shape[0]
     if n_seg == 0 or cap == 0:
         return
-    splits = split_plan(d_in, lib.sgmv_max_splits())
-    part = torch.empty(n_seg * lib.sgmv_part_floats(cap, r, splits),
-                       dtype=torch.float32, device=out.device)
-    err = lib.sgmv_launch(
-        dtype_code(name, seg_rows), dtype_code(name, A),
-        int(ranks is not None), seg_rows.data_ptr(), A.data_ptr(),
-        B.data_ptr(), slots.data_ptr(),
-        eids.data_ptr() if eids is not None else None,
-        ranks.data_ptr() if ranks is not None else None,
-        index.data_ptr() if index is not None else None,
-        out.data_ptr(), part.data_ptr(), S, n_seg, cap, M, E, d_in, r,
-        r_pool, d_out, splits,
-        torch.cuda.current_stream(out.device).cuda_stream)
+    dev = out.device
+    with torch.cuda.device(dev):
+        splits = split_plan(d_in, lib.sgmv_max_splits())
+        part = torch.empty(n_seg * lib.sgmv_part_floats(cap, r, splits),
+                           dtype=torch.float32, device=dev)
+        err = lib.sgmv_launch(
+            dtype_code(name, seg_rows), dtype_code(name, A),
+            int(ranks is not None), seg_rows.data_ptr(), A.data_ptr(),
+            B.data_ptr(), slots.data_ptr(),
+            eids.data_ptr() if eids is not None else None,
+            ranks.data_ptr() if ranks is not None else None,
+            index.data_ptr() if index is not None else None,
+            out.data_ptr(), part.data_ptr(), S, n_seg, cap, M, E, d_in, r,
+            r_pool, d_out, splits, torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(name, err)
 
 

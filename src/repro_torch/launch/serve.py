@@ -110,16 +110,19 @@ def build_lora(cfg, mode: str, adapter_ranks: Sequence[int], seed: int = 0,
 
 
 def build_pool(cfg, adapter_ranks: Sequence[int], replicas: int = 1,
-               seed: int = 0, dtype=torch.bfloat16, device=None) -> Dict:
+               seed: int = 0, dtype=torch.bfloat16, device=None,
+               partition_slots: bool = False) -> Dict:
     """The disaggregated plane with every adapter resident: ``replicas``
-    LoRA-Server replicas of one slot per adapter, each adapter written into
-    its affinity home at its true rank; returns the Engine's keyword
-    arguments {"server", "pool"}. (The front door brings adapters in as
-    requests need them instead.)"""
+    LoRA-Server replicas of one slot per adapter (with
+    ``partition_slots``: each of its share of them, the mesh plane's
+    layout), each adapter written into its affinity home at its true rank;
+    returns the Engine's keyword arguments {"server", "pool"}. (The front
+    door brings adapters in as requests need them instead.)"""
     pool = adapter_pool(cfg, "disagg", adapter_ranks, seed=seed, dtype=dtype,
                         device=device)
     sp = ServerPool.build(cfg, pool, cache_slots=pool.n, n_replicas=replicas,
-                          dtype=dtype, device=device)
+                          dtype=dtype, device=device,
+                          partition_slots=partition_slots)
     every = LoRACache(pool.n, adapter_bytes=0, n_layers=cfg.n_layers,
                       layerwise=False, prefetch=False)
     for aid in range(pool.n):

@@ -226,7 +226,8 @@ def decode_attention_update_slots_paged(q, k_new, v_new, k_pool, v_pool,
 # ----------------------- static-batch decode ---------------------------- #
 # One shared host-int position ``pos`` for the whole batch (the legacy
 # ``Engine.prefill`` / ``decode`` API), on the local plan: the reference's
-# sequence-sharded branches are the mesh plane's.
+# sequence-sharded branches come with its collective-bearing SPMD steps
+# (ROADMAP A8b).
 quantize_kv_token = quantize_kv   # one token's (B, KV, hd) -> (int8, scale)
 
 

@@ -95,11 +95,130 @@ def combine(y_slots, pair_slot, wts):
     return out
 
 
+class ExpertBlocks:
+    """An expert weight cut into contiguous blocks of experts, each on its
+    device (``distributed.steps.shard_serve_params``); the expert dim is
+    the third from last. Indexing picks a layer of every block, as
+    ``model.layer_params`` does on a stacked weight. Blocks on another
+    device than the first share one ``Remote``."""
+
+    def __init__(self, blocks, remote=None):
+        self.blocks = list(blocks)
+        self.remote = remote
+
+    @classmethod
+    def cut(cls, w, devices, remote=None) -> "ExpertBlocks":
+        """``w`` cut into ``len(devices)`` equal expert blocks, block i on
+        ``devices[i]``: a view where that is ``w``'s device, else a copy
+        (whose calls go through ``remote``, a new one if None)."""
+        blocks = [b.to(dv) for b, dv in zip(
+            torch.chunk(w, len(devices), dim=-3), devices)]
+        if all(b.device == w.device for b in blocks):
+            remote = None
+        elif remote is None:
+            remote = Remote()
+        return cls(blocks, remote)
+
+    def __getitem__(self, l) -> "ExpertBlocks":
+        return ExpertBlocks((b[l] for b in self.blocks), self.remote)
+
+    @property
+    def shape(self):
+        b = self.blocks[0]
+        return b.shape[:-3] + (sum(x.shape[-3] for x in self.blocks),) \
+            + b.shape[-2:]
+
+    @property
+    def dtype(self):
+        return self.blocks[0].dtype
+
+
+class Remote:
+    """What the blocks on other cards need: a side stream a card, and a
+    staging buffer a (card, role, shape, dtype), made at the first call of
+    a shape and kept. A CUDA graph capture of the step then allocates
+    nothing on those cards (their allocators take no part in it), and the
+    buffers it recorded outlive it."""
+
+    def __init__(self):
+        self._streams = {}
+        self._buffers = {}
+
+    def stream(self, dev):
+        if dev not in self._streams:
+            self._streams[dev] = torch.cuda.Stream(dev)
+        return self._streams[dev]
+
+    def buffer(self, dev, role, shape, dtype):
+        key = (dev, role, tuple(shape), dtype)
+        if key not in self._buffers:
+            self._buffers[key] = torch.empty(shape, dtype=dtype, device=dev)
+        return self._buffers[key]
+
+
+def expert_gmm(xe, w, group_sizes=None):
+    """``ops.gmm(xe, w, group_sizes)``; on an ``ExpertBlocks`` one
+    ``ops.gmm`` a block into its experts' slice of one f32 output on
+    ``xe``'s device. A block on another card runs on that card's side
+    stream, joined to the caller's by events: its rows and group sizes
+    are copied into staging buffers there, its output copied back. The
+    far blocks start first, so they overlap the near ones. ``gmm`` sums
+    each (expert, column tile, row group) in one fixed order, so an
+    expert's output does not depend on the experts beside it: the bits
+    are those of one launch over all experts."""
+    if not isinstance(w, ExpertBlocks):
+        return ops.gmm(xe, w, group_sizes)
+    E, C, _ = xe.shape
+    home = xe.device
+    out = torch.empty((E, C, w.shape[-1]), dtype=F32, device=home)
+    spans, e0 = [], 0
+    for wb in w.blocks:
+        spans.append((e0, e0 + wb.shape[0], wb))
+        e0 += wb.shape[0]
+    far = [sp for sp in spans if sp[2].device != home]
+    staged = [_far_gmm(xe, group_sizes, out, sp, w.remote) for sp in far]
+    for e0, e1, wb in spans:
+        if wb.device == home:
+            ops.gmm(xe[e0:e1], wb, None if group_sizes is None
+                    else group_sizes[e0:e1], out=out[e0:e1])
+    for (e0, e1, wb), ob in zip(far, staged):
+        with torch.cuda.device(wb.device), \
+                torch.cuda.stream(w.remote.stream(wb.device)):
+            out[e0:e1].copy_(ob)    # on the side stream; the caller's waits
+    return out
+
+
+def _far_gmm(xe, group_sizes, out, span, remote):
+    """Start block ``span`` = (e0, e1, weight) on its card: the side stream
+    joins the caller's, the rows (and group sizes) are copied into staging
+    buffers there, and ``gmm`` writes a staged output, which is returned
+    (``expert_gmm`` copies it back)."""
+    e0, e1, wb = span
+    dev = wb.device
+    side = remote.stream(dev)
+    go = torch.cuda.Event()
+    go.record(torch.cuda.current_stream(xe.device))
+    side.wait_event(go)
+    with torch.cuda.device(dev), torch.cuda.stream(side):
+        # one set a block: two blocks on one card hold their outputs at once
+        xb = remote.buffer(dev, ("rows", e0), (e1 - e0,) + xe.shape[1:],
+                           xe.dtype)
+        xb.copy_(xe[e0:e1])
+        gb = None
+        if group_sizes is not None:
+            gb = remote.buffer(dev, ("sizes", e0), (e1 - e0,),
+                               group_sizes.dtype)
+            gb.copy_(group_sizes[e0:e1])
+        ob = remote.buffer(dev, ("out", e0), out[e0:e1].shape, F32)
+        ops.gmm(xb, wb, gb, out=ob)
+    return ob
+
+
 def expert_ffn(xe, wg, wu, wd, lora=None, row_adapter=None,
                lora_scale: float = 1.0, group_sizes=None):
     """Expert FFN, gated (SwiGLU) or, with ``wg`` None, GELU. xe: (E, C, d);
-    wg/wu: (E, d, f); wd: (E, f, d) -> (E, C, d) f32. The base GEMMs run
-    through ``ops.gmm``; with
+    wg/wu: (E, d, f); wd: (E, f, d), tensors or ``ExpertBlocks`` ->
+    (E, C, d) f32. The base GEMMs run through ``expert_gmm``; with
     ``group_sizes`` (E,) int32 (``dispatch``) it skips each expert's rows
     at or past its group size, which are pad rows (their output is 0, as
     the reference's einsum over the zero rows gives).
@@ -124,16 +243,16 @@ def expert_ffn(xe, wg, wu, wd, lora=None, row_adapter=None,
 
     g = None
     if wg is not None:
-        g = ops.gmm(xe, wg, group_sizes)
+        g = expert_gmm(xe, wg, group_sizes)
         dg = dl("gate", xe)
         if dg is not None:
             g = g + dg
-    u = ops.gmm(xe, wu, group_sizes)
+    u = expert_gmm(xe, wu, group_sizes)
     du = dl("up", xe)
     if du is not None:
         u = u + du
     h = (F.silu(g) * u if wg is not None else gelu(u)).to(xe.dtype)
-    y = ops.gmm(h, wd, group_sizes)
+    y = expert_gmm(h, wd, group_sizes)
     dd = dl("down", h)
     if dd is not None:
         y = y + dd

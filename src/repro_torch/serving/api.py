@@ -31,8 +31,10 @@ modelled seconds, not measurements). ``autoscale`` runs Algorithm 1
 online on either plane; its actions surface as ``scale:<kind>`` events
 (``rid=-1``) and in ``scale_history()``.
 
-Not ported yet, and refused with a ValueError naming its item:
-``mesh_shape`` (ROADMAP A8).
+``mesh_shape`` = (data, model) (cluster backend, disaggregated plane) runs
+the base expert GEMMs expert-parallel over a grid of devices, with the
+server replicas' slot tables partitioned; the tokens are those without a
+mesh, bit for bit.
 """
 from __future__ import annotations
 
@@ -43,13 +45,13 @@ from typing import Callable, Dict, Iterator, List, Optional, Protocol, \
     Sequence, Tuple
 
 from repro_torch.core.cost_model import H100, Hardware
+from repro_torch.launch.mesh import check_mesh_shape
 from repro_torch.obs.hub import Observability, ObservabilityHub
 from repro_torch.obs.trace import NULL_TRACER, TimelineTracer
 from repro_torch.serving import metrics
 from repro_torch.serving.autoscaler import Autoscaler, AutoscalePolicy, \
     ScaleAction
-from repro_torch.serving.cluster import Cluster, ClusterConfig, \
-    refuse_unported
+from repro_torch.serving.cluster import Cluster, ClusterConfig
 from repro_torch.serving.engine import EngineConfig, check_family
 from repro_torch.serving.metrics import Summary
 from repro_torch.serving.server_pool import ServerPool
@@ -165,7 +167,9 @@ class ServeConfig:
     # per-launch hook dispatch cost: prices the sim plane's launch tail
     # and derates the autoscaler's TPOT budget on both planes (0 = off)
     hook_launch_us: float = 0.0
-    # the mesh plane: refused (not ported yet)
+    # mesh-sharded execution plane (cluster backend, disaggregated only):
+    # a (data, model) device grid; the base expert GEMMs run over its
+    # "data" axis and the server replicas' slot tables are partitioned
     mesh_shape: Optional[Tuple[int, int]] = None
     failures: Tuple[Tuple[float, int], ...] = ()
     recoveries: Tuple[Tuple[float, int], ...] = ()
@@ -188,7 +192,13 @@ class ServeConfig:
         if self.transport not in ("host", "fused"):
             raise ValueError(f"unknown transport {self.transport!r} "
                              f"(expected 'host' or 'fused')")
-        refuse_unported(self.mesh_shape)
+        if self.mesh_shape is not None:
+            if self.backend != "cluster":
+                raise ValueError(
+                    "mesh_shape drives real sharded execution: it needs "
+                    "backend='cluster' (the sim plane prices parallelism "
+                    "via placement_x instead)")
+            check_mesh_shape(self.mesh_shape, self.disaggregated)
 
     # ------------------------- derivations --------------------------- #
     def engine_config(self) -> EngineConfig:
@@ -208,6 +218,7 @@ class ServeConfig:
             page_size=self.page_size, n_pages=self.n_pages,
             prefill_chunk=self.prefill_chunk, autoscale=self.autoscale,
             transport=self.transport, hook_launch_us=self.hook_launch_us,
+            mesh_shape=self.mesh_shape,
             store_host_bytes=self.store_host_bytes,
             store_dir=self.store_dir, disk_bw=self.disk_bw,
             prefetch=self.prefetch, rank_aware=self.rank_aware)
@@ -418,13 +429,15 @@ class ClusterBackend:
         rank, on the pool's device (the slots take the adapters' true ranks
         at insert): ``adapter_cache_slots`` slots each, or, when
         autoscaling, enough for the policy's cache ceiling (at most one
-        slot per adapter of the pool)."""
+        slot per adapter of the pool). Under a mesh the slot tables are
+        partitioned: each replica holds its affinity share of them."""
         slots = cfg.adapter_cache_slots
         if cfg.autoscale is not None:
             slots = max(slots, min(cfg.autoscale.max_cache_slots, pool.n))
         return ServerPool.build(model, pool, cache_slots=slots,
                                 n_replicas=max(cfg.server_replicas, 1),
-                                device=_device_of_pool(pool))
+                                device=_device_of_pool(pool),
+                                partition_slots=cfg.mesh_shape is not None)
 
     def submit(self, req: Request) -> None:
         self.cluster.submit(req)    # raises ValueError -> REJECTED

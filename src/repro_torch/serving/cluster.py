@@ -31,8 +31,14 @@ Requests are admitted at decode-step boundaries into a RUNNING batch
 deterministic, so for the same workload the planes give the same tokens
 per request.
 
-Not ported yet, and refused with a ValueError: the mesh-sharded plane
-(``mesh_shape``; ROADMAP A8).
+The mesh-sharded plane (``ClusterConfig.mesh_shape`` = (data, model),
+disaggregated only): a grid of devices (``launch.mesh.make_serve_mesh``:
+the CPU for params on the CPU, else the first data * model distinct
+visible cards) over which the decode step's base expert GEMMs run
+expert-parallel (``distributed.steps``), the expert weights cut into
+blocks on their devices; the server pool's replicas stay single-device
+and, when it is partitioned, the shared cache bounds each affinity home at
+its replica's slots. The tokens are those without a mesh, bit for bit.
 """
 from __future__ import annotations
 
@@ -43,6 +49,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core.adapter import AdapterPool
+from repro_torch.distributed.steps import expert_parallel_ctx, \
+    shard_serve_params
+from repro_torch.launch.mesh import check_mesh_shape, make_serve_mesh
 from repro_torch.models.cache import pages_for
 from repro_torch.obs.clock import wall_time
 from repro_torch.obs.trace import NULL_TRACER, Tracer
@@ -56,13 +65,6 @@ from repro_torch.serving.server_pool import ServerPool
 from repro_torch.serving.workload import Request
 from repro_torch.store import AdapterStore
 from repro_torch.transport import make_transport
-
-
-def refuse_unported(mesh_shape) -> None:
-    """The option whose modules the port does not have yet."""
-    if mesh_shape is not None:
-        raise ValueError("mesh_shape: the mesh-sharded plane is not ported "
-                         "yet (ROADMAP A8)")
 
 
 @dataclasses.dataclass
@@ -93,7 +95,8 @@ class ClusterConfig:
     # per-launch cost fed to the autoscaler's TPOT-budget derate (the
     # plane measures its dispatches but models their cost; 0 = no derate)
     hook_launch_us: float = 0.0
-    # mesh-sharded execution plane (refused: not ported yet)
+    # mesh-sharded execution plane: a (data, model) device grid over which
+    # the disaggregated step's base expert GEMMs run expert-parallel
     mesh_shape: Optional[Tuple[int, int]] = None
     # hierarchical adapter store (disaggregated only): host-RAM tier byte
     # budget (None = unbounded), disk-tier directory (None = private
@@ -107,9 +110,6 @@ class ClusterConfig:
     # bound each row's hook contraction at its adapter's TRUE rank (padded
     # lanes are exact zeros, so the tokens do not move)
     rank_aware: bool = True
-
-    def __post_init__(self):
-        refuse_unported(self.mesh_shape)
 
     @property
     def prefetch_on(self) -> bool:
@@ -136,17 +136,25 @@ class Cluster:
         # span attributes. NULL_TRACER = record nothing.
         self.tracer = tracer if tracer is not None else NULL_TRACER
         check_family(cfg, disaggregated=ccfg.disaggregated)
+        if ccfg.mesh_shape is not None:
+            check_mesh_shape(ccfg.mesh_shape, ccfg.disaggregated)
         if ccfg.disaggregated:
             if server_pool is None:
                 raise ValueError(
                     "disaggregated mode needs a ServerPool (server_pool=)")
-            if server_pool.min_slots < ccfg.adapter_cache_slots:
-                # the shared LoRACache mirrors into every replica's slot
-                # pool, and affinity may route every resident to one
+            if server_pool.total_slots < ccfg.adapter_cache_slots:
+                # the shared LoRACache mirrors into the replicas' slot
+                # pools: a duplicated pool is bound by its smallest replica
+                # (affinity may route every resident to one), a partitioned
+                # one by the sum (per-home admission bounds each share)
+                kind = "aggregate" if server_pool.partitioned else "replica"
                 raise ValueError(
-                    f"ServerPool replica capacity {server_pool.min_slots} "
+                    f"ServerPool {kind} capacity {server_pool.total_slots} "
                     f"< adapter_cache_slots={ccfg.adapter_cache_slots}")
         self.device = _device_of(params)
+        self.mesh_ctx = None
+        if ccfg.mesh_shape is not None:
+            params = self._shard(cfg, params, ccfg)
         self.cfg = cfg
         self.ccfg = ccfg
         self.pool = pool
@@ -186,10 +194,33 @@ class Cluster:
         self._pi = 0
         self.rnd = 0
 
+    def _shard(self, cfg, params, ccfg: ClusterConfig):
+        """Build the mesh of ``ccfg.mesh_shape`` and its expert-parallel
+        ctx, and cut the expert weights into its blocks (no ctx: a mesh
+        with one position on the expert axis, or an E that does not
+        divide, runs the plain path)."""
+        data, model = ccfg.mesh_shape
+        mesh = make_serve_mesh(data, model, devices=["cpu"]
+                               if self.device.type == "cpu" else None)
+        if mesh.first != self.device:
+            raise ValueError(f"the mesh's first device {mesh.first} must "
+                             f"hold the params (on {self.device})")
+        self.mesh_ctx = expert_parallel_ctx(mesh, cfg)
+        if self.mesh_ctx is None:
+            return params
+        return shard_serve_params(params, self.mesh_ctx)
+
     def _new_engine(self) -> Engine:
         return Engine(self.cfg, self.params, self._ecfg,
                       server=self.server_pool, pool=self.pool,
-                      transport=self.transport or "host", device=self.device)
+                      transport=self.transport or "host", device=self.device,
+                      mesh_ctx=self.mesh_ctx)
+
+    def _set_cache_partition(self) -> None:
+        """Install the shared cache's per-home bounds from the partitioned
+        pool's current replica set."""
+        self._caches[-1].set_partition(self.server_pool.replica_for,
+                                       self.server_pool.partition_caps())
 
     # ------------------------------------------------------------------ #
     def _prompt(self, req: Request) -> np.ndarray:
@@ -263,6 +294,8 @@ class Cluster:
         self._cache_slots = ccfg.adapter_cache_slots
         if ccfg.disaggregated:
             self._caches = {-1: self._mk_cache()}
+            if self.server_pool.partitioned:
+                self._set_cache_partition()
             owner = None
         else:
             counts = np.bincount([r.adapter_id for r in requests],
@@ -296,11 +329,11 @@ class Cluster:
         if ccfg.autoscale is not None:
             pol = ccfg.autoscale
             if self.server_pool is not None and \
-                    pol.max_cache_slots > self.server_pool.min_slots:
+                    pol.max_cache_slots > self.server_pool.total_slots:
                 # cap the policy at the pool's slot capacity, or the control
                 # loop would chase an unreachable cache target every tick
                 pol = dataclasses.replace(
-                    pol, max_cache_slots=self.server_pool.min_slots)
+                    pol, max_cache_slots=self.server_pool.total_slots)
             self._scaler = Autoscaler(pol, self.cfg, max_batch=ccfg.n_slots,
                                       has_server=self.server_pool is not None,
                                       transport=ccfg.transport,
@@ -408,7 +441,7 @@ class Cluster:
             if self.server_pool is not None:
                 # the replicas' slot pools bound the cache (open() already
                 # caps the policy at them)
-                target = min(target, self.server_pool.min_slots)
+                target = min(target, self.server_pool.total_slots)
             self._cache_slots = max(target, 1)
             for c in self._caches.values():
                 c.resize(self._cache_slots, now)
@@ -430,6 +463,13 @@ class Cluster:
             if self.server_pool is None:
                 return              # the coupled plane has no replicas
             if converge_replicas(self.server_pool, act.target):
+                if self.server_pool.partitioned:
+                    # the affinity map changed and each home's bound with
+                    # it: evict any home's overflow before the sync
+                    # mirrors residency into the replicas' slot tables
+                    self._caches[-1].repartition(
+                        self.server_pool.replica_for,
+                        self.server_pool.partition_caps(), now)
                 # re-home now: running requests' adapters must sit on their
                 # new affinity replicas before the next decode step
                 self._sync_pool()

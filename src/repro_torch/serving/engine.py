@@ -15,6 +15,13 @@ layouts:
   dense         : ``EngineConfig(paged=False)``; a slab of max_len rows per
                   slot, gathered into the step's rows and scattered back
 
+Under a mesh (``mesh_ctx``, a ``distributed.steps.ExpertParallelCtx``;
+disaggregated plane only) the engine cuts the params' expert weights into
+the mesh's blocks once (``shard_serve_params``; blocks the params already
+hold are kept), so its base expert GEMMs run expert-parallel over the
+mesh's devices; the KV lives on the mesh's first device, where the engine
+runs.
+
 The engine owns ``n_slots`` persistent decode slots (dense, moe and vlm
 models; the KV is made at the first admission). A request is admitted
 into a free slot at a step boundary: its prompt, all but the last token,
@@ -39,6 +46,8 @@ import torch
 
 from repro_torch.configs.base import SLOT_FAMILIES
 from repro_torch.core import disagg
+from repro_torch.distributed.steps import shard_serve_params
+from repro_torch.launch.mesh import COUPLED_UNDER_MESH
 from repro_torch.models import cache as cache_mod
 from repro_torch.models import transformer
 from repro_torch.models.model import resolve_device
@@ -64,6 +73,13 @@ def check_family(cfg, disaggregated: bool = False) -> None:
             f"{', '.join(SLOT_FAMILIES)}). Use the legacy prefill/decode "
             f"API for ssm/hybrid/audio models.")
     _check_plane(cfg, disaggregated)
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """``dev`` with the current card's index where it names none."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -109,8 +125,13 @@ class Engine:
 
     def __init__(self, cfg, params, ecfg: EngineConfig, server=None,
                  lora_scale: Optional[float] = None, device=None, pool=None,
-                 transport="host"):
+                 transport="host", mesh_ctx=None):
         _check_plane(cfg, disaggregated=server is not None)
+        if mesh_ctx is not None:
+            if server is None:
+                raise ValueError(f"mesh_ctx requires the disaggregated plane "
+                                 f"(server=): {COUPLED_UNDER_MESH}")
+            params = shard_serve_params(params, mesh_ctx)
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg
@@ -128,6 +149,12 @@ class Engine:
         self.lora_scale = float(pool.scale if pool is not None else
                                 1.0 if lora_scale is None else lora_scale)
         self.device = resolve_device(device)
+        if mesh_ctx is not None:
+            first = mesh_ctx.mesh.first
+            if device is not None and _indexed(self.device) != first:
+                raise ValueError(f"the engine runs on the mesh's first "
+                                 f"device {first}, not {self.device}")
+            self.device = first
         self.slots: List[Optional[SlotState]] = [None] * ecfg.n_slots
         self._by_rid: Dict[int, int] = {}
         chunk = max(int(ecfg.prefill_chunk), 1)

@@ -26,6 +26,13 @@ decides from the dispatch rows' ids; a decode step is dropless
 (T * top_k <= 4096), so every token's adapter has a dispatch row and the
 two rules engage the same replicas.
 
+A pool built with ``partition_slots=True`` (the mesh plane's layout) is
+*partitioned*: each replica holds only its affinity share of the cache
+(``ceil(cache_slots / n_replicas)`` slots) instead of a full duplicate, so
+the replicas' capacities add up (``total_slots``), and the shared
+``LoRACache`` bounds each home at its replica's slots
+(``partition_caps``).
+
 Replicas are real ``LoRAServer``s on the cluster plane (built by a factory
 so the autoscaler can add them at run time) or slot tables without weights
 on the analytic plane (``ServerPool.analytic``, the simulator's): residency
@@ -93,6 +100,8 @@ class ServerPool:
             raise ValueError("ServerPool needs at least one replica")
         self.replicas: List = list(replicas)
         self._factory = factory
+        # each replica holds its affinity share of the cache, not all of it
+        self.partitioned = False
         # rank-aware compute toggle, mirrored onto every replica (current
         # and future); False pins the padded pool-rank path
         self.rank_aware = True
@@ -117,22 +126,29 @@ class ServerPool:
     # ------------------------------------------------------------------ #
     @classmethod
     def build(cls, model_cfg, adapter_pool, cache_slots: int,
-              n_replicas: int = 1, dtype=None, device=None) -> "ServerPool":
+              n_replicas: int = 1, dtype=None, device=None,
+              partition_slots: bool = False) -> "ServerPool":
         """``n_replicas`` single-device ``LoRAServer``s, each sized to the
         full cache capacity (affinity partitions load, not worst-case
-        residency), plus a factory for ``add_replica``. The reference's
-        slot-partitioned pools (``partition_slots``) serve its mesh layout,
-        which the port does not run yet."""
+        residency), plus a factory for ``add_replica``.
+        ``partition_slots=True`` (the mesh plane's layout) sizes each
+        replica to ``ceil(cache_slots / n_replicas)`` slots instead; the
+        factory keeps every replica that size (the fused transport stacks
+        their pools)."""
         from repro_torch.core.lora_server import LoRAServer, ServerConfig
         if dtype is None:
             dtype = next(iter(adapter_pool.tensors.values()))["A"].dtype
+        per_rep = -(-cache_slots // max(n_replicas, 1)) if partition_slots \
+            else cache_slots
 
         def factory():
-            scfg = ServerConfig(m=1, x=1, y=1, cache_slots=cache_slots,
+            scfg = ServerConfig(m=1, x=1, y=1, cache_slots=per_rep,
                                 rank=adapter_pool.rank)
             return LoRAServer(model_cfg, scfg, dtype=dtype, device=device)
 
-        return cls([factory() for _ in range(n_replicas)], factory=factory)
+        pool = cls([factory() for _ in range(n_replicas)], factory=factory)
+        pool.partitioned = partition_slots
+        return pool
 
     @classmethod
     def analytic(cls, n_replicas: int, cache_slots: int) -> "ServerPool":
@@ -153,6 +169,19 @@ class ServerPool:
         """Smallest per-replica slot capacity: the cache-size bound of a
         duplicated pool (worst case routes every resident to one replica)."""
         return min(r.M for r in self.replicas)
+
+    @property
+    def total_slots(self) -> int:
+        """The cache-size bound: the replicas' capacities added when
+        partitioned (each holds only its share), ``min_slots`` otherwise."""
+        if self.partitioned:
+            return sum(r.M for r in self.replicas)
+        return self.min_slots
+
+    def partition_caps(self) -> Dict[int, int]:
+        """Per-home slot caps for the shared cache's admission
+        (``LoRACache.set_partition``)."""
+        return {i: r.M for i, r in enumerate(self.replicas)}
 
     def replica_for(self, adapter_id: int) -> int:
         """Affinity home of ``adapter_id`` (stable between resizes)."""
@@ -208,7 +237,7 @@ class ServerPool:
     def resize_slots(self, cache_slots: int) -> None:
         """Follow an adapter-cache resize: analytic slot tables take the
         new size, preallocated slot pools keep theirs (the caller clamps
-        the cache to ``min_slots``). Either way the next sync is forced
+        the cache to ``total_slots``). Either way the next sync is forced
         full: a resize can re-home residency, and a stale slot table would
         route rows to the wrong slot."""
         for rep in self.replicas:

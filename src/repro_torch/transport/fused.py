@@ -33,6 +33,13 @@ view's pools are the server's own (fixed addresses, written in place by
 rewriting only the slots whose weights were written since the last one.
 An engine that releases its KV (a retired instance) makes the transport
 forget the graphs captured over it (``forget_kv``).
+
+Under a mesh (params whose expert weights ``shard_serve_params`` cut into
+blocks) the step runs its base expert GEMMs one ``gmm`` a block, and is
+still one graph a (bucket, layout). A block on another card runs on that card's side stream,
+which the capture joins through events, and writes only staging buffers
+made at the warm-up (``moe.Remote``): the capture allocates nothing on
+that card, whose allocator takes no part in it.
 """
 from __future__ import annotations
 
@@ -190,10 +197,10 @@ class FusedTransport:
                 raise ValueError("FusedTransport needs LoRAServer replicas "
                                  "with slot pools (the analytic plane has "
                                  "none)")
-            if rep.y != 1:
+            if rep.y != 1 or getattr(rep, "mesh", None) is not None:
                 raise ValueError("FusedTransport requires single-device "
-                                 "replicas (y == 1): the stacked pool "
-                                 "indexes layers directly")
+                                 "replicas (y == 1, no server mesh): the "
+                                 "stacked pool indexes layers directly")
         R, M, r = len(reps), reps[0].M, reps[0].r
         if any(rep.M != M or rep.r != r for rep in reps):
             raise ValueError("FusedTransport stacks replicas of one slot "

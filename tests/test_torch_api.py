@@ -12,8 +12,9 @@ JAX reference's (``repro.serving.api``) on the same workload:
   - the adapter lifecycle under a host budget that spills to disk: load a
     new adapter mid-run, serve it, unload (refused while in flight), load
     it again; the reference's tokens
-  - front door == ``Cluster.run``; ``mesh_shape`` refused with its
-    ROADMAP item; the observability exports; the quickstart and serving
+  - front door == ``Cluster.run``; ``mesh_shape`` accepted (the mesh
+    plane's own tests are ``tests/test_torch_mesh.py``); the
+    observability exports; the quickstart and serving
     entry points on the CPU (``--cluster`` too)
   - the analytic backend (``backend="sim"``, after ``tests/test_api.py``):
     ``from_sim``/``sim_config``/``from_cluster`` against the reference's,
@@ -367,14 +368,15 @@ def test_serve_config_derives_engine_and_cluster_configs():
 
 
 def test_unported_planes_are_refused_with_their_item(setup):
-    """Only the mesh plane is still refused; the analytic backend and the
-    autoscaler (ROADMAP A6) are ported."""
+    """No plane is refused any more: the analytic backend, the autoscaler
+    (ROADMAP A6) and the mesh plane (A8) are ported; a bad transport or
+    backend still is."""
     assert ServeConfig(backend="sim").sim_config().hw == H100
     assert ServeConfig(disaggregated=True,
                        autoscale=AutoscalePolicy()).cluster_config() \
         .autoscale == AutoscalePolicy()
-    with pytest.raises(ValueError, match="mesh.*A8"):
-        ServeConfig(disaggregated=True, mesh_shape=(2, 2))
+    assert ServeConfig(disaggregated=True, mesh_shape=(2, 2)) \
+        .cluster_config().mesh_shape == (2, 2)
     with pytest.raises(ValueError, match="unknown transport"):
         ServeConfig(transport="carrier-pigeon")
     with pytest.raises(ValueError, match="unknown backend"):

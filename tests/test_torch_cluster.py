@@ -14,7 +14,8 @@
     composition, paged == dense, a tight page budget, prefill chunk-width
     invariance, tracing on == off; the prefetch thread stages only
     adapters no server slot holds, each once
-  - the mesh plane is refused with its ROADMAP item
+  - ``mesh_shape`` is accepted (the mesh plane's own tests are
+    ``tests/test_torch_mesh.py``)
 
 Weights come from the JAX initialisers, bridged through numpy."""
 import copy
@@ -367,13 +368,14 @@ def test_cluster_run_leaves_callers_requests_untouched(setup):
 
 
 def test_cluster_refuses_unported_options_and_small_pools(setup):
-    """The mesh plane is refused with its item (the autoscaler is ported,
-    ROADMAP A6), and so are a missing or too small server pool."""
+    """No option is refused any more (the autoscaler, ROADMAP A6, and the
+    mesh plane, A8, are ported); a missing or too small server pool
+    still is."""
     from repro_torch.serving.autoscaler import AutoscalePolicy
     assert tcluster.ClusterConfig(
         autoscale=AutoscalePolicy()).autoscale == AutoscalePolicy()
-    with pytest.raises(ValueError, match="mesh.*A8"):
-        tcluster.ClusterConfig(disaggregated=True, mesh_shape=(2, 1))
+    assert tcluster.ClusterConfig(disaggregated=True,
+                                  mesh_shape=(2, 1)).mesh_shape == (2, 1)
     with pytest.raises(ValueError, match="ServerPool"):
         tcluster.Cluster(setup["tcfg"], setup["tparams"],
                          tcluster.ClusterConfig(disaggregated=True),
