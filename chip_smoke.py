@@ -143,9 +143,32 @@ port only. Phases, each of which fails the run with a non-zero exit:
    server's, x launches a hook, timed beside it; (d) the front door with
    ``mesh_shape=(2, 1)``: "needs 2 devices" on one card; on two, both
    transports give phase 7's main path tokens.
+12. the training plane: (i) ``ops.bgmv`` (T = 4096 rows at the q/k/v/o
+   widths), ``ops.bgmv_expert`` (the gate/up/down hooks) and ``ops.gmm``
+   (the base GEMMs) at the E*C rows of a training dispatch (4096 tokens
+   top-8 of 128 experts at capacity 1.25), bf16 activations and f32
+   rank-8 factors, under autograd: the forward and every gradient against
+   torch autograd of the plain twin on the same card, forward + backward
+   timed beside a bound; (ii) ``launch/train.py --lora`` (its ``run``) at
+   the serving cell's width and depth, 4 x 1024 tokens, 20 steps, counts
+   set to 0 just before: the loss falls, ms a step after 3, tokens/s,
+   peak GiB, each kernel's launches a step, a step's profile (device ms,
+   busy share, its top kernels), and the first step's loss and
+   adapter gradient norms through the kernels and through the twins on
+   one state; (iv) that adapter through ``ServeSystem.load_adapter`` on
+   its base weights (rank 8 in the rank-32 pool): its gate/up/down on the
+   main path, all seven targets on the coupled plane, each serving the
+   tokens of the engine given the same tensors directly, and how many
+   differ from the untrained adapter's; (iii) ``launch/train.py`` in full
+   at smollm-360m's width and depth, f32, 8 x 4096 tokens, 20 steps with
+   a checkpoint at 10, then a second run with fresh objects from that
+   checkpoint: its steps against the uninterrupted run's, bit for bit or
+   the largest difference; a step's profile.
 
-It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
-and as its last line ``{"ok": true, "device": {...}}``.
+It prints a ``{"kernels": [...]}`` line (rows 2, 3 and 9 with their
+phase 12 readings under "train"; "launches_by_plane" with "train", the
+fine-tune's run), the card's name and power limit, and as its last line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -3355,6 +3378,445 @@ def mesh_phase(torch, ops, ref, counters, flush, smi, cfg, params, ecfg,
     return launches
 
 
+# ------------------------------ phase 12 ----------------------------- #
+# (i) the three kernels' autograd at the fine-tune's shapes; (ii) path (a),
+# the LoRA fine-tune at the serving cell's width and depth; (iii) path (b),
+# full-parameter training of smollm-360m with a resume; (iv) the adapter of
+# (ii) served through the front door on both planes
+F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARM = 4, 1024, 20, 3
+TRAIN_RANK, TRAIN_ALPHA = 8, 16.0
+FULL_ARCH, FULL_B, FULL_S, FULL_CKPT = "smollm-360m", 8, 4096, 10
+# the kernels' gradients against the twins' (relative to the largest
+# magnitude of the twin's): f32 ones (dA, dB, and dx before its cast) sum
+# in another order; a bf16 one (dx of bf16 activations, gmm's bf16
+# products of the bf16-rounded dy) parts by a rounding or two
+GRAD_TOL = 1e-4
+GRAD_BF16_TOL = 2 ** -7
+# path (a)'s first step, kernels vs twins through 4 bf16 layers of top-8
+# routing: the loss, and each adapter gradient's norm
+STEP_LOSS_TOL = 1e-3
+STEP_NORM_TOL = 1e-2
+SERVE_TOKENS = 16
+FFN_TARGETS = ("gate", "up", "down")
+
+
+def train_dispatch(torch, g, T, E, K, C):
+    """The dispatch of T tokens routed top-K of E experts (distinct, drawn
+    uniformly) at capacity C: (row adapter (E*C,) int32, 0 at a row that
+    holds a token and -1 at a pad row; expert per row; group sizes (E,)
+    int32; live rows (E, C) bool)."""
+    dev = torch.device("cuda")
+    picks = torch.rand(T, E, generator=g, device=dev).argsort(dim=1)[:, :K]
+    sizes = torch.bincount(picks.reshape(-1), minlength=E).clamp(max=C)
+    live = torch.arange(C, device=dev)[None, :] < sizes[:, None]
+    ids = torch.where(live, 0, -1).reshape(-1).to(torch.int32)
+    eids = (torch.arange(E * C, device=dev) // C).to(torch.int32)
+    return ids, eids, sizes.to(torch.int32), live
+
+
+def _rel_errs(torch, got, want):
+    return [((a.float() - b.float()).abs().max()
+             / b.float().abs().max().clamp_min(1e-30)).item()
+            for a, b in zip(got, want)]
+
+
+def autograd_case(torch, flush, name, kernel, twin, leaves, dy, bf16_grads,
+                  n_bytes, n_ops, ops_rate):
+    """One kernel's forward + backward (``kernel``, through its autograd
+    Function) against torch autograd of its plain twin on the same card:
+    the forward and each gradient within GRAD_TOL (GRAD_BF16_TOL where
+    ``bf16_grads``), both timed (CUDA events, L2 flushed), beside the
+    least time of the function (``n_bytes`` over the memory rate,
+    ``n_ops`` over ``ops_rate``)."""
+    def run(fn, ls):
+        y = fn(*ls)
+        return (y,) + torch.autograd.grad(y, ls, dy)
+
+    twin_leaves = [t.detach().clone().requires_grad_() for t in leaves]
+    got, want = run(kernel, leaves), run(twin, twin_leaves)
+    torch.cuda.synchronize()
+    errs = _rel_errs(torch, got, want)
+    names = ["forward"] + [f"d{i}" for i in range(len(leaves))]
+    for n, e, t, bf in zip(names, errs, got, [False] + list(bf16_grads)):
+        tol = GRAD_BF16_TOL if bf else GRAD_TOL
+        check(e <= tol, f"train {name}: {n} relative err {e} > {tol}")
+    check(all(a.dtype == b.dtype for a, b in zip(got[1:], leaves)),
+          f"train {name}: a gradient's dtype is not its operand's")
+    ms = cuda_ms(torch, lambda: run(kernel, leaves), flush, n=10, warmup=2)
+    plain = cuda_ms(torch, lambda: run(twin, twin_leaves), flush, n=10,
+                    warmup=2)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_rate
+    out = {"fwd_bwd_ms": ms, "plain_fwd_bwd_ms": plain,
+           "bound_ms": 1e3 * max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "rel_err": dict(zip(names, errs))}
+    print(f"train {name}: fwd+bwd kernel {ms:.4f} ms twin {plain:.4f} ms "
+          f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}), rel errs "
+          + ", ".join(f"{n} {e:.2g}" for n, e in zip(names, errs)),
+          flush=True)
+    return out
+
+
+def train_kernels(torch, ops, ref, flush) -> dict:
+    """Phase 12(i): ``ops.bgmv`` at T = 4096 rows at the q/k/v/o widths,
+    ``ops.bgmv_expert`` at the gate/up/down hooks and ``ops.gmm`` at the
+    base GEMMs of path (a)'s dispatch (4096 tokens top-8 of 128 experts at
+    capacity 1.25: E*C rows), bf16 activations, f32 rank-8 factors, bf16
+    expert weights, each under autograd against its twin's."""
+    from repro_torch.models.moe import capacity
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 12)
+    T, r, E, K, d, ff = TRAIN_B * TRAIN_S, TRAIN_RANK, 128, 8, 4096, 1536
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def leaf(shape, dtype, scale):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(
+            dtype).requires_grad_()
+
+    out = {"bgmv": {}, "bgmv_expert": {}, "gmm": {}}
+    ids = torch.zeros(T, dtype=torch.int32, device=dev)
+    for tgt, d_in, d_out in (("q", d, 8192), ("k", d, 512), ("v", d, 512),
+                             ("o", 8192, d)):
+        x, A, B = leaf((T, d_in), bf16, 1.0), leaf((1, d_in, r), f32,
+                                                   1.0 / r), \
+            leaf((1, r, d_out), f32, 0.01)
+        dy = torch.randn(T, d_out, generator=g, device=dev) * 1e-2
+        n_bytes = T * d_in * 2 * 2 + T * d_out * 4 * 2 + T * 4 \
+            + (d_in + d_out) * r * 4 * 2
+        out["bgmv"][tgt] = autograd_case(
+            torch, flush, f"bgmv {tgt}",
+            lambda x, A, B: ops.bgmv(x, A, B, ids),
+            lambda x, A, B: ref.bgmv_ref(x, A, B, ids), [x, A, B], dy,
+            (True, False, False), n_bytes, 6 * T * r * (d_in + d_out),
+            F32_OPS_PER_S)
+        del x, A, B, dy
+    C = capacity(T, K, E, 1.25)
+    row_ids, eids, sizes, live = train_dispatch(torch, g, T, E, K, C)
+    n_act, n_used = int(sizes.sum()), int((sizes > 0).sum())
+    for tgt, d_in, d_out in (("gate", d, ff), ("up", d, ff),
+                             ("down", ff, d)):
+        x = leaf((E * C, d_in), bf16, 1.0)
+        A, B = leaf((1, E, d_in, r), f32, 1.0 / r), leaf((1, E, r, d_out),
+                                                         f32, 0.01)
+        dy = torch.randn(E * C, d_out, generator=g, device=dev) * 1e-2
+        n_bytes = n_act * (d_in * 2 + d_out * 4) + E * C * (d_out * 4
+                                                            + d_in * 2) \
+            + E * C * 8 + n_used * (d_in + d_out) * r * 4 * 2
+        out["bgmv_expert"][tgt] = autograd_case(
+            torch, flush, f"bgmv_expert {tgt} ({E * C} rows, {n_act} active)",
+            lambda x, A, B: ops.bgmv_expert(x, A, B, row_ids, eids),
+            lambda x, A, B: ref.bgmv_expert_ref(x, A, B, row_ids, eids),
+            [x, A, B], dy, (True, False, False), n_bytes,
+            6 * n_act * r * (d_in + d_out), F32_OPS_PER_S)
+        del x, A, B, dy
+    for tgt, d_in, d_out in (("gate", d, ff), ("up", d, ff),
+                             ("down", ff, d)):
+        xe = (torch.randn(E, C, d_in, generator=g, device=dev)
+              * live[..., None]).to(bf16).requires_grad_()
+        w = leaf((E, d_in, d_out), bf16, d_in ** -0.5)
+        dy = torch.randn(E, C, d_out, generator=g, device=dev) * 1e-2
+        n_bytes = n_act * (d_in * 2 + d_out * 4) + E * C * (d_out * 4
+                                                            + d_in * 2) \
+            + n_used * d_in * d_out * 2 * 2 + E * 4
+        out["gmm"][tgt] = autograd_case(
+            torch, flush, f"gmm {tgt} (C {C})",
+            lambda xe, w: ops.gmm(xe, w, sizes),
+            lambda xe, w: ref.gmm_ref(xe, w, sizes), [xe, w], dy,
+            (True, True), n_bytes, 6 * n_act * d_in * d_out, BF16_OPS_PER_S)
+        del xe, w, dy
+    for row in out.values():
+        row["shapes"] = {"T": T, "r": r, "E": E, "C": C, "rows": E * C,
+                         "active_rows": n_act}
+    return out
+
+
+def step_profile(torch, fn) -> dict:
+    """One training step ``fn`` under torch.profiler, after one outside
+    it: wall and device ms, the device's busy share and the 12 kernels of
+    most device time (ms, launches)."""
+    by_name, wall_us = device_profile(torch, fn, 1)
+    dev_us = sum(t for t, _ in by_name.values())
+    # kernels whose names share their first 90 characters are summed
+    short = {}
+    for name, (t, k) in by_name.items():
+        t0, k0 = short.get(name[:90], (0.0, 0))
+        short[name[:90]] = (t0 + t, k0 + k)
+    top = sorted(short.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"wall_ms": wall_us / 1e3, "device_ms": dev_us / 1e3,
+            "device_busy_share": dev_us / wall_us,
+            "top_kernels": {name: [t / 1e3, k] for name, (t, k) in top}}
+
+
+def grad_norms(torch, grads) -> dict:
+    from repro_torch.training.tree import flatten_with_keys
+    return {k: v.float().norm().item()
+            for k, v in flatten_with_keys(grads).items()}
+
+
+def lora_finetune(torch, ops, ref, counters, smi):
+    """Phase 12(ii): ``python -m repro_torch.launch.train --lora`` (its
+    ``run``) at the serving cell's width and depth, bf16 base, a rank-8
+    f32 adapter on all seven targets, B 4 x S 1024, 20 steps, counts set
+    to 0 just before; one more step profiled; then the first step's loss
+    and adapter gradients on one state through the kernels and through
+    the twins. Returns (the summary, the run's record, its launch
+    counts)."""
+    from repro_torch.launch import train
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import make_lora_loss, \
+        make_lora_train_step, value_and_grad
+
+    argv = ["--arch", ARCH, "--layers", str(LAYERS), "--dtype", "bfloat16",
+            "--lora", "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+            "--steps", str(TRAIN_STEPS), "--lr", "1e-3", "--log-every", "5"]
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    rec = train.run(argv)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [rec["losses"][s] for s in range(TRAIN_STEPS)]
+    check(all(math.isfinite(v) for v in losses), f"fine-tune: {losses}")
+    check(losses[-1] < losses[0], f"fine-tune: the loss did not fall "
+          f"({losses[0]} -> {losses[-1]})")
+    for name in ("bgmv", "bgmv_expert", "gmm"):
+        check(launches[name] > 0, f"fine-tune: {name} never launched")
+    warm = [rec["step_s"][s] for s in range(TRAIN_WARM, TRAIN_STEPS)]
+    ms = 1e3 * statistics.median(warm)
+    args = train.parser().parse_args(argv)
+    step = make_lora_train_step(rec["cfg"], rec["params"], rec["scale"],
+                                AdamWConfig(lr=args.lr, warmup_steps=10,
+                                            total_steps=args.steps))
+    last = train_batch(torch, rec["cfg"], TRAIN_B, TRAIN_S, TRAIN_STEPS)
+    prof = step_profile(torch, lambda: step(
+        rec["adapter"], rec["opt_state"], None, last)[0].item())
+    # the first step's loss and gradients on one state, kernels and twins
+    adapter0, scale = train.build_adapter(rec["cfg"], args)
+    batch = train_batch(torch, rec["cfg"], TRAIN_B, TRAIN_S, 0)
+    loss_fn = make_lora_loss(rec["cfg"], rec["params"], scale)
+    lk, gk = value_and_grad(loss_fn, adapter0, batch)
+    nk = grad_norms(torch, gk)
+    del gk
+    free_device(torch)
+    with plain_versions(ops, ref):
+        lt, gt = value_and_grad(loss_fn, adapter0, batch)
+    nt = grad_norms(torch, gt)
+    del gt
+    free_device(torch)
+    lk, lt = lk.item(), lt.item()
+    check(abs(lk - lt) <= STEP_LOSS_TOL * abs(lt), f"fine-tune step 0: "
+          f"loss {lk} with the kernels, {lt} with the twins")
+    check(abs(lk - losses[0]) <= STEP_LOSS_TOL * abs(lk),
+          f"fine-tune step 0: {lk} here, {losses[0]} in the run")
+    norm_err = {k: abs(nk[k] - nt[k]) / max(nt[k], 1e-30) for k in nk}
+    worst = max(norm_err, key=norm_err.get)
+    check(norm_err[worst] <= STEP_NORM_TOL, f"fine-tune step 0: {worst} "
+          f"gradient norm {nk[worst]} with the kernels, {nt[worst]} twins")
+    out = {"config": f"{ARCH} depth {LAYERS}", "batch": TRAIN_B,
+           "seq": TRAIN_S, "steps": TRAIN_STEPS, "loss": losses,
+           "ms_per_step": ms, "ms_per_step_all": [1e3 * rec["step_s"][s]
+                                                  for s in range(TRAIN_STEPS)],
+           "tokens_per_s": TRAIN_B * TRAIN_S / (ms / 1e3),
+           "peak_gib": peak,
+           "launches_per_step": {n: launches[n] / TRAIN_STEPS
+                                 for n in ("bgmv", "bgmv_expert", "gmm")},
+           "profile": prof,
+           "step0": {"loss_kernels": lk, "loss_twins": lt,
+                     "grad_norms_kernels": nk, "grad_norms_twins": nt,
+                     "worst_norm_rel_err": [worst, norm_err[worst]]}}
+    print("phase 12(ii) fine-tune: " + json.dumps(out) + f"; card {smi}",
+          flush=True)
+    return out, rec, launches
+
+
+def train_batch(torch, cfg, batch: int, seq: int, step: int) -> dict:
+    """The launcher's batch of ``step`` (tenant 0) on the card."""
+    from repro_torch.training import data as tdata
+    toks, labels = tdata.batch_at(tdata.DataConfig(cfg.vocab_size, seq,
+                                                   batch), step)
+    return {"tokens": torch.as_tensor(toks, device="cuda"),
+            "labels": torch.as_tensor(labels, device="cuda")}
+
+
+def direct_engine(torch, cfg, params, pool, mode):
+    """The engine given ``pool``'s adapters directly: disagg, a LoRA-Server
+    pool with every adapter resident and the fused transport; coupled,
+    the pool in the model."""
+    from repro_torch.core.lora_server import pool_tensors_from_adapter
+    from repro_torch.launch import serve
+    from repro_torch.serving.cache import LoRACache
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.server_pool import ServerPool
+    ecfg = dataclasses.replace(serve.ENGINE, paged=True)
+    if mode == "coupled":
+        return Engine(cfg, params, ecfg, pool=pool, device="cuda")
+    sp = ServerPool.build(pool.cfg, pool, cache_slots=pool.n,
+                          dtype=torch.bfloat16, device="cuda")
+    every = LoRACache(pool.n, adapter_bytes=0, n_layers=cfg.n_layers,
+                      layerwise=False, prefetch=False)
+    for aid in range(pool.n):
+        every.admit(aid, 0.0)
+    sp.sync(every, lambda a: pool_tensors_from_adapter(pool, a),
+            pool.rank_of)
+    return Engine(cfg, params, ecfg, server=sp, pool=pool,
+                  transport="fused", device="cuda")
+
+
+def serve_trained(torch, smi, rec) -> dict:
+    """Phase 12(iv): the adapter of (ii) through ``ServeSystem.
+    load_adapter`` (true rank 8 in the rank-32 pool, alpha 16) on its base
+    weights: its gate/up/down into the main path (disaggregated, paged,
+    fused), all seven targets into the coupled plane (appended to the
+    pool). On each, 4 requests on it give the tokens of the engine given
+    the same tensors directly; the count of its tokens that differ from
+    the untrained adapter's (loaded beside it)."""
+    from repro_torch.launch import serve, train
+    from repro_torch.serving.api import build_system
+    from repro_torch.training.train_step import host_tensors
+
+    cfg, params = rec["cfg"], rec["params"]
+    untrained, _ = train.build_adapter(cfg, train.parser().parse_args(
+        ["--device", "cuda"]))
+    traffic = dataclasses.replace(serve.Traffic(adapter_ranks=RANKS),
+                                  n_requests=4, new_tokens=SERVE_TOKENS)
+    new = len(RANKS)
+    reqs = [(rid, p, new) for rid, p, _ in serve.make_requests(cfg, traffic,
+                                                               SEED)]
+    base_reqs = [(rid, p, new + 1) for rid, p, _ in reqs]
+    out = {}
+    for mode in ("disagg", "coupled"):
+        targets = FFN_TARGETS if mode == "disagg" else None
+        trained, plain = host_tensors(rec["adapter"], targets), \
+            host_tensors(untrained, targets)
+        pool = serve.adapter_pool(cfg, mode, RANKS, seed=SEED,
+                                  dtype=torch.bfloat16, device="cuda")
+        kw = {"transport": "fused"} if mode == "disagg" else {}
+        system = build_system(serve.serve_config(
+            traffic, mode, adapter_cache_slots=new + 2, **kw), pool.cfg,
+            params=params, pool=pool)
+        try:
+            check(system.load_adapter(new, trained, alpha=TRAIN_ALPHA)
+                  == TRAIN_RANK, f"serve {mode}: load_adapter's rank")
+            check(system.load_adapter(new + 1, plain, alpha=TRAIN_ALPHA)
+                  == TRAIN_RANK, f"serve {mode}: load_adapter's rank")
+            res = serve.serve_system(system, reqs, traffic)
+            base = serve.serve_system(system, base_reqs, traffic)
+        finally:
+            system.close()
+        direct = dataclasses.replace(pool, tensors={
+            t: dict(ab) for t, ab in pool.tensors.items()})
+        f = (TRAIN_ALPHA / TRAIN_RANK) / pool.scale
+        direct.append({k: v * f if k.endswith(".B") else v
+                       for k, v in trained.items()}, TRAIN_RANK)
+        want = serve.serve(direct_engine(torch, cfg, params, direct, mode),
+                           reqs, traffic)["tokens"]
+        plane_check(cfg, res, traffic, f"serve {mode}", want)
+        n_diff = sum(a != b for r in res["tokens"]
+                     for a, b in zip(res["tokens"][r], base["tokens"][r]))
+        out[mode] = {"tokens_equal_engine": True,
+                     "tokens": sum(len(v) for v in res["tokens"].values()),
+                     "differ_from_untrained": n_diff,
+                     "wall_ms_per_round": res["wall_ms_per_round"]}
+        del system, direct
+        free_device(torch)
+    print("phase 12(iv) the trained adapter served: " + json.dumps(out)
+          + f"; card {smi}", flush=True)
+    return out
+
+
+def full_training(torch, smi) -> dict:
+    """Phase 12(iii): ``python -m repro_torch.launch.train`` in its
+    full-parameter mode (its ``run``) at smollm-360m's full width and depth,
+    f32, B 8 x S 4096, 20 steps with a checkpoint every 10; then a second
+    run with fresh objects from the step-10 checkpoint alone: its losses
+    and final weights held bit for bit to the uninterrupted run's (the
+    largest differences printed); one more step profiled."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.training.tree import flatten_with_keys
+
+    argv = ["--arch", FULL_ARCH, "--batch", str(FULL_B), "--seq",
+            str(FULL_S), "--steps", str(TRAIN_STEPS), "--log-every", "5",
+            "--ckpt-every", str(FULL_CKPT)]
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir, resume_dir = pathlib.Path(tmp, "run"), \
+            pathlib.Path(tmp, "resume")
+        torch.cuda.reset_peak_memory_stats()
+        first = train.run(argv + ["--ckpt", str(run_dir)])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        step = f"step_{FULL_CKPT:08d}"
+        shutil.copytree(run_dir / step, resume_dir / step)
+        first_params = {k: v.detach().clone() for k, v in
+                        flatten_with_keys(first["params"]).items()}
+        first_losses, first_s = dict(first["losses"]), dict(first["step_s"])
+        del first
+        free_device(torch)
+        second = train.run(argv + ["--ckpt", str(resume_dir)])
+        torch.cuda.synchronize()
+    step = make_train_step(second["cfg"], AdamWConfig(
+        lr=1e-3, warmup_steps=10, total_steps=TRAIN_STEPS))
+    last = train_batch(torch, second["cfg"], FULL_B, FULL_S, TRAIN_STEPS)
+    prof = step_profile(torch, lambda: step(
+        second["params"], second["opt_state"], last)[0].item())
+    check(second["start"] == FULL_CKPT, f"resume: started at "
+          f"{second['start']}")
+    losses = [first_losses[s] for s in range(TRAIN_STEPS)]
+    check(all(math.isfinite(v) for v in losses), f"full training: {losses}")
+    resumed = {s: second["losses"][s] for s in range(FULL_CKPT, TRAIN_STEPS)}
+    loss_diff = max(abs(resumed[s] - first_losses[s]) for s in resumed)
+    w_diff = max((v - first_params[k]).abs().max().item() for k, v in
+                 flatten_with_keys(second["params"]).items())
+    bit_equal = loss_diff == 0 and all(
+        torch.equal(v, first_params[k]) for k, v in
+        flatten_with_keys(second["params"]).items())
+    warm = [first_s[s] for s in range(TRAIN_WARM, TRAIN_STEPS)]
+    ms = 1e3 * statistics.median(warm)
+    out = {"config": f"{FULL_ARCH} full width and depth, f32",
+           "batch": FULL_B, "seq": FULL_S, "steps": TRAIN_STEPS,
+           "loss": losses, "ms_per_step": ms,
+           "ms_per_step_all": [1e3 * first_s[s] for s in range(TRAIN_STEPS)],
+           "tokens_per_s": FULL_B * FULL_S / (ms / 1e3), "peak_gib": peak,
+           "resumed_at": FULL_CKPT,
+           "resumed_loss": [resumed[s] for s in sorted(resumed)],
+           "resume_bit_equal": bit_equal,
+           "resume_max_loss_diff": loss_diff,
+           "resume_max_weight_diff": w_diff, "profile": prof}
+    print("phase 12(iii) full training: " + json.dumps(out) + f"; card {smi}",
+          flush=True)
+    check(bit_equal, f"resume: steps {FULL_CKPT}-{TRAIN_STEPS - 1} not bit "
+          f"equal to the uninterrupted run (loss {loss_diff}, weights "
+          f"{w_diff})")
+    return out
+
+
+def train_phase(torch, ops, ref, counters, flush, smi):
+    """Phase 12: the training plane. Returns ({kernel: its autograd
+    readings}, path (a)'s launch counts)."""
+    from repro_torch.obs.clock import wall_time
+
+    t0 = wall_time()
+    grads = train_kernels(torch, ops, ref, flush)
+    free_device(torch)
+    fine, rec, launches = lora_finetune(torch, ops, ref, counters, smi)
+    for name in grads:
+        grads[name]["launches_per_step"] = fine["launches_per_step"][name]
+    serve_trained(torch, smi, rec)
+    del rec
+    free_device(torch)
+    full_training(torch, smi)
+    free_device(torch)
+    print(f"phase 12: {wall_time() - t0:.1f} s", flush=True)
+    return grads, launches
+
+
 def _first_layers(tree, n: int):
     """Views of the first ``n`` layers of a layer-stacked tree."""
     if isinstance(tree, dict):
@@ -3415,6 +3877,8 @@ def main() -> int:
     free_device(torch)
     launches.update(families_phase(torch, ops, ref, counters, flush, smi))
     launches.update(static_phase(torch, ops, ref, counters, smi))
+    train_grads, launches["train"] = train_phase(torch, ops, ref, counters,
+                                                 flush, smi)
 
     # "launches": the coupled plane's run for rows 1-3 and gmm, the
     # LoRA-kernel path's run for rows 4-8; each path's counted run in
@@ -3457,6 +3921,9 @@ def main() -> int:
              targets=bg),
         *lora_rows(lora, launches, gm, repairs),
     ]
+    for row in kernels:     # phase 12: forward + backward at the fine-tune's
+        if row["name"] in train_grads:
+            row["train"] = train_grads[row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,8 @@
 The reference's parameters, adapter pools and server slot pools arrive as
 nested dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray, ...)``
 on the caller's side); these helpers turn them into the port's tensors.
+The training state (an adapter tree, the AdamW state {"m", "v", "step"})
+goes both ways (``train_state_from`` / ``train_state_to_numpy``).
 This module never imports JAX.
 """
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.adapter import AdapterPool
+from repro_torch.training.tree import tree_map
 
 
 def config_from(ref_cfg) -> ModelConfig:
@@ -92,3 +95,28 @@ def load_server_pool(server, pool_np) -> None:
             raise ValueError(f"{name}: {tuple(src.shape)} vs "
                              f"{tuple(buf.shape)}")
         buf.copy_(src)
+
+
+def _state_leaf(a, device):
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(arr.astype(np.float32))).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def train_state_from(tree_np, device="cpu"):
+    """A training-state tree of numpy arrays (the reference's adapter or
+    params, its AdamW state) as the port's tensors: each leaf keeps its
+    dtype (bfloat16 included) and its shape (0-d ``step`` too)."""
+    return tree_map(lambda a: _state_leaf(a, device), tree_np)
+
+
+def train_state_to_numpy(tree):
+    """The port's training-state tree as numpy arrays for the reference
+    (bf16 as f32, since numpy has no bf16)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.to(torch.float32) if t.dtype == torch.bfloat16
+                else t).numpy()
+    return tree_map(leaf, tree)

@@ -195,3 +195,16 @@ class ModelConfig:
         if self.frontend:
             changes.update(frontend_tokens=8)
         return dataclasses.replace(self, **changes)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of the reference's four (``configs/shapes.py``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch

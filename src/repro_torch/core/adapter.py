@@ -60,6 +60,28 @@ class AdapterPool:
         (int32, -1 = no adapter)."""
         return {"adapters": self.tensors, "ids": ids, "scale": self.scale}
 
+    def append(self, tensors: Dict[str, torch.Tensor], rank: int) -> int:
+        """Add one adapter given in the canonical host format
+        ({"<target>.A": (L, [E,] d_in, r), "<target>.B": ...} at its true
+        rank ``rank`` <= the pool rank, checked by the caller) as id
+        ``n``: zero-padded to the pool rank (the prefix-zero contract),
+        cast to the pool's dtype and copied to its device. The factors are
+        new tensors; code that reads ``tensors`` at each step sees it.
+        Returns its id."""
+        if self.ranks is None:
+            self.ranks = (int(self.rank),) * self.n
+        for tgt, t in self.tensors.items():
+            A, B = t["A"], t["B"]
+            a = tensors[f"{tgt}.A"].to(device=A.device, dtype=A.dtype)
+            b = tensors[f"{tgt}.B"].to(device=B.device, dtype=B.dtype)
+            a = torch.nn.functional.pad(a, (0, self.rank - rank))
+            b = torch.nn.functional.pad(b, (0, 0, 0, self.rank - rank))
+            t["A"] = torch.cat([A, a[:, None]], dim=1)
+            t["B"] = torch.cat([B, b[:, None]], dim=1)
+        self.ranks = self.ranks + (int(rank),)
+        self.n += 1
+        return self.n - 1
+
     def bytes_per_adapter(self) -> int:
         """Padded (slot-layout) bytes of one adapter: what one device slot
         costs whatever the adapter's true rank."""

@@ -19,8 +19,9 @@ Unlike the reference, the port does not replicate the other weights to
 every position: each replicated operation is computed once, on the mesh's
 first device, where those weights stay.
 
-``lm_loss``, the ``make_*_step`` builders, ``batch_specs`` and
-``cache_specs`` come with training (ROADMAP A9).
+``lm_loss`` is the training plane's loss (single device). The
+collective-bearing ``make_*_step`` builders, ``batch_specs`` and
+``cache_specs`` come with the SPMD steps (ROADMAP A8b).
 """
 from __future__ import annotations
 
@@ -128,3 +129,13 @@ def shard_serve_params(params, ctx: ExpertParallelCtx):
             moe[name] = ExpertBlocks.cut(w, ctx.devices, remote)
     out["layers"] = dict(params["layers"], moe=moe)
     return out
+
+
+def lm_loss(logits, labels):
+    """Masked next-token cross-entropy in f32: labels < 0 take no part;
+    the mean over the labelled positions (at least one)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = labels >= 0
+    return ((lse - tgt) * mask).sum() / mask.sum().clamp_min(1)

@@ -1,13 +1,18 @@
 """Dispatch of the port's kernels: a tensor on the CPU takes the plain
 PyTorch version (``ref``); a CUDA tensor launches the Hopper kernel, which
 raises on what it does not take. There is no fallback from the card to the
-plain version and no switch that skips the kernel."""
+plain version and no switch that skips the kernel.
+
+``bgmv``, ``bgmv_expert`` and ``gmm`` go through their autograd Functions
+(``kernels.autograd``, given the same dispatch for their forward and dx)
+when an operand requires a gradient; otherwise they dispatch as above."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels import autograd as _ag
 from repro_torch.kernels import bgmv as _bgmv
 from repro_torch.kernels import fused as _fused
 from repro_torch.kernels import gmm as _gmm
@@ -31,6 +36,12 @@ def paged_attention(q, k_pool, v_pool, block_tables, pos, *, window: int = 0):
 
 def bgmv(x, A, B, ids):
     """Per-row LoRA shrink-expand -> (T, d_out) f32 (see kernels/bgmv.py)."""
+    if _ag.needs_grad(x, A, B):
+        return _ag.BgmvFn.apply(_bgmv_call, x, A, B, ids)
+    return _bgmv_call(x, A, B, ids)
+
+
+def _bgmv_call(x, A, B, ids):
     if x.device.type == "cpu":
         return _ref.bgmv_ref(x, A, B, ids)
     return _bgmv.bgmv(x, A, B, ids)
@@ -41,6 +52,14 @@ def bgmv_expert(x, A, B, ids, eids, ranks: Optional[torch.Tensor] = None,
     """Per-row expert-LoRA shrink-expand with an optional true-rank mask
     -> (T, d_out) f32, written into ``out`` when given (see
     kernels/bgmv.py)."""
+    if _ag.needs_grad(x, A, B):
+        _no_out(out, "bgmv_expert")
+        return _ag.BgmvExpertFn.apply(_bgmv_expert_call, x, A, B, ids, eids,
+                                      ranks, r_mod)
+    return _bgmv_expert_call(x, A, B, ids, eids, ranks, r_mod, out)
+
+
+def _bgmv_expert_call(x, A, B, ids, eids, ranks=None, r_mod=0, out=None):
     if x.device.type == "cpu":
         return _into(out, _ref.bgmv_expert_ref(x, A, B, ids, eids, ranks,
                                                r_mod))
@@ -99,6 +118,13 @@ def gmm(xe, w, group_sizes: Optional[torch.Tensor] = None,
         out: Optional[torch.Tensor] = None):
     """Grouped expert GEMM -> (E, C, f) f32, rows past group_sizes zero,
     written into ``out`` when given (see kernels/gmm.py)."""
+    if _ag.needs_grad(xe, w):
+        _no_out(out, "gmm")
+        return _ag.GmmFn.apply(_gmm_call, xe, w, group_sizes)
+    return _gmm_call(xe, w, group_sizes, out)
+
+
+def _gmm_call(xe, w, group_sizes=None, out=None):
     if xe.device.type == "cpu":
         return _into(out, _ref.gmm_ref(xe, w, group_sizes))
     return _gmm.gmm(xe, w, group_sizes, out=out)
@@ -107,6 +133,12 @@ def gmm(xe, w, group_sizes: Optional[torch.Tensor] = None,
 def _into(out: Optional[torch.Tensor], y: torch.Tensor) -> torch.Tensor:
     """The plain version's ``y``, copied into ``out`` when one is given."""
     return y if out is None else out.copy_(y)
+
+
+def _no_out(out: Optional[torch.Tensor], name: str) -> None:
+    if out is not None:
+        raise ValueError(f"{name}: out= is for the serving paths; an "
+                         f"operand requiring a gradient takes none")
 
 
 def launch_counts() -> dict:

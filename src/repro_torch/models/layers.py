@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.autograd import matmul_f32
 from repro_torch.models.cache import quantize_kv
 
 F32 = torch.float32
@@ -28,14 +29,41 @@ def mm_f32(a, b):
     return f32 (cuBLAS ``out_dtype``), as the reference's
     ``preferred_element_type=f32``. Mixed operands (f32 activations on
     bf16 weights, or the reverse) multiply in f32, as the reference
-    promotes them. The batched expert GEMMs go to ``ops.gmm``."""
+    promotes them. The batched expert GEMMs go to ``ops.gmm``. Under
+    autograd the bf16 product goes through ``_MmF32`` (cuBLAS's
+    ``out_dtype`` form has no derivative)."""
     if a.dtype == F32 and b.dtype == F32:
         return a @ b
     if a.device.type != "cuda" or a.dtype != b.dtype:
         return a.to(F32) @ b.to(F32)
     lead = a.shape[:-1]
-    return torch.mm(a.reshape(-1, a.shape[-1]), b,
-                    out_dtype=F32).reshape(*lead, b.shape[-1])
+    a2 = a.reshape(-1, a.shape[-1])
+    y = _MmF32.apply(a2, b) if torch.is_grad_enabled() and (
+        a.requires_grad or b.requires_grad) else torch.mm(a2, b,
+                                                          out_dtype=F32)
+    return y.reshape(*lead, b.shape[-1])
+
+
+class _MmF32(torch.autograd.Function):
+    """a (M, k) @ b (k, m) of bf16 operands with an f32 result, under
+    autograd; the f32 gradient meets the bf16 operands through
+    ``autograd.matmul_f32``, and each gradient is cast to its operand's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=F32)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b = ctx.saved_tensors
+        dy = dy.to(F32)
+        da = matmul_f32(dy, b.t()).to(a.dtype) if ctx.needs_input_grad[0] \
+            else None
+        db = matmul_f32(a.t(), dy).to(b.dtype) if ctx.needs_input_grad[1] \
+            else None
+        return da, db
 
 
 def rms_norm(x, scale, eps: float = 1e-6):
@@ -152,6 +180,175 @@ def causal_attention(q, k, v, *, causal: bool = True, window: int = 0,
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(F32))
     o = o / l.clamp_min(1e-20).permute(0, 3, 1, 2)[..., None]
     return o.to(q.dtype).reshape(B, Sq, H, hd)
+
+
+# ------------------------ training attention --------------------------- #
+def _attn_mask(q_pos, k_pos, causal: bool, window: int):
+    mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    return mask
+
+
+def _key_span(q0: int, q1: int, Sk: int, causal: bool, window: int):
+    """Keys [lo, hi) that queries at positions q0..q1-1 may see."""
+    hi = min(Sk, q1) if causal else Sk
+    lo = max(0, q0 - window + 1) if window else 0
+    return lo, max(lo, hi)
+
+
+def _query_span(k0: int, k1: int, Sq: int, q_offset: int, causal: bool,
+                window: int):
+    """Query rows [lo, hi) that keys k0..k1-1 may be seen by."""
+    lo = max(0, k0 - q_offset) if causal else 0
+    hi = min(Sq, k1 + window - 1 - q_offset) if window else Sq
+    return lo, max(lo, hi)
+
+
+def _mask_(s, q0: int, k0: int, causal: bool, window: int) -> None:
+    """Set the masked scores of s (..., nq, nk) (queries at positions q0..,
+    keys k0..) to NEG_INF, in place, touching only the key columns that
+    some query of the block masks."""
+    nq, nk = s.shape[-2:]
+    q1, k1 = q0 + nq, k0 + nk
+    cols = []
+    if causal and k1 > q0 + 1:                 # keys after the first query
+        cols.append((max(k0, q0 + 1), k1))
+    if window and q1 - window > k0:            # keys before the last window
+        cols.append((k0, min(k1, q1 - window)))
+    dev = s.device
+    for a, b in cols:
+        mask = _attn_mask(torch.arange(q0, q1, device=dev),
+                          torch.arange(a, b, device=dev), causal, window)
+        s[..., a - k0:b - k0].masked_fill_(~mask, NEG_INF)
+
+
+def _flash_fwd(qg, k, v, causal, window, q_chunk, q_offset, trim):
+    """Per q-chunk softmax over the keys: out (B, Sq, KV, G, hd) in qg's
+    dtype and the log-sum-exp (B, KV, G, Sq) f32. The scale goes onto q
+    (and, in the backward, onto dq and dk), the mask onto the key columns
+    that need it, and the exponential in place: the chunk's scores are
+    the largest tensor, passed over as few times as the math allows."""
+    B, Sq, KV, G, hd = qg.shape
+    Sk = k.shape[1]
+    scale = 1.0 / np.sqrt(hd)
+    kf, vf = k.to(F32), v.to(F32)
+    out = torch.empty_like(qg)
+    lse = torch.empty((B, KV, G, Sq), dtype=F32, device=qg.device)
+    for c0 in range(0, Sq, q_chunk):
+        c1 = c0 + q_chunk
+        lo, hi = _key_span(q_offset + c0, q_offset + c1, Sk, causal,
+                           window) if trim else (0, Sk)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg[:, c0:c1].to(F32) * scale,
+                         kf[:, lo:hi])
+        _mask_(s, q_offset + c0, lo, causal, window)
+        m = s.amax(dim=-1)
+        p = s.sub_(m[..., None]).exp_()
+        l = p.sum(dim=-1)
+        o = torch.einsum("bkgqs,bskd->bqkgd", p, vf[:, lo:hi])
+        o = o / l.clamp_min(1e-20).permute(0, 3, 1, 2)[..., None]
+        out[:, c0:c1] = o.to(qg.dtype)
+        lse[..., c0:c1] = m + torch.log(l.clamp_min(1e-20))
+    return out, lse
+
+
+def _flash_bwd(causal, window, q_chunk, q_offset, trim, qg, k, v, out, lse,
+               dout):
+    """The reference's two passes: dq per q-chunk (against its keys), then
+    dk and dv per k-chunk (against its queries)."""
+    B, Sq, KV, G, hd = qg.shape
+    Sk = k.shape[1]
+    scale = 1.0 / np.sqrt(hd)
+    k_chunk = min(q_chunk, Sk)
+    while Sk % k_chunk:
+        k_chunk //= 2
+    dev = qg.device
+    qf, kf, vf = qg.to(F32), k.to(F32), v.to(F32)
+    qs = qf * scale
+    dout = dout.to(F32)
+    D = torch.einsum("bqkgd,bqkgd->bkgq", dout, out.to(F32))
+
+    def probs(q_lo, q_hi, k_lo, k_hi):
+        """exp(s - lse) of queries q_lo..q_hi-1 against keys k_lo..k_hi-1,
+        0 where masked (B, KV, G, nq, nk)."""
+        s = torch.einsum("bqkgd,bskd->bkgqs", qs[:, q_lo:q_hi],
+                         kf[:, k_lo:k_hi])
+        _mask_(s, q_offset + q_lo, k_lo, causal, window)
+        return s.sub_(lse[..., q_lo:q_hi, None]).exp_()
+
+    def dscores(p, q_lo, q_hi, k_lo, k_hi):
+        """p * (dp - D), the scores' gradient over the scale."""
+        dp = torch.einsum("bqkgd,bskd->bkgqs", dout[:, q_lo:q_hi],
+                          vf[:, k_lo:k_hi])
+        return dp.sub_(D[..., q_lo:q_hi, None]).mul_(p)
+
+    dq = torch.zeros(qg.shape, dtype=F32, device=dev)
+    for c0 in range(0, Sq, q_chunk):
+        c1 = c0 + q_chunk
+        lo, hi = _key_span(q_offset + c0, q_offset + c1, Sk, causal,
+                           window) if trim else (0, Sk)
+        ds = dscores(probs(c0, c1, lo, hi), c0, c1, lo, hi)
+        dq[:, c0:c1] = torch.einsum("bkgqs,bskd->bqkgd", ds,
+                                    kf[:, lo:hi]) * scale
+    dk = torch.zeros((B, Sk, KV, hd), dtype=F32, device=dev)
+    dv = torch.zeros((B, Sk, KV, hd), dtype=F32, device=dev)
+    for j0 in range(0, Sk, k_chunk):
+        j1 = j0 + k_chunk
+        lo, hi = _query_span(j0, j1, Sq, q_offset, causal, window) \
+            if trim else (0, Sq)
+        if hi <= lo:
+            continue
+        p = probs(lo, hi, j0, j1)
+        dv[:, j0:j1] = torch.einsum("bkgqs,bqkgd->bskd", p, dout[:, lo:hi])
+        ds = dscores(p, lo, hi, j0, j1)
+        dk[:, j0:j1] = torch.einsum("bkgqs,bqkgd->bskd", ds,
+                                    qf[:, lo:hi]) * scale
+    return dq.to(qg.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``_flash_attention`` with its custom VJP: the
+    forward saves out and the log-sum-exp, the backward recomputes each
+    chunk's scores."""
+
+    @staticmethod
+    def forward(ctx, qg, k, v, causal, window, q_chunk, q_offset):
+        Sq, Sk = qg.shape[1], k.shape[1]
+        # every query sees its own position: the keys (queries) outside a
+        # chunk's span weigh exactly 0, so the span is all a chunk needs
+        trim = q_offset >= 0 and q_offset + Sq <= Sk
+        out, lse = _flash_fwd(qg, k, v, causal, window, q_chunk, q_offset,
+                              trim)
+        ctx.save_for_backward(qg, k, v, out, lse)
+        ctx.args = (causal, window, q_chunk, q_offset, trim)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qg, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(*ctx.args, qg, k, v, out, lse, dout)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_chunk: int = 512, q_offset: int = 0):
+    """Chunked attention with the flash backward, the training plane's
+    (the reference's ``causal_attention``: plain torch, as the reference's
+    is jnp). It never holds more than one chunk's scores: q_chunk queries
+    (halved until it divides Sq) against the keys they may see, in the
+    forward and in both backward passes. Arguments and result as
+    ``causal_attention``'s."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    q_chunk = min(q_chunk, Sq)
+    while Sq % q_chunk:
+        q_chunk //= 2
+    out = _FlashAttention.apply(q.reshape(B, Sq, KV, H // KV, hd), k, v,
+                                causal, int(window), q_chunk, int(q_offset))
+    return out.reshape(B, Sq, H, hd)
 
 
 # --------------------------- slot decode ------------------------------- #

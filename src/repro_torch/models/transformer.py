@@ -16,10 +16,17 @@ through ``ops.bgmv``, expert deltas through ``moe.moe_block`` (moe) and
 the MLP's gate/up/down deltas through ``ops.bgmv`` (``_mlp_with_lora``;
 dense, vlm). The ssm, hybrid and audio families take no adapter in the
 model, as in the reference.
+
+The training plane's (``forward(kind="train")``, every family): each
+layer body under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint(nothing_saveable)``: a layer keeps only its input and is
+recomputed in the backward) and the chunked flash attention
+(``layers.flash_attention``) in place of the prefill's.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import SLOT_FAMILIES
 from repro_torch.kernels import ops
@@ -209,24 +216,55 @@ def _lora_parts(lora_ctx, seq: int = 1):
 
 def attn_block(x, ap, cfg, positions, *, causal=True, window=0,
                kv_override=None, rope=True, lora_layer=None, ids_tok=None,
-               lora_scale=1.0):
+               lora_scale=1.0, train=False):
     """x: (B, S, d) -> (y (B, S, d), (k, v) post-RoPE for caching).
     ``kv_override``: the (k, v) to attend over instead (cross attention,
-    no mask); only q is then used from x."""
+    no mask); only q is then used from x. ``train``: the flash attention
+    with its chunked backward."""
     q, k, v = _qkv_with_deltas(x, ap, cfg, lora_layer, ids_tok, lora_scale)
     if rope:
         q = ll.apply_rope(q, positions, cfg.rope_theta)
         k = ll.apply_rope(k, positions, cfg.rope_theta)
+    attention = ll.flash_attention if train else ll.causal_attention
     if kv_override is not None:
         k, v = kv_override
-        attn = ll.causal_attention(q, k, v, causal=False)
+        attn = attention(q, k, v, causal=False)
     else:
-        attn = ll.causal_attention(q, k, v, causal=causal, window=window)
+        attn = attention(q, k, v, causal=causal, window=window)
     return _out_with_delta(attn, ap, lora_layer, ids_tok, lora_scale), (k, v)
 
 
 def _positions(B: int, S: int, device):
     return torch.arange(S, device=device).expand(B, S)
+
+
+def _remat(train: bool, fn, *args):
+    """``fn(*args)``; when training with autograd on, under a
+    non-reentrant ``checkpoint``: only the inputs are kept, the body is
+    run again in the backward."""
+    if train and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _decoder_layer(x, lp, lora_layer, cfg, positions, ids_tok, scale,
+                   ffn: bool, train: bool):
+    """One decoder layer -> (x, k, v); ``ffn`` False skips its MoE or
+    MLP (the KV-only prefill's last layer)."""
+    h = ll.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    att, (k, v) = attn_block(h, lp["attn"], cfg, positions,
+                             window=cfg.sliding_window, lora_layer=lora_layer,
+                             ids_tok=ids_tok, lora_scale=scale, train=train)
+    x = x + att
+    if ffn:
+        h = ll.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        if cfg.is_moe:
+            y = moe_mod.moe_block(h, lp["moe"], cfg, lora=lora_layer,
+                                  ids_tok=ids_tok, lora_scale=scale)
+        else:
+            y = _mlp_with_lora(h, lp["mlp"], cfg, lora_layer, ids_tok, scale)
+        x = x + y
+    return x, k, v
 
 
 def forward(params, cfg, tokens, frontend_emb=None, kind="prefill",
@@ -240,18 +278,20 @@ def forward(params, cfg, tokens, frontend_emb=None, kind="prefill",
     (G, every, ...))), or rwkv's final states (tm, cm, wkv), as the
     reference. ``unembed=False`` (the KV-only prefill of a decoder LM)
     skips the last layer's FFN, the final norm and the lm head, on which
-    no K/V depends, and returns (None, aux). ``kind="train"`` is refused:
-    training is ROADMAP A9."""
-    if kind == "train":
-        raise ValueError("forward(kind='train') needs the training plane "
-                         "(ROADMAP A9); the port runs prefill and decode")
+    no K/V depends, and returns (None, aux). ``kind="train"``: the
+    training plane's forward (layer bodies checkpointed, flash
+    attention); the same values as any other kind. The MoE's plan is the
+    reference's local one whatever the kind: dropless only when
+    T * top_k <= 4096, else capacity ``capacity_factor``."""
+    train = kind == "train"
     fam = cfg.family
     if fam == "audio":
-        return _forward_encdec(params, cfg, tokens, frontend_emb, collect_kv)
+        return _forward_encdec(params, cfg, tokens, frontend_emb, collect_kv,
+                               train)
     if fam == "ssm" and cfg.rwkv:
-        return _forward_rwkv(params, cfg, tokens)
+        return _forward_rwkv(params, cfg, tokens, train)
     if fam == "hybrid":
-        return _forward_hybrid(params, cfg, tokens, collect_kv)
+        return _forward_hybrid(params, cfg, tokens, collect_kv, train)
 
     x = ll.embed(tokens, params["embed"])
     if cfg.frontend and frontend_emb is not None:
@@ -263,23 +303,12 @@ def forward(params, cfg, tokens, frontend_emb=None, kind="prefill",
     for l in range(cfg.n_layers):
         lp = layer_params(params["layers"], l)
         lora_layer = layer_params(stack, l) if stack is not None else None
-        h = ll.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        att, (k, v) = attn_block(h, lp["attn"], cfg, positions,
-                                 window=cfg.sliding_window,
-                                 lora_layer=lora_layer, ids_tok=ids_tok,
-                                 lora_scale=scale)
-        x = x + att
-        ks.append(k)
-        vs.append(v)
-        if not unembed and l + 1 == cfg.n_layers:
-            break
-        h = ll.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        if cfg.is_moe:
-            y = moe_mod.moe_block(h, lp["moe"], cfg, lora=lora_layer,
-                                  ids_tok=ids_tok, lora_scale=scale)
-        else:
-            y = _mlp_with_lora(h, lp["mlp"], cfg, lora_layer, ids_tok, scale)
-        x = x + y
+        ffn = unembed or l + 1 < cfg.n_layers
+        x, k, v = _remat(train, _decoder_layer, x, lp, lora_layer, cfg,
+                         positions, ids_tok, scale, ffn, train)
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
     if not unembed:
         return None, kvs
@@ -291,28 +320,33 @@ def _logits(params, cfg, x):
     return ll.unembed(x, params.get("lm_head", params["embed"]))
 
 
-def _forward_rwkv(params, cfg, tokens):
+def _rwkv_layer(x, lp, cfg, state0):
+    """One RWKV-6 layer from the zero state -> (x, its final state)."""
+    y, st = ssm.rwkv6_time_mix(ll.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                               lp, cfg, state0)
+    x = x + y
+    y, st = ssm.rwkv6_channel_mix(ll.rms_norm(x, lp["ln2"], cfg.norm_eps),
+                                  lp, cfg, st)
+    return x + y, st
+
+
+def _forward_rwkv(params, cfg, tokens, train=False):
     """RWKV-6: time mix then channel mix a layer, each from a zero state."""
     x = ll.embed(tokens, params["embed"])
     state0 = ssm.rwkv6_init_state(cfg, x.shape[0], x.device)
     states = []
     for l in range(cfg.n_layers):
-        lp = layer_params(params["layers"], l)
-        y, st = ssm.rwkv6_time_mix(ll.rms_norm(x, lp["ln1"], cfg.norm_eps),
-                                   lp, cfg, state0)
-        x = x + y
-        y, st = ssm.rwkv6_channel_mix(
-            ll.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg, st)
-        x = x + y
+        x, st = _remat(train, _rwkv_layer, x,
+                       layer_params(params["layers"], l), cfg, state0)
         states.append(st)
     return _logits(params, cfg, x), tuple(torch.stack(s)
                                           for s in zip(*states))
 
 
-def _shared_block(x, sp, cfg, positions, window):
+def _shared_block(x, sp, cfg, positions, window, train=False):
     """The hybrid's weight-shared attention + MLP block."""
     att, kv = attn_block(ll.rms_norm(x, sp["ln1"], cfg.norm_eps), sp["attn"],
-                         cfg, positions, window=window)
+                         cfg, positions, window=window, train=train)
     x = x + att
     return x + ll.mlp(ll.rms_norm(x, sp["ln2"], cfg.norm_eps), sp["mlp"],
                       cfg), kv
@@ -323,8 +357,14 @@ def _mamba_layer(layers, g: int, j: int) -> dict:
     return {k: v[g, j] for k, v in layers.items()}
 
 
-def _forward_hybrid(params, cfg, tokens, collect_kv):
-    """Zamba2: per group, the shared block then ``every`` mamba2 layers."""
+def _mamba_residual(x, lp, cfg):
+    y, st = ssm.mamba2_forward(x, lp, cfg, None)
+    return x + y, st
+
+
+def _forward_hybrid(params, cfg, tokens, collect_kv, train=False):
+    """Zamba2: per group, the shared block then ``every`` mamba2 layers
+    (the mamba layers checkpointed when training, as the reference's)."""
     x = ll.embed(tokens, params["embed"])
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
@@ -332,12 +372,11 @@ def _forward_hybrid(params, cfg, tokens, collect_kv):
     kvs, states = [], []
     for g in range(cfg.n_layers // every):
         x, kv = _shared_block(x, params["shared_attn"], cfg, positions,
-                              cfg.sliding_window)
+                              cfg.sliding_window, train)
         kvs.append(kv)
         for j in range(every):
-            y, st = ssm.mamba2_forward(x, _mamba_layer(params["layers"], g, j),
-                                       cfg, None)
-            x = x + y
+            x, st = _remat(train, _mamba_residual, x,
+                           _mamba_layer(params["layers"], g, j), cfg)
             states.append(st)
     aux = (None, None)
     if collect_kv:
@@ -348,7 +387,31 @@ def _forward_hybrid(params, cfg, tokens, collect_kv):
     return _logits(params, cfg, x), aux
 
 
-def _forward_encdec(params, cfg, tokens, frontend_emb, collect_kv):
+def _enc_layer(enc, lp, cfg, enc_pos, train):
+    att, _ = attn_block(ll.rms_norm(enc, lp["ln1"], cfg.norm_eps),
+                        lp["attn"], cfg, enc_pos, causal=False, train=train)
+    enc = enc + att
+    return enc + ll.mlp(ll.rms_norm(enc, lp["ln2"], cfg.norm_eps),
+                        lp["mlp"], cfg)
+
+
+def _dec_layer(x, lp, enc, cfg, dec_pos, train):
+    """One decoder layer -> (x, (k, v), (ck, cv))."""
+    att, kv = attn_block(ll.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                         lp["attn"], cfg, dec_pos, train=train)
+    x = x + att
+    # cross attention: k/v of the encoder's output by this layer's weights
+    _, ck, cv = ll.qkv_project(enc, lp["cross"], cfg)
+    catt, _ = attn_block(ll.rms_norm(x, lp["ln2"], cfg.norm_eps),
+                         lp["cross"], cfg, dec_pos, rope=False,
+                         kv_override=(ck, cv), train=train)
+    x = x + catt
+    x = x + ll.mlp(ll.rms_norm(x, lp["ln3"], cfg.norm_eps), lp["mlp"], cfg)
+    return x, kv, (ck, cv)
+
+
+def _forward_encdec(params, cfg, tokens, frontend_emb, collect_kv,
+                    train=False):
     """The audio encoder-decoder: a bidirectional encoder over the frames
     (run in bf16 whatever the weights, as the reference casts them), then
     the decoder with self and cross attention."""
@@ -356,31 +419,19 @@ def _forward_encdec(params, cfg, tokens, frontend_emb, collect_kv):
     B, Se, _ = enc.shape
     enc_pos = _positions(B, Se, enc.device)
     for l in range(cfg.n_enc_layers):
-        lp = layer_params(params["enc_layers"], l)
-        att, _ = attn_block(ll.rms_norm(enc, lp["ln1"], cfg.norm_eps),
-                            lp["attn"], cfg, enc_pos, causal=False)
-        enc = enc + att
-        enc = enc + ll.mlp(ll.rms_norm(enc, lp["ln2"], cfg.norm_eps),
-                           lp["mlp"], cfg)
+        enc = _remat(train, _enc_layer, enc,
+                     layer_params(params["enc_layers"], l), cfg, enc_pos,
+                     train)
     enc = ll.rms_norm(enc, params["enc_norm"], cfg.norm_eps)
 
     x = ll.embed(tokens, params["embed"])
     dec_pos = _positions(B, x.shape[1], x.device)
     kvs = []
     for l in range(cfg.n_layers):
-        lp = layer_params(params["layers"], l)
-        att, kv = attn_block(ll.rms_norm(x, lp["ln1"], cfg.norm_eps),
-                             lp["attn"], cfg, dec_pos)
-        x = x + att
-        # cross attention: k/v of the encoder's output by this layer's weights
-        _, ck, cv = ll.qkv_project(enc, lp["cross"], cfg)
-        catt, _ = attn_block(ll.rms_norm(x, lp["ln2"], cfg.norm_eps),
-                             lp["cross"], cfg, dec_pos, rope=False,
-                             kv_override=(ck, cv))
-        x = x + catt
-        x = x + ll.mlp(ll.rms_norm(x, lp["ln3"], cfg.norm_eps), lp["mlp"],
-                       cfg)
-        kvs.append((kv, (ck, cv)))
+        x, kv, ckv = _remat(train, _dec_layer, x,
+                            layer_params(params["layers"], l), enc, cfg,
+                            dec_pos, train)
+        kvs.append((kv, ckv))
     aux = None
     if collect_kv:
         aux = tuple(tuple(torch.stack([layer[i][j] for layer in kvs])

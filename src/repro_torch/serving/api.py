@@ -750,8 +750,9 @@ class ServeSystem:
         ({"<target>.A"/"<target>.B"} CPU tensors at the adapter's true
         rank), checked against the model config; ``alpha`` rescales from
         the raw alpha/r convention into the pool's scale. Returns the
-        adapter's rank. Disaggregated only; ValueError on a coupled
-        system or invalid tensors."""
+        adapter's rank. On a coupled system the adapter is appended to the
+        static pool, so its id must be the pool's next. ValueError on
+        invalid tensors or ids."""
         return self.backend.load_adapter(adapter_id, tensors, alpha=alpha)
 
     def unload_adapter(self, adapter_id: int) -> None:

@@ -64,6 +64,7 @@ from repro_torch.serving.scheduler import InstanceState, Scheduler, \
 from repro_torch.serving.server_pool import ServerPool
 from repro_torch.serving.workload import Request
 from repro_torch.store import AdapterStore
+from repro_torch.store.convert import rescale_alpha, validate_host_tensors
 from repro_torch.transport import make_transport
 
 
@@ -624,12 +625,30 @@ class Cluster:
                      alpha: Optional[float] = None) -> int:
         """Register a new adapter mid-run (vLLM-style dynamic load): its
         shapes and rank are checked against the model config, then the id
-        is targetable at once. Disaggregated only. Returns its rank."""
-        if self.store is None:
+        is targetable at once. Returns its rank. The disaggregated plane
+        registers it in the adapter store; the coupled plane, which
+        gathers from the static pool in-model, appends it to the pool
+        (its id must be the pool's next, ``pool.n``) and routes it to the
+        instance owning the fewest adapters."""
+        if self.store is not None:
+            return self.store.register(adapter_id, tensors, alpha=alpha)
+        if int(adapter_id) != self.pool.n:
             raise ValueError(
-                "dynamic adapter load requires the disaggregated plane "
-                "(the coupled path gathers from the static pool in-model)")
-        return self.store.register(adapter_id, tensors, alpha=alpha)
+                f"the coupled plane appends to its static pool: the next "
+                f"adapter id is {self.pool.n}, not {adapter_id}")
+        rank = validate_host_tensors(self.pool.cfg, tensors, self.pool.rank)
+        if alpha is not None:
+            tensors = rescale_alpha(tensors, alpha, rank, self.pool.scale)
+        # a pool of the cluster's own: the caller's pool is left as it was
+        pool = dataclasses.replace(self.pool, tensors={
+            t: dict(ab) for t, ab in self.pool.tensors.items()})
+        pool.append(tensors, rank)
+        self.pool = pool
+        for eng in self.engines.values():
+            eng.pool = pool
+        if self.sched is not None:
+            self.sched.add_adapter(int(adapter_id))
+        return rank
 
     def unload_adapter(self, adapter_id: int) -> None:
         """Remove an adapter from every tier. Refused while any submitted

@@ -111,6 +111,20 @@ class Scheduler:
             self.owner[a] = tgt
             load[tgt] += weight.get(a, 0)
 
+    def add_adapter(self, adapter_id: int) -> None:
+        """Coupled mode: an adapter appended to the pool (id
+        ``len(owner)``) goes to the admitting instance that owns the
+        fewest adapters."""
+        if self.shared_cache or self.owner is None:
+            return
+        if adapter_id != len(self.owner):
+            raise ValueError(f"adapter {adapter_id} is not the next id "
+                             f"{len(self.owner)}")
+        live = [i.iid for i in self.instances.values()
+                if i.alive and not i.draining]
+        iid = min(live, key=lambda i: (int(np.sum(self.owner == i)), i))
+        self.owner = np.append(self.owner, iid)
+
     def requeue_instance(self, iid: int, now: float):
         """Fault handling: move a dead instance's work back to the queues.
 

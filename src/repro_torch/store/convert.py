@@ -120,6 +120,17 @@ def validate_host_tensors(cfg, tensors: Tensors, r_pool: int) -> int:
     return rank
 
 
+def rescale_alpha(tensors: Tensors, alpha: float, rank: int,
+                  scale: float) -> Tensors:
+    """The B factors rescaled from the raw alpha / rank convention into a
+    pool's uniform ``scale`` (one scale a batch)."""
+    if scale == 0:
+        raise ValueError("pool scale is 0; cannot rescale")
+    f = (float(alpha) / rank) / scale
+    return {k: (v * f).to(v.dtype) if k.endswith(".B") else v
+            for k, v in tensors.items()}
+
+
 def random_host_tensors(cfg, rank: int, seed: int,
                         dtype=torch.bfloat16) -> Tensors:
     """A synthetic adapter in the canonical host format, drawn on the CPU

@@ -31,6 +31,7 @@ from repro_torch.core.adapter import AdapterPool
 from repro_torch.store.convert import (host_tensor_bytes,
                                        host_tensors_from_pool,
                                        server_tensors_from_host,
+                                       rescale_alpha,
                                        validate_host_tensors)
 from repro_torch.store.prefetch import Prefetcher
 from repro_torch.store.tiers import DiskTier, HostTier, Tensors
@@ -121,11 +122,7 @@ class AdapterStore:
                                  f"registered")
         rank = validate_host_tensors(self.cfg, tensors, self.r_pool)
         if alpha is not None:
-            if self.pool.scale == 0:
-                raise ValueError("pool scale is 0; cannot rescale")
-            f = (float(alpha) / rank) / self.pool.scale
-            tensors = {k: (v * f).to(v.dtype) if k.endswith(".B") else v
-                       for k, v in tensors.items()}
+            tensors = rescale_alpha(tensors, alpha, rank, self.pool.scale)
         tensors = {k: v.detach().cpu().contiguous()
                    for k, v in tensors.items()}
         self._register_entry(adapter_id, rank, host_tensor_bytes(tensors),

@@ -468,11 +468,13 @@ def test_unload_refused_while_request_in_flight(setup):
 
 
 def test_coupled_plane_refuses_dynamic_load(setup):
+    """The coupled plane appends a loaded adapter to its static pool: an id
+    other than the pool's next is refused, and so is an unload."""
     system = _system(setup, "torch", False)
     from repro_torch.store import random_host_tensors
     try:
-        with pytest.raises(ValueError, match="disaggregated"):
-            system.load_adapter(4, random_host_tensors(setup["tcfg"], 4, 1),
+        with pytest.raises(ValueError, match="next adapter id is 4"):
+            system.load_adapter(9, random_host_tensors(setup["tcfg"], 4, 1),
                                 alpha=16.0)
         with pytest.raises(ValueError, match="disaggregated"):
             system.unload_adapter(0)
