@@ -160,15 +160,42 @@ port only. Phases, each of which fails the run with a non-zero exit:
    main path, all seven targets on the coupled plane, each serving the
    tokens of the engine given the same tensors directly, and how many
    differ from the untrained adapter's; (iii) ``launch/train.py`` in full
-   at smollm-360m's width and depth, f32, 8 x 4096 tokens, 20 steps with
-   a checkpoint at 10, then a second run with fresh objects from that
+   at smollm-360m's width and depth, f32, 8 x 4096 tokens, 10 steps with
+   a checkpoint at 5, then a second run with fresh objects from that
    checkpoint: its steps against the uninterrupted run's, bit for bit or
    the largest difference; a step's profile.
 
+13. the collective-bearing SPMD steps (``distributed.steps``) over one
+   NCCL world of W processes, one a card: W = 2 where two cards are
+   visible, else W = 1 (every grid is then the local plan; the lines say
+   so). Each sub-phase's single-card local step runs first on cuda:0, its
+   outputs kept on the host: (i) ``jit_serve_step`` at the serving cell's
+   width and depth, B 8, a cache of 2048 positions holding a 1536-token
+   prompt, expert adapters of true ranks RANKS a row, 16 steps fed the
+   local run's greedy tokens, on grids (1, W) (kv_seq flash-decode, the
+   moe_ff psum) and (W, 1) (the all-gather MoE over "data"): each step's
+   logits against the local step's on the same state (the cache gathered
+   to rank 0 before the step), the median (step, row) within LOGIT_TOL
+   and 90% of greedy picks equal, beside the local step's own floor
+   (itself as two half batches) and the drift from the one-card run; ms a
+   step, gmm / bgmv_expert launches a step, each rank's peak GiB; (ii)
+   ``make_lora_train_step(axis_name="data")`` over (W, 1), phase 12's
+   cut and batch split over the ranks: the first step's loss and
+   all-reduced gradient norms against one card's step on the whole batch,
+   the all-reduce's ms, the compressed reduction equal to its formula
+   computed on the host, 5 steps of each branch with the loss falling;
+   (iii) ``jit_train_step`` at depth 1 (full width, bf16, AdamW) on
+   (1, W), B 2 x S 1024, one step: the loss and a sample of every updated
+   parameter against the local step's; ``jit_prefill_step`` at depth 4 on
+   the same grid against the local prefill's logits.
+
 It prints a ``{"kernels": [...]}`` line (rows 2, 3 and 9 with their
 phase 12 readings under "train"; "launches_by_plane" with "train", the
-fine-tune's run), the card's name and power limit, and as its last line
-``{"ok": true, "device": {...}}``.
+fine-tune's run, and "spmd", phase 13's rank 0), the card's name and
+power limit, and as its last line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --only 13`` builds the kernels and runs phase 13
+alone (no kernels line).
 """
 from __future__ import annotations
 
@@ -3386,7 +3413,10 @@ def mesh_phase(torch, ops, ref, counters, flush, smi, cfg, params, ecfg,
 F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARM = 4, 1024, 20, 3
 TRAIN_RANK, TRAIN_ALPHA = 8, 16.0
-FULL_ARCH, FULL_B, FULL_S, FULL_CKPT = "smollm-360m", 8, 4096, 10
+# (iii): 10 steps with a checkpoint at 5, then the 5 resumed (20 + 10
+# took 186 s; cut to make room for phase 13)
+FULL_ARCH, FULL_B, FULL_S, FULL_STEPS, FULL_CKPT = "smollm-360m", 8, 4096, \
+    10, 5
 # the kernels' gradients against the twins' (relative to the largest
 # magnitude of the twin's): f32 ones (dA, dB, and dx before its cast) sum
 # in another order; a bf16 one (dx of bf16 activations, gmm's bf16
@@ -3730,8 +3760,8 @@ def serve_trained(torch, smi, rec) -> dict:
 def full_training(torch, smi) -> dict:
     """Phase 12(iii): ``python -m repro_torch.launch.train`` in its
     full-parameter mode (its ``run``) at smollm-360m's full width and depth,
-    f32, B 8 x S 4096, 20 steps with a checkpoint every 10; then a second
-    run with fresh objects from the step-10 checkpoint alone: its losses
+    f32, B 8 x S 4096, FULL_STEPS steps with a checkpoint every FULL_CKPT;
+    then a second run with fresh objects from that checkpoint alone: its losses
     and final weights held bit for bit to the uninterrupted run's (the
     largest differences printed); one more step profiled."""
     import shutil
@@ -3743,7 +3773,7 @@ def full_training(torch, smi) -> dict:
     from repro_torch.training.tree import flatten_with_keys
 
     argv = ["--arch", FULL_ARCH, "--batch", str(FULL_B), "--seq",
-            str(FULL_S), "--steps", str(TRAIN_STEPS), "--log-every", "5",
+            str(FULL_S), "--steps", str(FULL_STEPS), "--log-every", "5",
             "--ckpt-every", str(FULL_CKPT)]
     with tempfile.TemporaryDirectory() as tmp:
         run_dir, resume_dir = pathlib.Path(tmp, "run"), \
@@ -3762,27 +3792,27 @@ def full_training(torch, smi) -> dict:
         second = train.run(argv + ["--ckpt", str(resume_dir)])
         torch.cuda.synchronize()
     step = make_train_step(second["cfg"], AdamWConfig(
-        lr=1e-3, warmup_steps=10, total_steps=TRAIN_STEPS))
-    last = train_batch(torch, second["cfg"], FULL_B, FULL_S, TRAIN_STEPS)
+        lr=1e-3, warmup_steps=10, total_steps=FULL_STEPS))
+    last = train_batch(torch, second["cfg"], FULL_B, FULL_S, FULL_STEPS)
     prof = step_profile(torch, lambda: step(
         second["params"], second["opt_state"], last)[0].item())
     check(second["start"] == FULL_CKPT, f"resume: started at "
           f"{second['start']}")
-    losses = [first_losses[s] for s in range(TRAIN_STEPS)]
+    losses = [first_losses[s] for s in range(FULL_STEPS)]
     check(all(math.isfinite(v) for v in losses), f"full training: {losses}")
-    resumed = {s: second["losses"][s] for s in range(FULL_CKPT, TRAIN_STEPS)}
+    resumed = {s: second["losses"][s] for s in range(FULL_CKPT, FULL_STEPS)}
     loss_diff = max(abs(resumed[s] - first_losses[s]) for s in resumed)
     w_diff = max((v - first_params[k]).abs().max().item() for k, v in
                  flatten_with_keys(second["params"]).items())
     bit_equal = loss_diff == 0 and all(
         torch.equal(v, first_params[k]) for k, v in
         flatten_with_keys(second["params"]).items())
-    warm = [first_s[s] for s in range(TRAIN_WARM, TRAIN_STEPS)]
+    warm = [first_s[s] for s in range(TRAIN_WARM, FULL_STEPS)]
     ms = 1e3 * statistics.median(warm)
     out = {"config": f"{FULL_ARCH} full width and depth, f32",
-           "batch": FULL_B, "seq": FULL_S, "steps": TRAIN_STEPS,
+           "batch": FULL_B, "seq": FULL_S, "steps": FULL_STEPS,
            "loss": losses, "ms_per_step": ms,
-           "ms_per_step_all": [1e3 * first_s[s] for s in range(TRAIN_STEPS)],
+           "ms_per_step_all": [1e3 * first_s[s] for s in range(FULL_STEPS)],
            "tokens_per_s": FULL_B * FULL_S / (ms / 1e3), "peak_gib": peak,
            "resumed_at": FULL_CKPT,
            "resumed_loss": [resumed[s] for s in sorted(resumed)],
@@ -3791,7 +3821,7 @@ def full_training(torch, smi) -> dict:
            "resume_max_weight_diff": w_diff, "profile": prof}
     print("phase 12(iii) full training: " + json.dumps(out) + f"; card {smi}",
           flush=True)
-    check(bit_equal, f"resume: steps {FULL_CKPT}-{TRAIN_STEPS - 1} not bit "
+    check(bit_equal, f"resume: steps {FULL_CKPT}-{FULL_STEPS - 1} not bit "
           f"equal to the uninterrupted run (loss {loss_diff}, weights "
           f"{w_diff})")
     return out
@@ -3815,6 +3845,710 @@ def train_phase(torch, ops, ref, counters, flush, smi):
     free_device(torch)
     print(f"phase 12: {wall_time() - t0:.1f} s", flush=True)
     return grads, launches
+
+
+# ------------------------------ phase 13 ----------------------------- #
+# the collective-bearing SPMD steps on NCCL, one process a card: W = 2
+# ranks where two cards are visible, else W = 1 (every grid is then the
+# local plan, and no check crosses cards). (i) make_serve_step at the
+# serving cell's width and depth, (ii) the data-parallel LoRA fine-tune,
+# (iii) make_train_step at depth 1 and make_prefill_step at depth LAYERS
+SPMD_B, SPMD_S, SPMD_PROMPT, SPMD_STEPS = 8, 2048, 1536, 16
+SPMD_DP_STEPS = 5
+SPMD_TRAIN_B, SPMD_TRAIN_S, SPMD_TRAIN_LR = 2, 1024, 1e-3
+SPMD_TIMEOUT, SPMD_JOIN = 120, 480      # a collective, the whole world
+# the DP fine-tune's first step against one card's mean of the ranks'
+# shares' steps (bf16 base, the same kernels; the all-reduce sums in
+# another order): the loss, each gradient's norm
+DP_LOSS_TOL, DP_NORM_TOL = 1e-3, 1e-2
+# make_train_step, dropless (a rank's capacity would count its own tokens
+# and drop other pairs than the local step): the loss within SPMD_LOSS_TOL
+# relative; each leaf's gradient, read from AdamW's first moment after the
+# step (m = (1 - b1) g in f32, so both sides read it the same way), within
+# GRAD_REL_TOL of the local step's: its norm, and the relative L2 error of
+# a sample of it (``leaf_reading``). Two planted faults, computed on
+# the local step, must each break that bound: half the batch left out, and
+# half the tokens not summed (the gradient a rank holds before the sum
+# over the token axes). One card (W = 1): equal, bit for bit
+SPMD_LOSS_TOL, GRAD_REL_TOL = 1e-3, 5e-2
+# the serve step against the local one on the same state: the median
+# over (step, row) of a row's largest logit difference within LOGIT_TOL.
+# Not the median step's largest: a router's top-8 near-tie decided the
+# other way moves its row's logits by ~0.05, and over two cards, as for
+# the local step run as two half batches (other GEMM shapes, the same
+# math), such a row turned up in more than half of the 16 steps; the
+# floor of those two halves is printed beside
+
+
+def spmd_world(torch) -> int:
+    return 2 if torch.cuda.device_count() >= 2 else 1
+
+
+def spmd_grids(W: int):
+    return [(1, W), (W, 1)] if W > 1 else [(1, 1)]
+
+
+def _bits(torch, t):
+    """A bf16 or f32 tensor as a numpy array that pickles by value (bf16
+    by its bit pattern)."""
+    t = t.detach().cpu()
+    return t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 \
+        else t.numpy()
+
+
+def _unbits(torch, a, dev):
+    t = torch.from_numpy(a)
+    return (t.view(torch.bfloat16) if t.dtype == torch.int16 else t).to(dev)
+
+
+def _median_max_err(torch, got, want):
+    """(median over steps of the largest |logit difference|, greedy
+    agreement, the largest) of (n, B, V) logits."""
+    errs = [(g.float() - w.float()).abs().max().item()
+            for g, w in zip(got, want)]
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    return statistics.median(errs), agree, max(errs)
+
+
+def _median_row_err(torch, got, want) -> float:
+    """The median over every (step, row) of its largest |logit
+    difference|: a router's near-tie decided the other way moves its
+    row's logits far, and a few such rows set a step's largest."""
+    return (got.float() - want.float()).abs().amax(-1).median().item()
+
+
+def _spmd_serve_inputs(torch, cfg, dev):
+    """The prompts, the adapter ids a row (the pool's four adapters) and
+    the decode's lora pool: expert-FFN adapters of true ranks RANKS."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+    rng = np.random.default_rng(SEED + 13)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (
+        SPMD_B, SPMD_PROMPT)), device=dev)
+    ids = torch.arange(SPMD_B, dtype=torch.int32, device=dev) % len(RANKS)
+    pool = serve.adapter_pool(cfg, "disagg", RANKS, seed=SEED,
+                              dtype=torch.bfloat16, device=dev)
+    return prompts, ids, pool
+
+
+def spmd_baseline(torch, smi) -> dict:
+    """The single-card local steps of phase 13 on cuda:0, their outputs
+    on the host: (i) the prompt's KV (a prefill of SPMD_PROMPT tokens) and
+    SPMD_STEPS greedy decode steps with the expert adapters, each step's
+    logits and tokens; (ii) the LoRA fine-tune's first step on the whole
+    batch (loss, gradient norms); (iii) make_train_step's local twin at
+    depth 1, dropless (loss, each leaf's first moment after the step, and
+    the two planted faults' gradient errors) and the prefill's logits at
+    depth LAYERS (every 8th position)."""
+    from repro_torch.distributed import steps as tsteps
+    from repro_torch.launch import serve, train
+    from repro_torch.models import transformer
+    from repro_torch.models.cache import init_cache
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training.train_step import lm_loss, make_lora_loss, \
+        value_and_grad
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    cfg, params = serve.model(ARCH, layers=LAYERS, seed=SEED, device=dev)
+    prompts, ids, pool = _spmd_serve_inputs(torch, cfg, dev)
+    with torch.no_grad():
+        _, (k, v) = transformer.forward(params, cfg, prompts,
+                                        collect_kv=True, unembed=False)
+        out["kv"] = (_bits(torch, k), _bits(torch, v))
+        cache = init_cache(cfg, SPMD_B, SPMD_S, device=dev)
+        cache["k"][:, :, :SPMD_PROMPT] = k
+        cache["v"][:, :, :SPMD_PROMPT] = v
+        cache["pos"] = SPMD_PROMPT
+        del k, v
+        tok = prompts[:, -1:]
+        toks, logits, ms = [], [], []
+        ctx = pool.lora_ctx(ids)
+        for _ in range(SPMD_STEPS):
+            t0 = time_now(torch)
+            lg, cache = transformer.decode_step(params, cfg, cache, tok,
+                                                lora_ctx=ctx)
+            ms.append(time_now(torch) - t0)
+            tok = lg.argmax(-1, keepdim=True).to(prompts.dtype)
+            toks.append(tok.cpu())
+            logits.append(lg.float().cpu())
+        out["serve"] = {"tokens": torch.stack(toks).numpy(),
+                        "logits": torch.stack(logits).numpy(),
+                        "ms_per_step": 1e3 * statistics.median(ms[2:])}
+    del cache, ctx
+    free_device(torch)
+    # (ii) the fine-tune's first step on the whole batch, and the
+    # data-parallel algorithm on one card: the mean of the W shares' steps
+    args = train.parser().parse_args(["--device", "cuda"])
+    adapter, scale = train.build_adapter(cfg, args)
+    batch = train_batch(torch, cfg, TRAIN_B, TRAIN_S, 0)
+    loss_fn = make_lora_loss(cfg, params, scale)
+    loss, grads = value_and_grad(loss_fn, adapter, batch)
+    out["dp"] = {"loss": loss.item(), "norms": grad_norms(torch, grads)}
+    W, per = spmd_world(torch), TRAIN_B // spmd_world(torch)
+    losses, mean = [], None
+    for r in range(W):
+        lr_, gr = value_and_grad(loss_fn, adapter, {
+            k: v[r * per:(r + 1) * per] for k, v in batch.items()})
+        losses.append(lr_.item())
+        mean = gr if mean is None else {
+            t: {f: mean[t][f] + gr[t][f] for f in gr[t]} for t in gr}
+    mean = {t: {f: x / W for f, x in ab.items()} for t, ab in mean.items()}
+    out["dp_shares"] = {"loss": sum(losses) / W,
+                        "norms": grad_norms(torch, mean)}
+    del grads, adapter, mean, gr, loss_fn     # the loss holds the weights
+    free_device(torch)
+    # the prefill's logits at depth LAYERS, as configured and dropless
+    toks = train_batch(torch, cfg, SPMD_TRAIN_B, SPMD_TRAIN_S, 1)["tokens"]
+    for key, c in (("prefill", cfg), ("prefill_dropless", dropless(cfg))):
+        with torch.no_grad():
+            lg = transformer.forward(params, c, toks, kind="prefill")[0]
+        out[key] = lg[:, ::8].float().cpu().numpy()
+        del lg
+    del params, pool
+    free_device(torch)
+    # (iii) the full-parameter step at depth 1, dropless (make_train_step's
+    # local twin: the same loss, gradients and in-place AdamW, no rules)
+    cfg1, p1 = serve.model(ARCH, layers=1, seed=SEED, device=dev)
+    cfg1 = dropless(cfg1)
+    batch = train_batch(torch, cfg1, SPMD_TRAIN_B, SPMD_TRAIN_S, 2)
+
+    def loss_of(p, b):
+        return lm_loss(transformer.forward(p, cfg1, b["tokens"],
+                                           kind="train")[0], b["labels"])
+
+    # the planted faults' gradients: half the batch (row 0 alone), and
+    # half the tokens unsummed (the first half of each sequence: their
+    # nll sum over every label, = half the mean over their own labels)
+    faults = {}
+    _, g = value_and_grad(loss_of, p1, {k: v[:1] for k, v in batch.items()})
+    faults["half_batch"] = grad_readings(torch, g)
+    del g
+    half = batch["labels"].clone()
+    half[:, SPMD_TRAIN_S // 2:] = -1
+    _, g = value_and_grad(loss_of, p1, dict(batch, labels=half))
+    faults["half_tokens_unsummed"] = grad_readings(torch, g, scale=0.5)
+    del g, half
+    free_device(torch)
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = value_and_grad(loss_of, p1, batch)
+    true = grad_readings(torch, grads)
+    opt = topt.init(p1)
+    tsteps.adamw_(p1, grads, opt, topt.AdamWConfig(
+        lr=SPMD_TRAIN_LR, warmup_steps=1, total_steps=10))
+    del grads
+    out["train"] = {"loss": loss.item(), "m": grad_readings(torch, opt["m"]),
+                    "planted": {k: readings_err(f, true)
+                                for k, f in faults.items()},
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del p1, opt
+    free_device(torch)
+    return out
+
+
+def dropless(cfg):
+    """``cfg`` with a capacity factor of E / K: a capacity of at least T
+    slots an expert, so no (token, expert) pair overflows whatever the
+    number of tokens (a rank's or the whole batch's)."""
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def time_now(torch) -> float:
+    from repro_torch.obs.clock import wall_time
+    torch.cuda.synchronize()
+    return wall_time()
+
+
+def grad_readings(torch, tree, scale=1.0) -> dict:
+    """{leaf: (a sample (f32 numpy), the f32 norm of the whole leaf)},
+    each times ``scale`` (a power of two: exact)."""
+    from repro_torch.training.tree import flatten_with_keys
+    return {k: leaf_reading(v, scale)
+            for k, v in flatten_with_keys(tree).items()}
+
+
+def leaf_reading(v, scale=1.0):
+    """A leaf's sample, every 4099th element where it has more than 4099
+    x 4096 of them, else the whole leaf (a norm's 4096 weights would
+    give one element, whose sum over the tokens may cancel), and its
+    norm."""
+    v = v.float() * scale
+    step = 4099 if v.numel() > 4099 * 4096 else 1
+    return v.reshape(-1)[::step].cpu().numpy(), v.norm().item()
+
+
+def readings_err(got, want) -> dict:
+    """The worst leaf's relative errors of ``got`` against ``want``
+    (``grad_readings``): the sample's L2 error over its L2 norm, and the
+    norms' (a leaf whose want is zero counts as wrong unless got is)."""
+    import numpy as np
+
+    def rel(e, n):
+        return e / n if n > 0 else (0.0 if e == 0 else math.inf)
+
+    samp = {k: rel(float(np.linalg.norm(got[k][0] - w[0])),
+                   float(np.linalg.norm(w[0]))) for k, w in want.items()}
+    norm = {k: rel(abs(got[k][1] - w[1]), w[1]) for k, w in want.items()}
+    ks, kn = max(samp, key=samp.get), max(norm, key=norm.get)
+    return {"sample_rel_l2": samp[ks], "sample_leaf": ks,
+            "norm_rel": norm[kn], "norm_leaf": kn,
+            "equal": all(np.array_equal(got[k][0], w[0]) and got[k][1] == w[1]
+                         for k, w in want.items())}
+
+
+def spmd_rank(rank, world, base):
+    """One rank of phase 13 (on card ``rank``): (i), (ii), (iii) in turn;
+    rank 0 returns the readings, every rank its peak memory."""
+    import torch
+    from repro_torch.kernels import bgmv, fused, gmm, paged, sgmv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = {"paged_attention": paged.paged_attention,
+                "bgmv_expert": bgmv.bgmv_expert, "bgmv": bgmv.bgmv,
+                "bgmv_ranked": bgmv.bgmv_ranked, "sgmv": sgmv.sgmv,
+                "sgmv_ranked": sgmv.sgmv_ranked,
+                "fused_sgmv": fused.fused_sgmv,
+                "fused_sgmv_ranked": fused.fused_sgmv_ranked, "gmm": gmm.gmm}
+    from repro_torch.launch import serve
+    main = Launches(counters)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg, params = serve.model(ARCH, layers=LAYERS, seed=SEED, device=dev)
+    out = {"rank": rank,
+           "serve": spmd_serve_rank(torch, world, base, cfg, params, main),
+           "dp": spmd_dp_rank(torch, world, base, cfg, params, main),
+           "prefill": spmd_prefill_rank(torch, world, base, cfg, params,
+                                        main)}
+    del params
+    free_device(torch)
+    out["train"] = spmd_train_rank(torch, world, base, main)
+    out["launches"] = main.n
+    return out
+
+
+class Launches:
+    """The launches of the sharded steps alone: ``with main.count():``
+    adds what each kernel launched inside it. The local steps run beside
+    them to compare, and the checks' own passes, are not counted."""
+
+    def __init__(self, counters):
+        self.counters = counters
+        self.n = dict.fromkeys(counters, 0)
+
+    @contextlib.contextmanager
+    def count(self):
+        c0 = {k: f.launches for k, f in self.counters.items()}
+        yield
+        for k, f in self.counters.items():
+            self.n[k] += f.launches - c0[k]
+
+
+def spmd_serve_rank(torch, W, base, cfg, params, main) -> dict:
+    """(i) ``jit_serve_step`` on each grid: the prompt's KV cut to this
+    rank's batch rows and kv_seq slice, SPMD_STEPS steps fed the local
+    run's tokens (lock step), every step's logits gathered. Before each
+    step the cache is gathered whole and rank 0 runs the local step on
+    that same state: each step's logits are held to it (as phase 3 holds
+    the kernels to the plain versions). The drift from the one-card run,
+    whose cache holds its own roundings (a router's near-tie decided the
+    other way stays in the KV it wrote), is printed beside."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import steps as tsteps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import transformer
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.reset_peak_memory_stats()
+    prompts, ids, pool = _spmd_serve_inputs(torch, cfg, dev)
+    k_all, v_all = (_unbits(torch, a, dev) for a in base["kv"])
+    shape = ShapeConfig("spmd_serve", seq_len=SPMD_S, global_batch=SPMD_B,
+                        kind="decode")
+    want = base["serve"]
+    out = {}
+    for grid in spmd_grids(W):
+        mesh = make_debug_mesh(*grid)
+        step, _, rules = tsteps.jit_serve_step(cfg, shape, mesh)
+        _, cpl = tsteps.cache_specs(cfg, shape, rules)
+        place = tsteps.step_placements(cfg, rules, "decode", SPMD_B, 1)
+        p_l = _clone_sharded(torch, tsteps.local_params(params, place),
+                             place)
+        loc = {}
+        for name, src in (("k", k_all), ("v", v_all)):
+            pl = cpl[name]
+            buf = torch.zeros(pl.local_shape, dtype=torch.bfloat16,
+                              device=dev)
+            # this rank's rows and slice of the prompt's positions
+            b0 = mesh.coord(pl.spec[1]) * buf.shape[1] if pl.spec[1] else 0
+            s0 = mesh.coord(pl.spec[2]) * buf.shape[2] if pl.spec[2] else 0
+            n = max(0, min(SPMD_PROMPT - s0, buf.shape[2]))
+            if n:
+                buf[:, :, :n] = src[:, b0:b0 + buf.shape[1], s0:s0 + n]
+            loc[name] = buf
+        loc["pos"] = SPMD_PROMPT
+        bspec = rules.spec(("batch", None), (SPMD_B, 1))
+        bpl = tsteps.Placement(mesh, bspec, (SPMD_B, 1))
+        ctx = pool.lora_ctx(bpl.local(ids[:, None])[:, 0].contiguous())
+        toks = torch.as_tensor(want["tokens"], device=dev)
+        want_logits = torch.from_numpy(want["logits"])
+        feed = [prompts[:, -1:]] + [toks[i] for i in range(SPMD_STEPS - 1)]
+        c0 = dict(main.n)
+        got, shadow, halves, ms = [], [], [], []
+        h = SPMD_B // 2
+        for t in feed:
+            # the same state through the local step, on rank 0: the whole
+            # batch, and its two halves as two batches (the noise floor of
+            # the same math over other GEMM shapes and sum orders; each
+            # half rewrites its rows' slot before it reads it)
+            whole = {n: cpl[n].whole(loc[n]) for n in ("k", "v")}
+            if mesh.rank == 0:
+                with torch.no_grad():
+                    lg, _ = transformer.decode_step(
+                        params, cfg, dict(whole, pos=loc["pos"]), t,
+                        lora_ctx=pool.lora_ctx(ids))
+                    shadow.append(lg.float().cpu())
+                    halves.append(torch.cat([transformer.decode_step(
+                        params, cfg, {"k": whole["k"][:, a:a + h],
+                                      "v": whole["v"][:, a:a + h],
+                                      "pos": loc["pos"]}, t[a:a + h],
+                        lora_ctx=pool.lora_ctx(ids[a:a + h]))[0].float()
+                        .cpu() for a in (0, h)]))
+            del whole
+            t0 = time_now(torch)
+            with main.count():
+                lg, loc = step(p_l, loc, {"tokens": bpl.local(t)
+                                          .contiguous()}, lora_ctx=ctx)
+            ms.append(time_now(torch) - t0)
+            g = lg if not bspec[0] else col.all_gather(
+                lg.contiguous(), mesh.get_group(bspec[0]), 0)
+            got.append(g.float().cpu())
+        res = {"ms_per_step": 1e3 * statistics.median(ms[2:]),
+               "local_ms_per_step": want["ms_per_step"],
+               "launches_per_step": {k: (main.n[k] - c0[k]) / SPMD_STEPS
+                                     for k in ("gmm", "bgmv_expert",
+                                               "bgmv")},
+               "plan": _plan_of(cfg, rules, "decode", SPMD_B, 1)}
+        if mesh.rank == 0:
+            med, agree, worst = _median_max_err(torch, torch.stack(got),
+                                                torch.stack(shadow))
+            res.update(median_row_max_logit_err=_median_row_err(
+                torch, torch.stack(got), torch.stack(shadow)),
+                median_max_logit_err=med, max_logit_err=worst,
+                greedy_agree=agree)
+            med, agree, worst = _median_max_err(torch, torch.stack(halves),
+                                                torch.stack(shadow))
+            res["floor_two_halves"] = {"median_max_logit_err": med,
+                                       "max_logit_err": worst,
+                                       "greedy_agree": agree}
+            med, agree, worst = _median_max_err(torch, torch.stack(got),
+                                                want_logits)
+            res["vs_one_card_run"] = {"median_max_logit_err": med,
+                                      "max_logit_err": worst,
+                                      "greedy_agree": agree}
+        out[str(grid)] = res
+        del p_l, loc
+        free_device(torch)
+    del pool, k_all, v_all
+    free_device(torch)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def _plan_of(cfg, rules, kind, B, S) -> dict:
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.models.moe import resolve_moe_plan
+    with use_rules(rules):
+        p = resolve_moe_plan(cfg, B, S, kind)
+    return dataclasses.asdict(p)
+
+
+def spmd_dp_rank(torch, W, base, cfg, params, main) -> dict:
+    """(ii) ``make_lora_train_step(axis_name="data")`` over a (W, 1) mesh,
+    each rank TRAIN_B / W rows of the phase-12 batch: the first step's
+    gradients (all-reduced) against one card's on the whole batch, the
+    all-reduce timed; the compressed reduction against its formula on the
+    host (int32 sum of every rank's codes times the largest scale); then
+    SPMD_DP_STEPS steps of each branch and the first batch's loss after
+    them."""
+    import numpy as np
+
+    from repro_torch.distributed import collectives as col
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.training import compression
+    from repro_torch.training.optimizer import AdamWConfig, init
+    from repro_torch.training.train_step import _all_reduce_grads, \
+        make_lora_loss, make_lora_train_step, value_and_grad
+    from repro_torch.training.tree import flatten_with_keys
+
+    mesh = make_debug_mesh(W, 1)
+    g, r = mesh.get_group("data"), mesh.coord("data")
+    torch.cuda.reset_peak_memory_stats()
+    args = train.parser().parse_args(["--device", "cuda"])
+    adapter, scale = train.build_adapter(cfg, args)
+    per = TRAIN_B // W
+
+    def share(step):
+        b = train_batch(torch, cfg, TRAIN_B, TRAIN_S, step)
+        return {k: v[r * per:(r + 1) * per].contiguous()
+                for k, v in b.items()}
+
+    loss_fn = make_lora_loss(cfg, params, scale)
+    loss, grads = value_and_grad(loss_fn, adapter, share(0))
+    loss = col.all_reduce(loss, g).item() / W
+    zeros = compression.init_error(adapter)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    mean, _ = _all_reduce_grads(grads, zeros, g, W, False)
+    end.record()
+    torch.cuda.synchronize()
+    ar_ms = start.elapsed_time(end)
+    norms = grad_norms(torch, mean)
+    # the compressed reduction against its formula on the host
+    reduced, _ = _all_reduce_grads(grads, zeros, g, W, True)
+    q, _ = compression.compress_tree(grads, zeros)
+    formula_ok = True
+    for key, (codes, sc) in _pairs(q, "").items():
+        all_codes = col.all_gather(codes.to(torch.int32)[None], g, 0)
+        all_sc = col.all_gather(sc.reshape(1), g, 0)
+        host = (all_codes.cpu().numpy().astype(np.int64).sum(0)
+                .astype(np.float32) * np.float32(all_sc.max().item()))
+        formula_ok &= bool(np.array_equal(
+            host, flatten_with_keys(reduced)[key].cpu().numpy()))
+    del grads, mean, reduced, q
+    out = {"world": W, "rows_per_rank": per, "step0_loss": loss,
+           "step0_loss_local": base["dp_shares"]["loss"],
+           "allreduce_ms": ar_ms, "compressed_formula_bit_equal": formula_ok}
+
+    def worst(nt):
+        return max(abs(norms[k] - nt[k]) / max(nt[k], 1e-30) for k in nt)
+
+    out["worst_norm_rel_err"] = worst(base["dp_shares"]["norms"])
+    # one card's step on the whole batch: its capacity is the whole
+    # batch's, so it drops other overflow pairs than the ranks do
+    out["vs_whole_batch"] = {"step0_loss": base["dp"]["loss"],
+                             "worst_norm_rel_err": worst(base["dp"]["norms"])}
+    for compress in (False, True):
+        name = "compressed" if compress else "pmean"
+        ad = {t: {f: x.clone() for f, x in ab.items()}
+              for t, ab in adapter.items()}
+        step = make_lora_train_step(
+            cfg, params, scale, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                            total_steps=SPMD_DP_STEPS),
+            compress=compress, axis_name="data", mesh=mesh)
+        opt, err = init(ad), compression.init_error(ad)
+        losses, ms = [], []
+        for s in range(SPMD_DP_STEPS):
+            b = share(s)
+            t0 = time_now(torch)
+            with main.count():
+                lo, ad, opt, err = step(ad, opt, err, b)
+            losses.append(col.all_reduce(lo, g).item() / W)
+            ms.append(time_now(torch) - t0)
+        # the first batch again, after the steps
+        with torch.no_grad():
+            after = col.all_reduce(loss_fn(ad, share(0)), g).item() / W
+        out[name] = {"loss": losses, "step0_batch_after": after,
+                     "ms_per_step": 1e3 * statistics.median(ms[1:])}
+        del ad, opt, err
+        free_device(torch)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def _pairs(t, prefix):
+    """A tree of (codes, scale) pairs as {key path: pair}, its keys as
+    ``flatten_with_keys`` writes them."""
+    if isinstance(t, tuple):
+        return {prefix: t}
+    out = {}
+    for k in sorted(t):
+        out.update(_pairs(t[k], prefix + f"[{k!r}]"))
+    return out
+
+
+def spmd_train_rank(torch, W, base, main) -> dict:
+    """(iii) ``jit_train_step`` at depth 1, dropless, over a (1, W) mesh
+    (sequence parallelism, head-sharded flash attention, the experts'
+    all-to-all), B SPMD_TRAIN_B x S SPMD_TRAIN_S, one AdamW step, against
+    the local step: its loss, and each leaf's first moment after the step
+    (the gradient the step applied, summed over the ranks), gathered whole
+    one leaf at a time."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import steps as tsteps
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training.tree import flatten_with_keys
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_debug_mesh(1, W)
+    out = {"grid": str((1, W))}
+    cfg1, p1 = serve.model(ARCH, layers=1, seed=SEED, device=dev)
+    cfg1 = dropless(cfg1)
+    shape = ShapeConfig("spmd_train", seq_len=SPMD_TRAIN_S,
+                        global_batch=SPMD_TRAIN_B, kind="train")
+    step, _, rules = tsteps.jit_train_step(
+        cfg1, shape, mesh, topt.AdamWConfig(lr=SPMD_TRAIN_LR,
+                                            warmup_steps=1, total_steps=10))
+    place = tsteps.step_placements(cfg1, rules, "train", SPMD_TRAIN_B,
+                                   SPMD_TRAIN_S)
+    p_l = {k: v for k, v in tsteps.local_params(p1, place).items()}
+    p_l = _clone_sharded(torch, p_l, place)
+    del p1
+    free_device(torch)
+    batch = train_batch(torch, cfg1, SPMD_TRAIN_B, SPMD_TRAIN_S, 2)
+    bspec = rules.spec(("batch", "seq"), (SPMD_TRAIN_B, SPMD_TRAIN_S))
+    bpl = tsteps.Placement(mesh, bspec, (SPMD_TRAIN_B, SPMD_TRAIN_S))
+    b_l = {k: bpl.local(v).contiguous() for k, v in batch.items()}
+    opt = topt.init(p_l)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time_now(torch)
+    with main.count():
+        loss, p_l, opt = step(p_l, opt, b_l)
+    out["ms_step"] = 1e3 * (time_now(torch) - t0)
+    out["peak_gib_step"] = torch.cuda.max_memory_allocated() / 2**30
+    del p_l
+    free_device(torch)
+    flat_pl = flatten_with_keys(place)
+    got = {}
+    for k, m in flatten_with_keys(opt["m"]).items():
+        got[k] = leaf_reading(flat_pl[k].whole(m))
+    del opt
+    free_device(torch)
+    want = base["train"]
+    out["loss"], out["loss_local"] = loss.item(), want["loss"]
+    out["grads"] = readings_err(got, want["m"])
+    out["planted"] = want["planted"]
+    return out
+
+
+def spmd_prefill_rank(torch, W, base, cfg, params, main) -> dict:
+    """(iii) ``jit_prefill_step`` at depth LAYERS on the (1, W) grid: the
+    logits of every 8th position against the local prefill's, dropless
+    (held: the same math) and as configured (printed: a rank's capacity
+    counts its own tokens, so other overflow pairs drop)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import steps as tsteps
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    mesh = make_debug_mesh(1, W)
+    pshape = ShapeConfig("spmd_prefill", seq_len=SPMD_TRAIN_S,
+                         global_batch=SPMD_TRAIN_B, kind="prefill")
+    toks = train_batch(torch, cfg, SPMD_TRAIN_B, SPMD_TRAIN_S, 1)["tokens"]
+    out = {"grid": str((1, W))}
+    for key, c in (("prefill_dropless", dropless(cfg)), ("prefill", cfg)):
+        pstep, _, prules = tsteps.jit_prefill_step(c, pshape, mesh)
+        pplace = tsteps.step_placements(c, prules, "prefill", SPMD_TRAIN_B,
+                                        SPMD_TRAIN_S)
+        bspec = prules.spec(("batch", "seq"), (SPMD_TRAIN_B, SPMD_TRAIN_S))
+        bpl = tsteps.Placement(mesh, bspec, (SPMD_TRAIN_B, SPMD_TRAIN_S))
+        p_l = _clone_sharded(torch, tsteps.local_params(params, pplace),
+                             pplace)
+        t0 = time_now(torch)
+        with main.count():
+            lg = pstep(p_l, {"tokens": bpl.local(toks).contiguous()})
+        ms = 1e3 * (time_now(torch) - t0)
+        for dim, p in ((0, bspec[0]), (1, bspec[1])):
+            if p:
+                lg = col.all_gather(lg.contiguous(), mesh.get_group(p), dim)
+        got = lg[:, ::8].float().cpu()
+        del lg, p_l
+        free_device(torch)
+        med, agree, worst = _median_max_err(
+            torch, got.transpose(0, 1),
+            torch.from_numpy(base[key]).transpose(0, 1))
+        out[key] = {"ms": ms, "median_max_logit_err": med,
+                    "max_logit_err": worst, "greedy_agree": agree}
+    return out
+
+
+def _clone_sharded(torch, p_l, place):
+    """The leaves this rank holds a part of as their own contiguous
+    tensors (the kernels take no strides, and a view would keep the whole
+    weight alive); the whole ones as they are."""
+    if isinstance(p_l, dict):
+        return {k: _clone_sharded(torch, v, place[k]) for k, v in p_l.items()}
+    return p_l.clone() if place.local_shape != place.shape else p_l
+
+
+def spmd_phase(torch, smi) -> dict:
+    """Phase 13: the local baselines on cuda:0, then one NCCL world of W
+    ranks (one a card) runs (i)-(iii); every check on rank 0's readings.
+    Returns rank 0's launch counts (the kernels line's "spmd")."""
+    from repro_torch.distributed.world import spawn
+    from repro_torch.obs.clock import wall_time
+
+    t0 = wall_time()
+    W = spmd_world(torch)
+    head = {"world": W, "grids": [str(g) for g in spmd_grids(W)],
+            "cards": torch.cuda.device_count(), "backend": "nccl"}
+    print(f"phase 13: the SPMD steps, world {W} (NCCL, one rank a card; "
+          f"grids {head['grids']})" + ("; one card: every grid is the local "
+                                      "plan, no check crosses cards"
+                                      if W == 1 else ""), flush=True)
+    base = spmd_baseline(torch, smi)
+    free_device(torch)      # the ranks share cuda:0 with this process
+    t1 = wall_time()
+    ranks = spawn(spmd_rank, W, base, backend="nccl", timeout=SPMD_TIMEOUT,
+                  join_timeout=SPMD_JOIN)
+    r0 = ranks[0]
+    peaks = {part: [r[part].pop("peak_gib") for r in ranks]
+             for part in ("serve", "dp")}
+    peaks["train"] = [r["train"]["peak_gib_step"] for r in ranks]
+    dp, tr, pf = r0["dp"], r0["train"], r0["prefill"]
+    # every line first, then the checks: a failure shows all readings
+    for grid, res in r0["serve"].items():
+        print(f"phase 13(i) serve {grid}: " + json.dumps(
+            {**head, **res, "peak_gib_by_rank": peaks["serve"]})
+            + f"; card {smi}", flush=True)
+    print("phase 13(ii) data-parallel fine-tune: " + json.dumps(
+        {**head, **dp, "peak_gib_by_rank": peaks["dp"]}) + f"; card {smi}",
+        flush=True)
+    print("phase 13(iii) train + prefill: " + json.dumps(
+        {**head, **tr, "prefill": pf, "peak_gib_by_rank": peaks["train"],
+         "local_peak_gib": base["train"]["peak_gib"]})
+        + f"; card {smi}", flush=True)
+    for grid, res in r0["serve"].items():
+        check(res["median_row_max_logit_err"] <= LOGIT_TOL,
+              f"spmd serve {grid}: median (step, row) logit err "
+              f"{res['median_row_max_logit_err']} > {LOGIT_TOL}")
+        check(res["greedy_agree"] >= ARGMAX_AGREE,
+              f"spmd serve {grid}: greedy agreement {res['greedy_agree']}")
+        check(res["launches_per_step"]["gmm"] > 0,
+              f"spmd serve {grid}: gmm never launched")
+    check(abs(dp["step0_loss"] - dp["step0_loss_local"])
+          <= DP_LOSS_TOL * abs(dp["step0_loss_local"]),
+          f"spmd fine-tune: step-0 loss {dp['step0_loss']} against "
+          f"{dp['step0_loss_local']} on one card")
+    check(dp["worst_norm_rel_err"] <= DP_NORM_TOL,
+          f"spmd fine-tune: a gradient norm off by {dp['worst_norm_rel_err']}")
+    check(dp["compressed_formula_bit_equal"],
+          "spmd fine-tune: the compressed all-reduce is not the formula's")
+    for name in ("pmean", "compressed"):
+        ls = dp[name]["loss"]
+        check(all(math.isfinite(v) for v in ls)
+              and dp[name]["step0_batch_after"] < ls[0],
+              f"spmd fine-tune {name}: the first batch's loss did not fall "
+              f"({ls[0]} -> {dp[name]['step0_batch_after']})")
+    g = tr["grads"]
+    check(abs(tr["loss"] - tr["loss_local"])
+          <= SPMD_LOSS_TOL * abs(tr["loss_local"]),
+          f"spmd train: loss {tr['loss']} against {tr['loss_local']}")
+    check(g["sample_rel_l2"] <= GRAD_REL_TOL and g["norm_rel"] <= GRAD_REL_TOL,
+          f"spmd train: gradients off the local step's: {g}")
+    check(W > 1 or (tr["loss"] == tr["loss_local"] and g["equal"]),
+          f"spmd train, one card: not equal to the local step ({g})")
+    for name, f in tr["planted"].items():
+        check(max(f["sample_rel_l2"], f["norm_rel"]) > GRAD_REL_TOL,
+              f"spmd train: planted fault {name} within the bound: {f}")
+    check(pf["prefill_dropless"]["median_max_logit_err"] <= LOGIT_TOL
+          and pf["prefill_dropless"]["greedy_agree"] >= ARGMAX_AGREE,
+          f"spmd prefill: {pf['prefill_dropless']} against the local "
+          f"prefill (dropless)")
+    print(f"phase 13: {wall_time() - t0:.1f} s (local baselines "
+          f"{t1 - t0:.1f} s)", flush=True)
+    return r0["launches"]
 
 
 def _first_layers(tree, n: int):
@@ -3845,6 +4579,13 @@ def main() -> int:
     build.build(build.sources())
     print(f"kernel build: {wall_time() - t0:.1f} s for {build.sources()}",
           flush=True)
+    if sys.argv[1:] == ["--only", "13"]:
+        spmd_phase(torch, smi)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     for name, log in build.BUILD_LOGS.items():
         print(f"[nvcc {name}] " + " | ".join(
             ln.strip() for ln in log.splitlines() if "Used" in ln or
@@ -3879,6 +4620,8 @@ def main() -> int:
     launches.update(static_phase(torch, ops, ref, counters, smi))
     train_grads, launches["train"] = train_phase(torch, ops, ref, counters,
                                                  flush, smi)
+    free_device(torch)
+    launches["spmd"] = spmd_phase(torch, smi)
 
     # "launches": the coupled plane's run for rows 1-3 and gmm, the
     # LoRA-kernel path's run for rows 4-8; each path's counted run in

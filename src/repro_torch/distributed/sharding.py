@@ -10,15 +10,28 @@ dimensions (the first wins). A spec is a tuple, one entry a dimension:
 None (replicated), a mesh axis, or a tuple of mesh axes.
 
 The serving plane reads these rules to find its expert-parallel axis
-(``distributed.steps.expert_parallel_ctx``). ``constrain`` and
-``sharding`` have no counterpart without an SPMD compiler: they come with
-the collective-bearing steps (ROADMAP A8b).
+(``distributed.steps.expert_parallel_ctx``). The SPMD steps
+(``distributed.steps``) read them over a ``launch.mesh.ProcessMesh``:
+each process holds its local shards, so a spec says which slice of a
+dimension a rank holds (``sharding`` gives that ``Placement``); the
+reference's ``constrain``, a layout request to its compiler, has no
+counterpart, as every tensor already is its local shard.
+``token_layout`` gives the mesh axes the activations' batch and sequence
+dims are sharded over, from their local sizes (the steps shard a token
+dim over every axis its rule names, and refuse a global size that does
+not divide).
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import math
 import threading
 from typing import Dict, Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.distributed import collectives as col
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
 
@@ -102,6 +115,79 @@ class ShardingRules:
             used.update(axes)
             parts.append(axes if len(axes) > 1 else axes[0])
         return tuple(parts)
+
+    def sharding(self, logical_axes: Sequence[Optional[str]],
+                 shape: Sequence[int]) -> "Placement":
+        """Where each rank's shard of a (global) ``shape`` lies."""
+        return Placement(self.mesh, self.spec(logical_axes, shape),
+                         tuple(int(d) for d in shape))
+
+    def size(self, axes) -> int:
+        """The number of positions along ``axes`` (None, a name or a
+        tuple; 1 for a name the mesh lacks)."""
+        return int(math.prod(self._axis_sizes.get(a, 1)
+                             for a in axes_of(axes)))
+
+    def token_layout(self, batch: int, seq: Optional[int] = None,
+                     seq_name: str = "seq"):
+        """(batch axes, seq axes) as tuples, for activations whose LOCAL
+        batch and sequence sizes are ``batch`` and ``seq``: each dim
+        sharded over every axis of its rule the mesh has (the batch's
+        first), so the global size is the local one times their sizes."""
+        names = ["batch"] + ([seq_name] if seq is not None else [])
+        local = [batch] + ([seq] if seq is not None else [])
+        glob, used = [], set()
+        for name, n in zip(names, local):
+            axes = [a for a in axes_of(self.rules.get(name))
+                    if a in self._axis_sizes and a not in used]
+            used.update(axes)
+            glob.append(n * self.size(tuple(axes)))
+        spec = self.spec(names, glob)
+        out = tuple(axes_of(p) for p in spec)
+        return out if seq is not None else (out[0], ())
+
+
+def axes_of(entry) -> Tuple[str, ...]:
+    """A spec entry (None, a mesh axis or a tuple of them) as a tuple."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """A global ``shape`` laid out by ``spec`` over ``mesh``: dim i is cut
+    into ``size(spec[i])`` equal slices along its mesh axes, the first
+    axis major (the reference's ``NamedSharding``)."""
+    mesh: object
+    spec: Tuple
+    shape: Tuple[int, ...]
+
+    @property
+    def local_shape(self) -> Tuple[int, ...]:
+        sizes = dict(zip(self.mesh.axis_names, self.mesh.devices.shape))
+        return tuple(d // int(math.prod(sizes[a] for a in axes_of(p)))
+                     for d, p in zip(self.shape, self.spec))
+
+    def local(self, t):
+        """This rank's slice of the global tensor ``t`` (a view), on a
+        ``ProcessMesh``."""
+        if tuple(t.shape) != self.shape:
+            raise ValueError(f"placement of {self.shape} given a tensor of "
+                             f"{tuple(t.shape)}")
+        for dim, (p, n) in enumerate(zip(self.spec, self.local_shape)):
+            if axes_of(p):
+                t = t.narrow(dim, self.mesh.coord(axes_of(p)) * n, n)
+        return t
+
+    @torch.no_grad()
+    def whole(self, t):
+        """The global tensor from every rank's shard ``t`` (a collective
+        over each sharded dim's axes: every rank calls it)."""
+        for dim, p in enumerate(self.spec):
+            if axes_of(p):
+                t = col.all_gather(t, self.mesh.get_group(axes_of(p)), dim)
+        return t
 
 
 _tls = threading.local()

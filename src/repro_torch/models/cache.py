@@ -104,6 +104,30 @@ def init_cache(cfg, batch: int, max_len: int, kv_quant: bool = False,
     return c
 
 
+def cache_logical_axes(cfg) -> Dict[str, tuple]:
+    """The logical axes of each ``init_cache`` entry (the reference's):
+    the KV's sequence dim is "kv_seq", which the decode rule-set shards
+    over "model" (flash-decode, ``layers.decode_attention_update``)."""
+    fam = cfg.family
+    ax: Dict[str, tuple] = {"pos": ()}
+    if fam in ("dense", "moe", "vlm", "audio"):
+        kv = ("layers", "batch", "kv_seq", "kv_heads", None)
+        ax["k"] = ax["v"] = kv
+        ax["k_scale"] = ax["v_scale"] = kv
+        if fam == "audio":
+            ax["ck"] = ax["cv"] = ("layers", "batch", None, "kv_heads", None)
+            ax["cross_len"] = ()
+    elif fam == "ssm":
+        ax["tm"] = ax["cm"] = ("layers", "batch", None)
+        ax["wkv"] = ("layers", "batch", "heads", None, None)
+    elif fam == "hybrid":
+        ax["h"] = ("layers", None, "batch", "heads", None, None)
+        ax["conv"] = ("layers", None, "batch", None, "ssm_inner")
+        ax["ak"] = ax["av"] = ("layers", "batch", "kv_seq", "kv_heads", None)
+        ax["apos"] = ("kv_seq",)
+    return ax
+
+
 def quantize_kv(x):
     """x: (..., hd) -> (int8 codes, f32 scale (..., 1)): the max-abs scale
     max(amax, 1e-6) / 127, codes rounded half to even and clipped to

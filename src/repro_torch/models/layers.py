@@ -6,6 +6,14 @@ Activations are (B, S, d); attention internals (B, S, H, hd). Matrix
 products that the reference takes with ``preferred_element_type=f32`` are
 taken with an f32 result here too (``mm_f32``), so a bf16 model rounds at
 the same places as the reference.
+
+Under active sharding rules over a ``ProcessMesh`` (the SPMD steps) every
+tensor is this process's shard, and three functions run the reference's
+``shard_map`` bodies with their collectives written out:
+``causal_attention`` / ``flash_attention`` head-sharded under sequence
+parallelism, the ``kv_seq`` flash-decode (``decode_attention_update``,
+``decode_attention``) and the sequence-parallel ``mlp``. Without rules
+each runs its local path, unchanged.
 """
 from __future__ import annotations
 
@@ -15,6 +23,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed.sharding import active_rules, axes_of, \
+    use_rules
 from repro_torch.kernels import ops
 from repro_torch.kernels.autograd import matmul_f32
 from repro_torch.models.cache import quantize_kv
@@ -144,23 +155,99 @@ def mlp_act(g, u, cfg, dtype):
     return (F.silu(g) * u if cfg.gated_mlp else gelu(u)).to(dtype)
 
 
+def _mlp_math(x, p, cfg):
+    g = mm_f32(x, p["gate"]) if cfg.gated_mlp else None
+    act = mlp_act(g, mm_f32(x, p["up"]), cfg, x.dtype)
+    return mm_f32(act, p["down"])
+
+
+def mlp_sp_axes(rules, cfg, batch: int, seq: int):
+    """(seq axes, fsdp axis) of the sequence-parallel MLP for activations
+    of local (batch, seq) under ``rules``, or None where it does not apply
+    (the sequence is not sharded, or not over the axis that shards d_ff)."""
+    if rules is None:
+        return None
+    sax = rules.token_layout(batch, seq)[1]
+    if not sax or seq * rules.size(sax) <= 1 or \
+            axes_of(rules._resolve("mlp", cfg.d_ff))[:1] != sax[:1]:
+        return None
+    fsdp = axes_of(rules._resolve("fsdp", cfg.d_model))
+    return sax, (fsdp[0] if fsdp else None)
+
+
 def mlp(x, p, cfg):
     """SwiGLU (gated) or GELU MLP of the dense families. x: (B, S, d); p:
     {gate (gated only), up (d, ff), down (ff, d)}. The products have an f32
     result, the activation is cast to x's dtype, and the output too, as the
-    reference rounds."""
-    g = mm_f32(x, p["gate"]) if cfg.gated_mlp else None
-    act = mlp_act(g, mm_f32(x, p["up"]), cfg, x.dtype)
-    return mm_f32(act, p["down"]).to(x.dtype)
+    reference rounds.
+
+    Under sequence parallelism (rules whose "seq" and "mlp" take one axis)
+    x is this rank's sequence shard and the weights its (fsdp, mlp) shards:
+    the reference's Megatron-SP pair, x all-gathered over the sequence
+    axis, the partial output over this rank's d_ff shard reduce-scattered
+    back, with the weights' fsdp shards gathered first."""
+    sp = mlp_sp_axes(active_rules(), cfg, x.shape[0], x.shape[1])
+    if sp is None:
+        return _mlp_math(x, p, cfg).to(x.dtype)
+    (seq_axes, fsdp), mesh = sp, active_rules().mesh
+    p = dict(p)
+    if fsdp is not None:        # ZeRO-3: this layer's d shards gathered
+        g = mesh.get_group(fsdp)
+        for name, dim in (("up", 0), ("gate", 0), ("down", 1)):
+            if name in p:
+                p[name] = col.all_gather(p[name], g, dim)
+    gs = mesh.get_group(seq_axes)
+    y = _mlp_math(col.all_gather(x, gs, 1), p, cfg)
+    return col.reduce_scatter(y, gs, 1).to(x.dtype)
 
 
 # --------------------------- prefill attention ------------------------- #
+def _sharded_attention(attn, q, k, v, **kw):
+    """``attn`` (a local attention) under active rules, on this rank's
+    sequence shards of q, k, v (or, unsharded, None: the caller runs it
+    alone). Where the heads divide the sequence's axis, q is made
+    head-sharded by a tiled all-to-all (the sequence gathered, this rank's
+    H/n heads kept), k and v are gathered whole once (their gradients
+    summed once over the axis, by the gather's reduce-scatter), and the
+    output goes back to sequence shards the same way; q's heads pick
+    their kv heads by their global index (GQA). Otherwise q, k and v are
+    gathered and each rank keeps its own rows of the output."""
+    rules = active_rules()
+    if rules is None:
+        return None
+    sax = rules.token_layout(q.shape[0], q.shape[1])[1]
+    if rules.size(sax) == 1:    # the sequence is whole here
+        return None
+    mesh = rules.mesh
+    g, n = mesh.get_group(sax), mesh.size(sax)
+    B, Sl, H, hd = q.shape
+    KV = k.shape[2]
+    kg, vg = col.all_gather(k, g, 1), col.all_gather(v, g, 1)
+    with use_rules(None):       # the local attention on gathered tensors
+        if axes_of(rules._resolve("heads", H)) != sax:
+            out = attn(col.all_gather(q, g, 1), kg, vg, **kw)
+            return out.narrow(1, mesh.coord(sax) * Sl, Sl)
+        H_loc = H // n
+        qh = col.all_to_all(q, g, 2, 1)                # (B, S, H/n, hd)
+        kv_idx = (mesh.coord(sax) * H_loc
+                  + torch.arange(H_loc, device=q.device)) // (H // KV)
+        out = attn(qh, kg.index_select(2, kv_idx),
+                   vg.index_select(2, kv_idx), **kw)
+    return col.all_to_all(out, g, 1, 2)
+
+
 def causal_attention(q, k, v, *, causal: bool = True, window: int = 0,
                      q_offset: int = 0):
     """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd), GQA by head grouping.
     ``window`` > 0 masks keys at least ``window`` positions older than the
     query; ``q_offset`` is the position of q[0] relative to k[0]. Scores and
-    softmax in f32. Returns (B, Sq, H, hd) in q's dtype."""
+    softmax in f32. Returns (B, Sq, H, hd) in q's dtype. Under sequence
+    parallelism: this rank's sequence shards, head-sharded inside
+    (``_sharded_attention``)."""
+    out = _sharded_attention(causal_attention, q, k, v, causal=causal,
+                             window=window, q_offset=q_offset)
+    if out is not None:
+        return out
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, hd)
@@ -340,7 +427,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     is jnp). It never holds more than one chunk's scores: q_chunk queries
     (halved until it divides Sq) against the keys they may see, in the
     forward and in both backward passes. Arguments and result as
-    ``causal_attention``'s."""
+    ``causal_attention``'s, sharded the same way under rules."""
+    out = _sharded_attention(flash_attention, q, k, v, causal=causal,
+                             window=window, q_chunk=q_chunk,
+                             q_offset=q_offset)
+    if out is not None:
+        return out
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     q_chunk = min(q_chunk, Sq)
@@ -422,10 +514,36 @@ def decode_attention_update_slots_paged(q, k_new, v_new, k_pool, v_pool,
 
 # ----------------------- static-batch decode ---------------------------- #
 # One shared host-int position ``pos`` for the whole batch (the legacy
-# ``Engine.prefill`` / ``decode`` API), on the local plan: the reference's
-# sequence-sharded branches come with its collective-bearing SPMD steps
-# (ROADMAP A8b).
+# ``Engine.prefill`` / ``decode`` API and the SPMD serve step). Under rules
+# whose "kv_seq" shards the cache's sequence dim, each rank holds its
+# slice of positions: the token is written on the slice that owns its
+# slot, and the slices' partial softmax terms are combined (``_kv_combine``).
 quantize_kv_token = quantize_kv   # one token's (B, KV, hd) -> (int8, scale)
+
+
+def _kv_shard(batch: int, S_loc: int):
+    """(mesh, kv_seq axes, this rank's first position) of a cache of local
+    length ``S_loc`` under the active rules, or None where its sequence is
+    whole here."""
+    rules = active_rules()
+    if rules is None:
+        return None
+    ax = rules.token_layout(batch, S_loc, seq_name="kv_seq")[1]
+    if rules.size(ax) == 1:
+        return None
+    return rules.mesh, ax, rules.mesh.coord(ax) * S_loc
+
+
+def _kv_combine(mesh, ax, m, l, o):
+    """The slices' (m, l, o) combined by the log-sum-exp rule: the max over
+    the axis, each slice's terms rescaled to it and summed (no gradient:
+    the decode step's)."""
+    g = mesh.get_group(ax)
+    M = col.all_reduce(m, g, op="max")
+    corr = torch.exp(m - M)
+    l_tot = col.all_reduce(l * corr, g)
+    o_tot = col.all_reduce(o * corr[..., None], g)
+    return o_tot / l_tot.clamp_min(1e-20)[..., None]
 
 
 def _local_decode_scores(q, k, v, key_positions, pos, window, k_scale=None,
@@ -478,29 +596,37 @@ def decode_attention_update(q, k_new, v_new, k_cache, v_cache, pos: int, *,
     (S,) int32 absolute position per slot (ring), updated with the write.
     Caches, scales and key_positions are updated IN PLACE.
 
+    Under "kv_seq" rules the caches, scales and key_positions are this
+    rank's slice of the positions (the token is written only where its
+    slot falls) and q, k_new, v_new its batch rows.
+
     Returns (out (B, H, hd), k_cache, v_cache, k_scale, v_scale,
     key_positions)."""
     B, H, hd = q.shape
     S, KV = k_cache.shape[1:3]
     slot = pos if write_slot is None else write_slot
+    shard = _kv_shard(B, S)
+    start = shard[2] if shard is not None else 0
+    idx = slot - start                  # this slice's row of the slot
     if k_scale is not None:
         (kq, ks), (vq, vs) = quantize_kv_token(k_new), quantize_kv_token(v_new)
         for buf, new in ((k_cache, kq), (v_cache, vq), (k_scale, ks),
                          (v_scale, vs)):
-            _write_local(buf, new, slot)
+            _write_local(buf, new, idx)
     else:
-        _write_local(k_cache, k_new, slot)
-        _write_local(v_cache, v_new, slot)
+        _write_local(k_cache, k_new, idx)
+        _write_local(v_cache, v_new, idx)
     if key_positions is not None:
-        if 0 <= slot < S:
-            key_positions[slot] = pos
+        if 0 <= idx < S:
+            key_positions[idx] = pos
         kp = key_positions
     else:
-        kp = torch.arange(S, device=q.device)
+        kp = start + torch.arange(S, device=q.device)
     m, l, o = _local_decode_scores(q.reshape(B, KV, H // KV, hd), k_cache,
                                    v_cache, kp, pos + 1, window, k_scale,
                                    v_scale)
-    out = o / l.clamp_min(1e-20)[..., None]
+    out = o / l.clamp_min(1e-20)[..., None] if shard is None \
+        else _kv_combine(shard[0], shard[1], m, l, o)
     return (out.reshape(B, H, hd).to(q.dtype), k_cache, v_cache, k_scale,
             v_scale, key_positions)
 
@@ -510,14 +636,19 @@ def decode_attention(q, k_cache, v_cache, pos: int, *, window: int = 0,
     """Read-only single-token attention over an existing cache (the audio
     decoder's cross attention): keys below ``pos`` (a host int) are
     valid. q: (B, H, hd); k_cache/v_cache: (B, S, KV, hd); kv_scales:
-    their (k_scale, v_scale) when int8. Returns (B, H, hd) in q's dtype."""
+    their (k_scale, v_scale) when int8. Returns (B, H, hd) in q's dtype.
+    Under "kv_seq" rules the cache is this rank's slice of the positions,
+    combined as ``decode_attention_update``'s."""
     B, H, hd = q.shape
     S, KV = k_cache.shape[1:3]
     k_scale, v_scale = kv_scales if kv_scales is not None else (None, None)
+    shard = _kv_shard(B, S)
     kp = key_positions if key_positions is not None \
-        else torch.arange(S, device=q.device)
+        else (shard[2] if shard is not None else 0) \
+        + torch.arange(S, device=q.device)
     m, l, o = _local_decode_scores(q.reshape(B, KV, H // KV, hd), k_cache,
                                    v_cache, kp, pos, window, k_scale,
                                    v_scale)
-    out = o / l.clamp_min(1e-20)[..., None]
+    out = o / l.clamp_min(1e-20)[..., None] if shard is None \
+        else _kv_combine(shard[0], shard[1], m, l, o)
     return out.reshape(B, H, hd).to(q.dtype)

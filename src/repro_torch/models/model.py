@@ -45,73 +45,94 @@ def resolve_dtype(dtype) -> torch.dtype:
 class PSpec(NamedTuple):
     shape: Tuple[int, ...]
     init: str = "normal"   # normal | zeros | ones | small
+    axes: Tuple[Any, ...] = ()   # logical axis names (None = replicated)
 
 
-def _attn_specs(cfg, Ls: Tuple[int, ...]) -> Dict[str, PSpec]:
+def _attn_specs(cfg, Ls: Tuple[int, ...], pa=("layers",)) -> Dict[str, PSpec]:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    sp = {"wq": PSpec(Ls + (d, H * hd)), "wk": PSpec(Ls + (d, KV * hd)),
-          "wv": PSpec(Ls + (d, KV * hd)), "wo": PSpec(Ls + (H * hd, d))}
+    sp = {"wq": PSpec(Ls + (d, H * hd), axes=pa + ("fsdp", "qkv_out")),
+          "wk": PSpec(Ls + (d, KV * hd), axes=pa + ("fsdp", "kv_out")),
+          "wv": PSpec(Ls + (d, KV * hd), axes=pa + ("fsdp", "kv_out")),
+          "wo": PSpec(Ls + (H * hd, d), axes=pa + ("qkv_out", "fsdp"))}
     if cfg.qkv_bias:
-        sp.update(bq=PSpec(Ls + (H * hd,), "zeros"),
-                  bk=PSpec(Ls + (KV * hd,), "zeros"),
-                  bv=PSpec(Ls + (KV * hd,), "zeros"))
+        sp.update(bq=PSpec(Ls + (H * hd,), "zeros", pa + ("qkv_out",)),
+                  bk=PSpec(Ls + (KV * hd,), "zeros", pa + ("kv_out",)),
+                  bv=PSpec(Ls + (KV * hd,), "zeros", pa + ("kv_out",)))
     return sp
 
 
-def _mlp_specs(cfg, Ls: Tuple[int, ...]) -> Dict[str, PSpec]:
+def _mlp_specs(cfg, Ls: Tuple[int, ...], pa=("layers",)) -> Dict[str, PSpec]:
     d, ff = cfg.d_model, cfg.d_ff
-    sp = {"up": PSpec(Ls + (d, ff)), "down": PSpec(Ls + (ff, d))}
+    sp = {"up": PSpec(Ls + (d, ff), axes=pa + ("fsdp", "mlp")),
+          "down": PSpec(Ls + (ff, d), axes=pa + ("mlp", "fsdp"))}
     if cfg.gated_mlp:
-        sp["gate"] = PSpec(Ls + (d, ff))
+        sp["gate"] = PSpec(Ls + (d, ff), axes=pa + ("fsdp", "mlp"))
     return sp
 
 
 def _moe_specs(cfg, L: int) -> Dict[str, PSpec]:
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
-    sp = {"router": PSpec((L, d, E), "small"), "up": PSpec((L, E, d, ff)),
-          "down": PSpec((L, E, ff, d))}
+    gu = ("layers", "experts", None, "moe_ff")
+    sp = {"router": PSpec((L, d, E), "small", ("layers", None, None)),
+          "up": PSpec((L, E, d, ff), axes=gu),
+          "down": PSpec((L, E, ff, d),
+                        axes=("layers", "experts", "moe_ff", None))}
     if cfg.gated_mlp:
-        sp["gate"] = PSpec((L, E, d, ff))
+        sp["gate"] = PSpec((L, E, d, ff), axes=gu)
     return sp
 
 
 def _mamba_specs(cfg, Ls: Tuple[int, ...]) -> Dict[str, PSpec]:
     d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
     nh = di // cfg.ssm_head_dim
+    pa = ("layers",) + (None,) * (len(Ls) - 1)
     return {
-        "in_proj": PSpec(Ls + (d, 2 * di + 2 * N + nh)),
-        "conv_w": PSpec(Ls + (cfg.ssm_conv, di + 2 * N)),
-        "A_log": PSpec(Ls + (nh,), "ones"),
-        "dt_bias": PSpec(Ls + (nh,), "zeros"),
-        "D": PSpec(Ls + (nh,), "ones"),
-        "norm": PSpec(Ls + (di,), "zeros"),
-        "out_proj": PSpec(Ls + (di, d)),
+        "in_proj": PSpec(Ls + (d, 2 * di + 2 * N + nh),
+                         axes=pa + ("fsdp", "ssm_inner")),
+        "conv_w": PSpec(Ls + (cfg.ssm_conv, di + 2 * N),
+                        axes=pa + ("conv", "ssm_inner")),
+        "A_log": PSpec(Ls + (nh,), "ones", pa + (None,)),
+        "dt_bias": PSpec(Ls + (nh,), "zeros", pa + (None,)),
+        "D": PSpec(Ls + (nh,), "ones", pa + (None,)),
+        "norm": PSpec(Ls + (di,), "zeros", pa + ("ssm_inner",)),
+        "out_proj": PSpec(Ls + (di, d), axes=pa + ("ssm_inner", "fsdp")),
     }
 
 
 def _rwkv_specs(cfg, L: int) -> Dict[str, PSpec]:
     d, ff = cfg.d_model, cfg.d_ff
-    sp = {mu: PSpec((L, d), "zeros") for mu in (
+    pa = ("layers",)
+    sp = {mu: PSpec((L, d), "zeros", pa + (None,)) for mu in (
         "mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "cmu_k", "cmu_r")}
-    sp.update({w: PSpec((L, d, d)) for w in ("wr", "wk", "wv", "wg", "wo")})
-    sp.update(w0=PSpec((L, d), "zeros"), w1=PSpec((L, d, 64), "small"),
-              w2=PSpec((L, 64, d), "small"), u=PSpec((L, d), "zeros"),
-              ln_w=PSpec((L, d), "ones"), ln_b=PSpec((L, d), "zeros"),
-              ck=PSpec((L, d, ff)), cv=PSpec((L, ff, d)),
-              cr=PSpec((L, d, d)), ln1=PSpec((L, d), "zeros"),
-              ln2=PSpec((L, d), "zeros"))
+    sp.update({w: PSpec((L, d, d), axes=pa + ("fsdp", "ssm_inner"))
+               for w in ("wr", "wk", "wv", "wg", "wo")})
+    sp.update(w0=PSpec((L, d), "zeros", pa + (None,)),
+              w1=PSpec((L, d, 64), "small", pa + ("fsdp", None)),
+              w2=PSpec((L, 64, d), "small", pa + (None, None)),
+              u=PSpec((L, d), "zeros", pa + (None,)),
+              ln_w=PSpec((L, d), "ones", pa + (None,)),
+              ln_b=PSpec((L, d), "zeros", pa + (None,)),
+              ck=PSpec((L, d, ff), axes=pa + ("fsdp", "mlp")),
+              cv=PSpec((L, ff, d), axes=pa + ("mlp", "fsdp")),
+              cr=PSpec((L, d, d), axes=pa + ("fsdp", None)),
+              ln1=PSpec((L, d), "zeros", pa + ("embed",)),
+              ln2=PSpec((L, d), "zeros", pa + ("embed",)))
     return sp
 
 
 def param_specs(cfg) -> Dict[str, Any]:
+    """The tree of ``PSpec``s (shape, init kind, logical axes) of every
+    parameter, the reference's ``param_specs``."""
     d, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
-    specs: Dict[str, Any] = {"embed": PSpec((V, d)),
-                             "final_norm": PSpec((d,), "zeros")}
+    specs: Dict[str, Any] = {"embed": PSpec((V, d), axes=("vocab", None)),
+                             "final_norm": PSpec((d,), "zeros", ("embed",))}
     if not cfg.tie_embeddings:
-        specs["lm_head"] = PSpec((V, d))
+        specs["lm_head"] = PSpec((V, d), axes=("vocab", None))
 
     def norms(n, Ls):
-        return {f"ln{i}": PSpec(Ls + (d,), "zeros") for i in range(1, n + 1)}
+        pa = ("layers",) if Ls else ()
+        return {f"ln{i}": PSpec(Ls + (d,), "zeros", pa + ("embed",))
+                for i in range(1, n + 1)}
 
     fam = cfg.family
     if fam in ("dense", "moe", "vlm"):
@@ -125,20 +146,43 @@ def param_specs(cfg) -> Dict[str, Any]:
     elif fam == "hybrid":
         every = cfg.shared_attn_every
         specs["layers"] = _mamba_specs(cfg, (L // every, every))
-        specs["shared_attn"] = {**norms(2, ()), "attn": _attn_specs(cfg, ()),
-                                "mlp": _mlp_specs(cfg, ())}
+        specs["shared_attn"] = {**norms(2, ()),
+                                "attn": _attn_specs(cfg, (), ()),
+                                "mlp": _mlp_specs(cfg, (), ())}
     elif fam == "audio":
         E = cfg.n_enc_layers
         specs["enc_layers"] = {**norms(2, (E,)),
                                "attn": _attn_specs(cfg, (E,)),
                                "mlp": _mlp_specs(cfg, (E,))}
-        specs["enc_norm"] = PSpec((d,), "zeros")
+        specs["enc_norm"] = PSpec((d,), "zeros", ("embed",))
         specs["layers"] = {**norms(3, (L,)), "attn": _attn_specs(cfg, (L,)),
                            "cross": _attn_specs(cfg, (L,)),
                            "mlp": _mlp_specs(cfg, (L,))}
     else:
         raise ValueError(fam)
     return specs
+
+
+def _map_specs(fn, tree):
+    if isinstance(tree, PSpec):
+        return fn(tree)
+    return {k: _map_specs(fn, v) for k, v in tree.items()}
+
+
+def abstract_params(cfg, dtype=None):
+    """The parameters as meta-device tensors of their global shapes (the
+    reference's ``ShapeDtypeStruct`` tree): shapes and dtypes, no
+    memory."""
+    dt = resolve_dtype(dtype or cfg.dtype)
+    return _map_specs(lambda s: torch.empty(s.shape, dtype=dt,
+                                            device="meta"), param_specs(cfg))
+
+
+def param_shardings(cfg, rules):
+    """Each parameter's ``Placement`` under ``rules`` (the reference's
+    ``NamedSharding`` tree: the same specs)."""
+    return _map_specs(lambda s: rules.sharding(s.axes, s.shape),
+                      param_specs(cfg))
 
 
 def _make(spec: PSpec, dtype, device, gen) -> torch.Tensor:

@@ -1,6 +1,17 @@
 """Token-choice top-k MoE with static-capacity sort-based dispatch, the
-local (single-device) path of ``repro.models.moe``, with the coupled
-plane's expert LoRA.
+counterpart of ``repro.models.moe``, with the coupled plane's expert LoRA.
+
+Two plans, as the reference's:
+  - local (no rules active): every expert on this device;
+  - sharded (``moe_block`` under a ``ShardingRules`` over a
+    ``ProcessMesh``, the plan from ``resolve_moe_plan``): each process
+    holds its tokens and its shard of the expert weights, experts split
+    over ``ep_axis`` (tokens exchanged by a tiled all-to-all there and
+    back), the expert hidden dim over ``ff_axis`` at compute time (summed
+    after the down GEMM) or over ``fsdp_axis`` at rest (gathered for the
+    layer); the decode plan gathers the few tokens instead
+    (``_decode_allgather_moe``). Experts run through ``ops.gmm`` and the
+    expert LoRA through ``ops.bgmv_expert`` on either plan.
 
 Routing reproduces the reference's orders exactly: ``jax.lax.top_k`` keeps
 the lower expert id first among equal probabilities (a stable descending
@@ -14,6 +25,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+import dataclasses
+from typing import Optional
+
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed.sharding import active_rules
 from repro_torch.kernels import ops
 from repro_torch.models.layers import gelu, mm_f32
 
@@ -215,7 +231,8 @@ def _far_gmm(xe, group_sizes, out, span, remote):
 
 
 def expert_ffn(xe, wg, wu, wd, lora=None, row_adapter=None,
-               lora_scale: float = 1.0, group_sizes=None):
+               lora_scale: float = 1.0, group_sizes=None,
+               expert_offset: int = 0):
     """Expert FFN, gated (SwiGLU) or, with ``wg`` None, GELU. xe: (E, C, d);
     wg/wu: (E, d, f); wd: (E, f, d), tensors or ``ExpertBlocks`` ->
     (E, C, d) f32. The base GEMMs run through ``expert_gmm``; with
@@ -229,10 +246,12 @@ def expert_ffn(xe, wg, wu, wd, lora=None, row_adapter=None,
     added at the paper's two hook points: to g and u in f32 before silu,
     and to the down output. One ``ops.bgmv_expert`` launch per target.
     ``row_adapter``: (E*C,) int32 adapter id per dispatch row, -1 =
-    inactive."""
+    inactive. ``expert_offset``: the global id of local expert 0 (an
+    expert-parallel shard), which picks the rows' adapter experts."""
     E, C, _ = xe.shape
     if lora is not None:
-        row_e = torch.arange(E * C, dtype=torch.int32, device=xe.device) // C
+        row_e = expert_offset + torch.arange(
+            E * C, dtype=torch.int32, device=xe.device) // C
 
     def dl(name, rows_in):
         if lora is None or name not in lora:
@@ -259,13 +278,92 @@ def expert_ffn(xe, wg, wu, wd, lora=None, row_adapter=None,
     return y
 
 
-def moe_block(x, params, cfg, lora=None, ids_tok=None,
+# ------------------------------- plans ---------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class MoEPlan:
+    ep_axis: Optional[str]      # axis sharding experts (must shard tokens)
+    ff_axis: Optional[str]      # axis sharding ff at compute (psum after)
+    fsdp_axis: Optional[str]    # axis sharding ff at rest (gathered a layer)
+    token_batch_axes: tuple     # mesh axes sharding the token batch dim
+    token_seq_axis: Optional[str]
+
+
+def resolve_moe_plan(cfg, batch: int, n_tokens_seq: int,
+                     kind: str) -> Optional[MoEPlan]:
+    """The reference's plan from the active rules (None without), for
+    activations of GLOBAL batch ``batch`` and sequence ``n_tokens_seq``:
+    ``ep_axis`` must shard tokens (the exchange moves them), ``ff_axis``
+    must not (its sum would mix tokens), and an at-rest ff axis that shards
+    tokens becomes ``fsdp_axis`` (gathered before the layer)."""
+    rules = active_rules()
+    if rules is None:
+        return None
+
+    def ax(name, size=None):
+        r = rules._resolve(name, size)
+        if r is None:
+            return None
+        return r if isinstance(r, str) else r[0]
+
+    batch_axes = rules.spec(["batch"], [batch])[0]
+    if batch_axes is None:
+        batch_axes = ()
+    elif isinstance(batch_axes, str):
+        batch_axes = (batch_axes,)
+    batch_axes = tuple(batch_axes)
+    seq_axis = ax("seq", n_tokens_seq) if kind != "decode" else None
+    token_axes = set(batch_axes) | ({seq_axis} if seq_axis else set())
+
+    ep = ax("experts", cfg.n_experts)
+    if ep is not None and ep not in token_axes:
+        ep = None
+    ff_rest = ax("moe_ff", cfg.d_ff)
+    if ep is not None:
+        if ff_rest is None:
+            return MoEPlan(ep, None, None, batch_axes, seq_axis)
+        if ff_rest in token_axes:
+            return MoEPlan(ep, None, ff_rest, batch_axes, seq_axis)
+        return MoEPlan(ep, ff_rest, None, batch_axes, seq_axis)
+    # experts not shardable: replicated; ff sharded at compute on an axis
+    # that does not shard the batch, gathering the sequence across it
+    ff_axis = ff_rest if (ff_rest and ff_rest not in batch_axes) else None
+    if ff_axis is None:
+        cand = ax("mlp", cfg.d_ff)
+        ff_axis = cand if (cand and cand not in batch_axes) else None
+    token_seq = None if (seq_axis is not None and seq_axis == ff_axis) \
+        else seq_axis
+    return MoEPlan(None, ff_axis, None, batch_axes, token_seq)
+
+
+def weight_specs(plan: MoEPlan):
+    """The specs of a layer's (gate/up, down) expert weights under
+    ``plan``, (E, d, ff) and (E, ff, d): experts over ``ep_axis``, the
+    hidden dim over ``ff_axis`` or, at rest, ``fsdp_axis``."""
+    ff = plan.ff_axis or plan.fsdp_axis
+    return (plan.ep_axis, None, ff), (plan.ep_axis, ff, None)
+
+
+# ------------------------------ the block -------------------------------- #
+def moe_block(x, params, cfg, kind: str = "train", lora=None, ids_tok=None,
               lora_scale: float = 1.0):
-    """x: (B, S, d) -> (B, S, d), the reference's ``moe_block`` on its
-    local (single-device) plan, dropless when T*K <= 4096 as there.
-    ``lora``: a layer's adapter factors (its gate/up/down are used; the
-    coupled plane); ``ids_tok``: (B*S,) int32 adapter id per token."""
+    """x: (B, S, d) -> (B, S, d). params: router (d, E), gate/up (E, d, f),
+    down (E, f, d). ``lora``: a layer's adapter factors (its gate/up/down
+    are used; the coupled plane); ``ids_tok``: (B*S,) int32 adapter id per
+    token.
+
+    Without rules, the reference's local plan, dropless when T*K <= 4096
+    as there, whatever the ``kind``. Under rules x and ``ids_tok`` are
+    this process's tokens and the gate/up/down its shards of the expert
+    weights (``weight_specs`` of the plan), the router and the adapters
+    whole; the plan is resolved for the global token shape."""
     B, S, d = x.shape
+    rules = active_rules()
+    if rules is not None:
+        bax, sax = rules.token_layout(B, S if kind != "decode" else None)
+        plan = resolve_moe_plan(cfg, B * rules.size(bax),
+                                S * rules.size(sax), kind)
+        return _moe_sharded(x, params, cfg, plan, kind, sax, lora, ids_tok,
+                            lora_scale)
     xf = x.reshape(-1, d)
     T = xf.shape[0]
     ids, wts = route(xf, params["router"], cfg.n_experts, cfg.top_k)
@@ -279,10 +377,16 @@ def moe_block(x, params, cfg, lora=None, ids_tok=None,
 
 
 def _dispatch_compute_combine(xf, ids, wts, wg, wu, wd, cfg, C, lora=None,
-                              token_ads=None, lora_scale=1.0):
-    """Dispatch -> expert FFN -> combine (the reference's shared core on
-    one device). A dispatch row takes its token's adapter, or -1 when the
-    row is empty (the reference's ``row_adapter`` rule). -> (T, d) f32."""
+                              token_ads=None, lora_scale=1.0, mesh=None,
+                              ep_axis=None, ff_axis=None):
+    """Dispatch -> (exchange) -> expert FFN -> (exchange) -> combine, the
+    reference's shared core. A dispatch row takes its token's adapter, or
+    -1 when the row is empty (the reference's ``row_adapter`` rule).
+
+    With ``ep_axis`` the (E, C, d) rows go to their experts' owners by a
+    tiled all-to-all, (E/ep, ep*C, d) arrive, and the outputs come back
+    the same way; with ``ff_axis`` the experts' partial outputs are summed
+    over it. -> (T, d) f32."""
     T, d = xf.shape
     xe, slot_tok, pair_slot, sizes = dispatch(xf, ids, C, cfg.n_experts)
     row_adapter = None
@@ -290,6 +394,117 @@ def _dispatch_compute_combine(xf, ids, wts, wg, wu, wd, cfg, C, lora=None,
         row_adapter = torch.where(slot_tok < T,
                                   token_ads[slot_tok.clamp(max=T - 1)],
                                   -1).to(torch.int32)
+    offset = 0
+    if ep_axis is not None and mesh.get_group(ep_axis) is not None:
+        g = mesh.get_group(ep_axis)
+        xe = col.all_to_all(xe, g, 0, 1)
+        if row_adapter is not None:
+            row_adapter = col.all_to_all(
+                row_adapter.reshape(cfg.n_experts, C), g, 0, 1).reshape(-1)
+        offset = mesh.coord(ep_axis) * xe.shape[0]
+        sizes = None       # the rows of a local expert are not a prefix now
+    if ff_axis is not None:
+        xe = col.sum_grad(xe, mesh.get_group(ff_axis))
     y = expert_ffn(xe, wg, wu, wd, lora=lora, row_adapter=row_adapter,
-                   lora_scale=lora_scale, group_sizes=sizes)
+                   lora_scale=lora_scale, group_sizes=sizes,
+                   expert_offset=offset)
+    if ff_axis is not None:
+        y = col.psum(y, mesh.get_group(ff_axis))
+    if ep_axis is not None:
+        y = col.all_to_all(y, mesh.get_group(ep_axis), 1, 0)
     return combine(y.reshape(-1, d), pair_slot, wts)
+
+
+def _moe_sharded(x, params, cfg, plan: MoEPlan, kind: str, seq_axes,
+                 lora=None, ids_tok=None, lora_scale=1.0):
+    """The reference's ``shard_map`` body on this process's tokens x
+    (B_l, S_l, d), sequence-sharded over ``seq_axes``. A plan that needs
+    whole sequences (its ff axis is the sequence's) gathers them first
+    and reduce-scatters the experts' partial sums back."""
+    mesh = active_rules().mesh
+    d, E = x.shape[-1], cfg.n_experts
+    ep, ffa, fsdp = plan.ep_axis, plan.ff_axis, plan.fsdp_axis
+    wu, wd, wg = params["up"], params["down"], params.get("gate")
+    if fsdp and not ffa:        # FSDP: this layer's ff shards gathered
+        g = mesh.get_group(fsdp)
+        wu, wd = col.all_gather(wu, g, -1), col.all_gather(wd, g, -2)
+        wg = col.all_gather(wg, g, -1) if wg is not None else None
+    gather_seq = bool(seq_axes) and plan.token_seq_axis is None
+    if gather_seq:
+        gs = mesh.get_group(seq_axes)
+        x = col.all_gather(x, gs, 1)
+        if ids_tok is not None:
+            ids_tok = col.all_gather(ids_tok.reshape(x.shape[0], -1), gs,
+                                     1).reshape(-1)
+    if ffa and lora and mesh.size(ffa) > 1:     # this d_ff shard's slices
+        lora = _ff_slice(lora, mesh.size(ffa), mesh.coord(ffa))
+    Bl, Sl, _ = x.shape
+    xf = x.reshape(-1, d)
+    if kind == "decode" and ep is not None:
+        y = _decode_allgather_moe(xf, params["router"], wg, wu, wd, cfg,
+                                  mesh, ep, ffa, lora, ids_tok, lora_scale)
+        return y.reshape(Bl, Sl, d).to(x.dtype)
+    T = xf.shape[0]
+    ids, wts = route(xf, params["router"], E, cfg.top_k)
+    C = capacity(T, cfg.top_k, E, cfg.capacity_factor,
+                 dropless=(kind == "decode"))
+    y = _dispatch_compute_combine(
+        xf, ids, wts, wg, wu, wd, cfg, C, lora=lora, token_ads=ids_tok,
+        lora_scale=lora_scale, mesh=mesh, ep_axis=ep,
+        ff_axis=None if gather_seq else ffa)
+    y = y.reshape(Bl, Sl, d)
+    if gather_seq:             # the sum over ff and the own rows at once
+        y = col.reduce_scatter(y, mesh.get_group(seq_axes), 1)
+    return y.to(x.dtype)
+
+
+def _ff_slice(lora, n: int, c: int):
+    """The expert adapters on the c-th of n d_ff shards: gate/up's B
+    columns and down's A rows of that shard (down's delta is then a
+    partial sum over d_ff, summed with the down GEMM's)."""
+    out = {k: dict(v) for k, v in lora.items()}
+    for name, f, dim in (("gate", "B", -1), ("up", "B", -1),
+                         ("down", "A", -2)):
+        if name in out:
+            w = out[name][f]
+            k = w.shape[dim] // n
+            out[name][f] = w.narrow(dim, c * k, k).contiguous()
+    return out
+
+
+def _decode_allgather_moe(xf, rw, wg, wu, wd, cfg, mesh, ep_axis, ff_axis,
+                          lora, token_ads, lora_scale):
+    """The decode plan (no gradient): gather the few tokens across the
+    expert axis, run this rank's experts on all of them (dropless: a token
+    reaches an expert at most once, so T slots an expert), sum the
+    combined outputs over the expert (and ff) axes and keep this rank's
+    rows. The dropless a2a plan's result at ~1% of its bytes."""
+    if torch.is_grad_enabled() and xf.requires_grad:
+        raise NotImplementedError("the decode plan's MoE takes no gradient")
+    E, K, d = cfg.n_experts, cfg.top_k, xf.shape[-1]
+    T_loc = xf.shape[0]
+    g = mesh.get_group(ep_axis)
+    E_loc = E // mesh.size(ep_axis)
+    e0 = mesh.coord(ep_axis) * E_loc
+    xg = col.all_gather(xf, g, 0)
+    T = xg.shape[0]
+    ads = col.all_gather(token_ads, g, 0) if token_ads is not None else None
+    ids, wts = route(xg, rw, E, K)
+    local = (ids >= e0) & (ids < e0 + E_loc)
+    ids_masked = torch.where(local, ids - e0, E_loc)   # E_loc: no expert here
+    C = max(4, -(-T // 4) * 4)
+    xe, slot_tok, pair_slot, sizes = dispatch(xg, ids_masked, C, E_loc + 1)
+    row_adapter = None
+    if lora is not None and ads is not None:
+        row_adapter = torch.where(slot_tok < T, ads[slot_tok.clamp(max=T - 1)],
+                                  -1).to(torch.int32)[:E_loc * C]
+    y = expert_ffn(xe[:E_loc], wg, wu, wd, lora=lora,
+                   row_adapter=row_adapter, lora_scale=lora_scale,
+                   group_sizes=sizes[:E_loc], expert_offset=e0)
+    # the pairs of other ranks' experts read the zero rows of the last bucket
+    y = torch.cat([y.reshape(-1, d), y.new_zeros((C, d))])
+    out = combine(y, pair_slot, wts)
+    axes = (ep_axis,) + ((ff_axis,) if ff_axis else ())
+    out = col.all_reduce(out, mesh.get_group(axes))
+    r = mesh.coord(ep_axis)
+    return out[r * T_loc:(r + 1) * T_loc]

@@ -22,6 +22,12 @@ layer body under ``torch.utils.checkpoint`` (the reference's
 ``jax.checkpoint(nothing_saveable)``: a layer keeps only its input and is
 recomputed in the backward) and the chunked flash attention
 (``layers.flash_attention``) in place of the prefill's.
+
+Under active sharding rules (the SPMD steps, ``distributed.steps``) the
+same code runs on this process's shards: tokens and activations are its
+batch rows and sequence slice (positions offset to the slice's), the
+``kind`` picks the MoE's plan, and the attention, the MLP and the MoE run
+their sharded bodies (``layers``, ``moe``).
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import SLOT_FAMILIES
+from repro_torch.distributed.sharding import active_rules, use_rules
 from repro_torch.kernels import ops
 from repro_torch.models import layers as ll
 from repro_torch.models import moe as moe_mod
@@ -157,8 +164,9 @@ def decode_step_slots(params, cfg, k_cache, v_cache, tokens, pos_vec,
                               scale)
         h = ll.rms_norm(x, lp["ln2"], cfg.norm_eps)
         if cfg.is_moe:
-            y = moe_mod.moe_block(h, lp["moe"], cfg, lora=lora_layer,
-                                  ids_tok=ids_tok, lora_scale=scale)
+            y = moe_mod.moe_block(h, lp["moe"], cfg, kind="decode",
+                                  lora=lora_layer, ids_tok=ids_tok,
+                                  lora_scale=scale)
         else:
             y = _mlp_with_lora(h, lp["mlp"], cfg, lora_layer, ids_tok, scale)
         x = x + y
@@ -197,8 +205,8 @@ def prefill_chunk(params, cfg, tokens, k_ctx, v_ctx):
         vs.append(v)
         if l + 1 < cfg.n_layers:
             h = ll.rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + (moe_mod.moe_block(h, lp["moe"], cfg) if cfg.is_moe
-                     else ll.mlp(h, lp["mlp"], cfg))
+            x = x + (moe_mod.moe_block(h, lp["moe"], cfg, kind="decode")
+                     if cfg.is_moe else ll.mlp(h, lp["mlp"], cfg))
     return torch.stack(ks), torch.stack(vs)
 
 
@@ -234,23 +242,59 @@ def attn_block(x, ap, cfg, positions, *, causal=True, window=0,
     return _out_with_delta(attn, ap, lora_layer, ids_tok, lora_scale), (k, v)
 
 
+def _seq_shard(B: int, S: int):
+    """(mesh, seq axes, this rank's first position) of activations of local
+    shape (B, S) under the active rules, or None where the sequence is
+    whole here."""
+    rules = active_rules()
+    if rules is None:
+        return None
+    ax = rules.token_layout(B, S)[1]
+    if rules.size(ax) == 1:
+        return None
+    return rules.mesh, ax, rules.mesh.coord(ax) * S
+
+
 def _positions(B: int, S: int, device):
-    return torch.arange(S, device=device).expand(B, S)
+    """The positions of (B, S) activations: 0..S-1, or this rank's slice
+    of the sequence under sequence parallelism."""
+    shard = _seq_shard(B, S)
+    p0 = shard[2] if shard is not None else 0
+    return (p0 + torch.arange(S, device=device)).expand(B, S)
+
+
+def _check_frontend(x, front) -> None:
+    """A frontend's positions lie ahead of the text's: with the sequence
+    sharded, each rank's slice of the joined sequence is not its two
+    slices joined, so that layout is refused."""
+    if _seq_shard(x.shape[0], x.shape[1] + front.shape[1]) is not None:
+        raise NotImplementedError(
+            "a frontend (frontend_emb) under sequence parallelism: shard the "
+            "batch only (rules whose 'seq' is None)")
 
 
 def _remat(train: bool, fn, *args):
     """``fn(*args)``; when training with autograd on, under a
     non-reentrant ``checkpoint``: only the inputs are kept, the body is
-    run again in the backward."""
+    run again in the backward, under the sharding rules active now (the
+    backward of CUDA tensors runs on autograd's own thread, which does
+    not see this thread's rules)."""
     if train and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        rules = active_rules()
+
+        def body(*a):
+            with use_rules(rules):
+                return fn(*a)
+
+        return checkpoint(body, *args, use_reentrant=False)
     return fn(*args)
 
 
 def _decoder_layer(x, lp, lora_layer, cfg, positions, ids_tok, scale,
-                   ffn: bool, train: bool):
+                   ffn: bool, train: bool, kind: str = "prefill"):
     """One decoder layer -> (x, k, v); ``ffn`` False skips its MoE or
-    MLP (the KV-only prefill's last layer)."""
+    MLP (the KV-only prefill's last layer); ``kind`` picks the MoE's plan
+    under rules."""
     h = ll.rms_norm(x, lp["ln1"], cfg.norm_eps)
     att, (k, v) = attn_block(h, lp["attn"], cfg, positions,
                              window=cfg.sliding_window, lora_layer=lora_layer,
@@ -259,8 +303,9 @@ def _decoder_layer(x, lp, lora_layer, cfg, positions, ids_tok, scale,
     if ffn:
         h = ll.rms_norm(x, lp["ln2"], cfg.norm_eps)
         if cfg.is_moe:
-            y = moe_mod.moe_block(h, lp["moe"], cfg, lora=lora_layer,
-                                  ids_tok=ids_tok, lora_scale=scale)
+            y = moe_mod.moe_block(h, lp["moe"], cfg, kind=kind,
+                                  lora=lora_layer, ids_tok=ids_tok,
+                                  lora_scale=scale)
         else:
             y = _mlp_with_lora(h, lp["mlp"], cfg, lora_layer, ids_tok, scale)
         x = x + y
@@ -280,9 +325,12 @@ def forward(params, cfg, tokens, frontend_emb=None, kind="prefill",
     skips the last layer's FFN, the final norm and the lm head, on which
     no K/V depends, and returns (None, aux). ``kind="train"``: the
     training plane's forward (layer bodies checkpointed, flash
-    attention); the same values as any other kind. The MoE's plan is the
-    reference's local one whatever the kind: dropless only when
-    T * top_k <= 4096, else capacity ``capacity_factor``."""
+    attention); the same values as any other kind. Without rules the
+    MoE's plan is the reference's local one whatever the kind: dropless
+    only when T * top_k <= 4096, else capacity ``capacity_factor``; under
+    rules the ``kind`` picks its sharded plan, and tokens (and
+    ``frontend_emb``) are this rank's shards (a frontend with the
+    sequence sharded is refused)."""
     train = kind == "train"
     fam = cfg.family
     if fam == "audio":
@@ -295,6 +343,7 @@ def forward(params, cfg, tokens, frontend_emb=None, kind="prefill",
 
     x = ll.embed(tokens, params["embed"])
     if cfg.frontend and frontend_emb is not None:
+        _check_frontend(x, frontend_emb)
         x = torch.cat([frontend_emb.to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
@@ -305,7 +354,7 @@ def forward(params, cfg, tokens, frontend_emb=None, kind="prefill",
         lora_layer = layer_params(stack, l) if stack is not None else None
         ffn = unembed or l + 1 < cfg.n_layers
         x, k, v = _remat(train, _decoder_layer, x, lp, lora_layer, cfg,
-                         positions, ids_tok, scale, ffn, train)
+                         positions, ids_tok, scale, ffn, train, kind)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -446,8 +495,11 @@ def decode_step(params, cfg, cache, tokens, lora_ctx=None):
     ak/av/apos) are written IN PLACE; the recurrent states (rwkv's
     tm/cm/wkv, the hybrid's h/conv) are replaced by the new ones, in the
     activations' dtype as the reference's scan returns them. ``lora_ctx``
-    applies to the dense, moe and vlm families. Returns (logits (B, Vp)
-    f32, the new cache: a new dict with ``pos`` + 1)."""
+    applies to the dense, moe and vlm families. Under decode rules the
+    batch rows and the caches' "kv_seq" slices are this rank's
+    (``layers.decode_attention_update``) and the MoE runs its decode plan.
+    Returns (logits (B, Vp) f32, the new cache: a new dict with ``pos``
+    + 1)."""
     fam = cfg.family
     pos = int(cache["pos"])
     x = ll.embed(tokens, params["embed"])
@@ -487,8 +539,9 @@ def decode_step(params, cfg, cache, tokens, lora_ctx=None):
                 y = ll.mlp(ll.rms_norm(x, lp["ln3"], cfg.norm_eps),
                            lp["mlp"], cfg)
             elif cfg.is_moe:
-                y = moe_mod.moe_block(h, lp["moe"], cfg, lora=lora_layer,
-                                      ids_tok=ids_tok, lora_scale=scale)
+                y = moe_mod.moe_block(h, lp["moe"], cfg, kind="decode",
+                                      lora=lora_layer, ids_tok=ids_tok,
+                                      lora_scale=scale)
             else:
                 y = _mlp_with_lora(h, lp["mlp"], cfg, lora_layer, ids_tok,
                                    scale)

@@ -1,8 +1,8 @@
 """int8 gradient compression with error feedback, the counterpart of
 ``repro.training.compression``: per-tensor scaled int8 codes for the
-cross-pod gradient all-reduce (the all-reduce itself is a collective of
-ROADMAP A8b), with the quantization residual carried into the next
-step so that the transmitted sum tracks the true one."""
+cross-pod gradient all-reduce (``train_step.make_lora_train_step`` with
+``compress`` and ``axis_name``), with the quantization residual carried
+into the next step so that the transmitted sum tracks the true one."""
 from __future__ import annotations
 
 import torch

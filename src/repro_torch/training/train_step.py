@@ -10,17 +10,23 @@ attention and dense-MLP targets) and ``ops.bgmv_expert`` (the expert
 hooks), and the activations' through ``ops.gmm`` (the base expert GEMMs):
 the hand-written kernels on the card (``kernels.autograd``).
 
-The reference's data-parallel branch (``axis_name``: a pmean of the
-gradients, or an int8 psum / pmax with error feedback) is a collective of
-the SPMD steps, ROADMAP A8b: asking for it raises."""
+With ``axis_name`` the step is the reference's data-parallel one: each
+process of that axis of a ``ProcessMesh`` takes its share of the batch,
+and the adapter's gradients are averaged over the axis (an all-reduce
+sum over its process group, divided by its size) or, with ``compress``,
+quantized to int8 with error feedback (``training.compression``), the
+codes summed as int32 and the scales maxed over the axis, and the summed
+codes times the max scale taken as the gradient: the reference's formula,
+which does not divide by the number of processes."""
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
 
-from repro_torch.distributed.steps import lm_loss
+from repro_torch.distributed import collectives as col
 from repro_torch.models import transformer
+from repro_torch.training import compression
 from repro_torch.training import optimizer as opt_mod
 from repro_torch.training.tree import flatten_with_keys, tree_map, \
     unflatten_like
@@ -34,6 +40,21 @@ def single_adapter_ctx(adapter_tensors: Dict, batch_size: int,
     return {"adapters": adapter_tensors,
             "ids": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
             "scale": scale}
+
+
+def _nll_sum(logits, labels):
+    """The f32 cross-entropy summed over the positions whose label is not
+    negative."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    return ((lse - tgt) * (labels >= 0)).sum()
+
+
+def lm_loss(logits, labels):
+    """Masked next-token cross-entropy in f32: labels < 0 take no part;
+    the mean over the labelled positions (at least one)."""
+    return _nll_sum(logits, labels) / (labels >= 0).sum().clamp_min(1)
 
 
 def value_and_grad(fn, tree, *args):
@@ -76,21 +97,53 @@ def host_tensors(adapter: Dict, targets=None) -> Dict[str, torch.Tensor]:
             for f in ("A", "B")}
 
 
+def axis_group(axis_name: str, mesh=None):
+    """(process group, size) of axis ``axis_name`` of ``mesh`` (a
+    ``launch.mesh.ProcessMesh``); a RuntimeError names the missing process
+    group where there is none."""
+    if mesh is None or not hasattr(mesh, "get_group") or \
+            axis_name not in mesh.axis_names:
+        raise RuntimeError(
+            f"no process group for axis_name {axis_name!r}: the data-parallel "
+            f"step all-reduces its gradients over that axis of a ProcessMesh "
+            f"(launch.mesh.make_process_mesh over an initialised "
+            f"torch.distributed world), given as mesh=")
+    return mesh.get_group(axis_name), mesh.size(axis_name)
+
+
+def _all_reduce_grads(grads, err, group, n: int, compress: bool):
+    """The reference's data-parallel gradient: pmean, or the int8 codes'
+    int32 psum times the scales' pmax (``compress``; err carried)."""
+    if not compress:
+        return tree_map(lambda g: col.all_reduce(g, group) / n, grads), err
+    q, err = compression.compress_tree(grads, err)
+    grads = tree_map(
+        lambda t: col.all_reduce(t[0].to(torch.int32), group).to(
+            torch.float32) * col.all_reduce(t[1], group, op="max"),
+        q, is_leaf=lambda t: isinstance(t, tuple))
+    return grads, err
+
+
 def make_lora_train_step(cfg, base_params, scale: float,
                          opt_cfg: opt_mod.AdamWConfig,
-                         compress: bool = False, axis_name: str = None):
+                         compress: bool = False, axis_name: str = None,
+                         mesh=None):
     """Returns step(adapter, opt_state, err, batch) -> (loss, adapter,
     opt_state, err): one AdamW step of the adapter. ``batch``: {"tokens",
-    "labels"} (B, S) int tensors on the parameters' device."""
+    "labels"} (B, S) int tensors on the parameters' device (this process's
+    share under ``axis_name``; ``err`` the compression's residual tree,
+    ``compression.init_error``, with ``compress``). ``axis_name`` needs
+    its process group (``axis_group``): building the step raises without
+    one."""
+    group = n = None
     if axis_name is not None:
-        raise NotImplementedError(
-            "make_lora_train_step(axis_name=...): the data-parallel gradient "
-            "all-reduce (pmean, or int8 psum/pmax with compression) needs a "
-            "process group, which comes with the SPMD steps (ROADMAP A8b)")
+        group, n = axis_group(axis_name, mesh)
     loss_fn = make_lora_loss(cfg, base_params, scale)
 
     def step(adapter, opt_state, err, batch):
         loss, grads = value_and_grad(loss_fn, adapter, batch)
+        if axis_name is not None:
+            grads, err = _all_reduce_grads(grads, err, group, n, compress)
         adapter, opt_state = opt_mod.update(adapter, grads, opt_state,
                                             opt_cfg)
         return loss, adapter, opt_state, err

@@ -17,8 +17,8 @@ against the JAX reference, on the CPU in f32 at reduced sizes:
     step's adapter gradients and AdamW moments within 1e-5 of the
     reference's (relative to each leaf's largest), losses within 1e-5,
     adapters within ADAPTER_TOL and moments within MOMENT_TOL after 5
-    steps, the step count equal; the reference's data-parallel branch
-    raises, naming ROADMAP A8b
+    steps, the step count equal; the data-parallel branch without a
+    process group raises, naming the missing group
   - the ports of the reference's ``test_train_loss_decreases`` and
     ``test_lora_finetune_learns_tenant_structure``
   - ``launch/train.py`` in both modes (``--reduced --steps 6``) from the
@@ -349,7 +349,8 @@ def test_lora_train_step_matches_reference(arch):
 def test_lora_train_step_refuses_the_collective_branch():
     cfg = get_config("smollm-360m").reduced()
     tcfg = bridge.config_from(cfg)
-    with pytest.raises(NotImplementedError, match="A8b"):
+    with pytest.raises(RuntimeError, match="no process group for "
+                                           "axis_name 'data'"):
         make_lora_train_step(tcfg, {}, 1.0, topt.AdamWConfig(),
                              axis_name="data")
 
