@@ -160,8 +160,8 @@ port only. Phases, each of which fails the run with a non-zero exit:
    main path, all seven targets on the coupled plane, each serving the
    tokens of the engine given the same tensors directly, and how many
    differ from the untrained adapter's; (iii) ``launch/train.py`` in full
-   at smollm-360m's width and depth, f32, 8 x 4096 tokens, 10 steps with
-   a checkpoint at 5, then a second run with fresh objects from that
+   at smollm-360m's width and depth, f32, 8 x 4096 tokens, 6 steps with
+   a checkpoint at 3, then a second run with fresh objects from that
    checkpoint: its steps against the uninterrupted run's, bit for bit or
    the largest difference; a step's profile.
 
@@ -189,6 +189,32 @@ port only. Phases, each of which fails the run with a non-zero exit:
    parameter against the local step's; ``jit_prefill_step`` at depth 4 on
    the same grid against the local prefill's logits.
 
+14. the analysis plane (``repro_torch.analysis``, ``launch/dryrun.py``, the
+   examples); each part runs where its state lives: (a) at the end of the
+   transport phase, the fused plane's decode step of its running rows
+   counted by ``analysis.counter`` on the card (eagerly, the kernels'
+   work from their data) and on the meta device (the kernels' shape
+   form; its count must equal the card's shape-form count), its roofline
+   bound against the fused ms/step measured above: its "roofline_share"
+   and "mfu"; (b) in phase 13's local baseline, the analytic parameter
+   and cache bytes of its serve step, which must equal the allocated
+   tensors' bytes, and the workspace estimate beside the peak above them;
+   (c) the dry run of Qwen3-235B-A22B at train_4k, prefill_32k and
+   decode_32k on the single production mesh (one rank of 256, a fake
+   process group, meta tensors) and the disaggregated split, in a
+   subprocess with no card visible: each cell OK, its analytic peak,
+   ``fits_80g``, bottleneck and roofline fraction; (d) every kernel bound
+   this run printed comes from ``analysis.roofline.kernel_bound``, held
+   within 1e-9 of the formula it replaced (``call_bound``, the LoRA-kernel
+   path's ``Work``); (e) the examples: serve_disaggregated's model part on
+   the card at the full widths, depth 2 ("tokens identical across
+   architectures: True" held; its analytic-plane table, which runs no
+   model, is left to the CPU tests), train_lora's three steps on the
+   card, provision_capacity (no device) beside the dry run. (c) and
+   provision_capacity run in one subprocess with no card visible,
+   started before phase 12 (host cores, while the card trains) and read
+   here. "phase 14: N s" and "script: N s" are printed.
+
 It prints a ``{"kernels": [...]}`` line (rows 2, 3 and 9 with their
 phase 12 readings under "train"; "launches_by_plane" with "train", the
 fine-tune's run, and "spmd", phase 13's rank 0), the card's name and
@@ -203,17 +229,18 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import json
 import math
 import os
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
-BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core peak
 PAGED_TOL = 1e-4               # f32 accumulation order, bf16 inputs
 HOOK_TOL = 1e-4
 BGMV_TOL = 1e-4
@@ -265,9 +292,31 @@ def cuda_ms(torch, fn, flush, n=30, warmup=5):
 
 
 def bound_ms(n_bytes: float, n_ops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
-        "operations"
+    """``analysis.roofline.bound_ms``: bytes over the H100's 3.35 TB/s or
+    operations over its 989 TFLOP/s of dense bf16, the larger."""
+    from repro_torch.analysis import roofline
+    return roofline.bound_ms(n_bytes, n_ops)
+
+
+# phase 14(d): every kernel bound this run printed, from analysis.roofline,
+# held against the formula it replaced: (where, relative difference)
+BOUND_CHECKS = []
+BOUND_TOL = 1e-9
+
+
+def kernel_bound(torch, where: str, name, args, kw=None, want=None):
+    """(bound ms, bound by) of one kernel call from
+    ``analysis.roofline.kernel_bound`` (its data form), held within
+    BOUND_TOL of ``want`` (default: ``call_bound``'s, the formula it
+    replaced) on the same call."""
+    from repro_torch.analysis import roofline
+    got = roofline.kernel_bound(name, args, kw or {})
+    want = want or call_bound(torch, name, args, kw or {})
+    rel = abs(got[0] - want[0]) / max(abs(want[0]), 1e-300)
+    BOUND_CHECKS.append((where, rel))
+    check(rel <= BOUND_TOL and got[1] == want[1],
+          f"{where}: analysis.roofline's bound {got} against {want}")
+    return got
 
 
 def check(cond: bool, what: str) -> None:
@@ -317,9 +366,9 @@ def paged_case(torch, paged, ref, flush, g, nb, pos, holes, windows):
             valid &= kp > p - window
         pages = int(valid.any(-1).sum())
         keys = int(valid.sum())
-        n_bytes = (q.numel() * 2 + pages * ps * KV * hd * 2 * 2
-                   + bt.numel() * 4 + pos.numel() * 4 + got.numel() * 4)
-        b_ms, b_by = bound_ms(n_bytes, keys * KV * G * hd * 4)
+        b_ms, b_by = kernel_bound(torch, f"paged_attention nb={nb} "
+                                  f"window={window}", "paged_attention",
+                                  (q, k, v, bt, pos), {"window": window})
         ms = cuda_ms(torch, lambda w=window: paged.paged_attention(
             q, k, v, bt, pos, window=w), flush)
         plain = cuda_ms(torch, lambda w=window: ref.paged_attention_ref(
@@ -428,19 +477,12 @@ def hook_phase(torch, bgmv, ref, flush):
         check(bool(torch.equal(got, again)), f"bgmv_expert {hook}: two runs "
               f"differ")
 
-        def kept(slot):                 # factor columns the mask keeps
-            return (sum(c % r < RANKS[slot] for c in range(rr)) if ranked
-                    else rr)
-
-        def work(cols):
-            n_bytes = (active * d_in * 2 + sum(
-                (d_in * cols(sl) + cols(sl) * d_out) * 2 for sl, _ in pairs)
-                + got.numel() * 4 + (3 if ranked else 2) * rows_n * 4)
-            return bound_ms(n_bytes, sum(2 * (d_in * cols(sl)
-                                              + cols(sl) * d_out)
-                                         for sl in slot_of_row))
-        b_ms, b_by = work(kept)
-        pool_ms, _ = work(lambda sl: rr)
+        # the factor columns each row's mask keeps; at the pool rank
+        # without the rank vector
+        b_ms, b_by = kernel_bound(torch, f"bgmv_expert {hook}",
+                                  "bgmv_expert", args)
+        pool_ms, _ = kernel_bound(torch, f"bgmv_expert {hook} pool rank",
+                                  "bgmv_expert", args[:5])
         ms = cuda_ms(torch, lambda: bgmv.bgmv_expert(*args), flush)
         plain = cuda_ms(torch, lambda: ref.bgmv_expert_ref(*args), flush)
         out[hook] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -488,9 +530,8 @@ def bgmv_phase(torch, bgmv, ref, flush):
         check(bool(torch.equal(got, again)), "bgmv: two runs differ")
         # this run's data: x of the active rows, the distinct adapters'
         # factors, the ids and the output, once each
-        n_bytes = (n_act * d_in * 2 + n_adapters * (d_in * r + r * d_out) * 2
-                   + T * 4 + got.numel() * 4)
-        b_ms, b_by = bound_ms(n_bytes, n_act * 2 * (d_in * r + r * d_out))
+        b_ms, b_by = kernel_bound(torch, f"bgmv {tgt}", "bgmv",
+                                  (x, A, Bm, ids))
         ms = cuda_ms(torch, lambda: bgmv.bgmv(x, A, Bm, ids), flush)
         plain = cuda_ms(torch, lambda: ref.bgmv_ref(x, A, Bm, ids), flush)
         out[tgt] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -540,9 +581,8 @@ def gmm_phase(torch, gmm, ref, flush, tokens=64):
         check(bool(torch.equal(got, again)), f"gmm {name}: two runs differ")
         check(bool(torch.all(got[~live.expand_as(got)] == 0)),
               f"gmm {name}: rows past group_sizes not 0")
-        n_bytes = (n_rows * d_in * 2 + n_used * d_in * d_out * 2 + E * 4
-                   + got.numel() * 4)
-        b_ms, b_by = bound_ms(n_bytes, 2 * n_rows * d_in * d_out)
+        b_ms, b_by = kernel_bound(torch, f"gmm {name} ({tokens} tokens)",
+                                  "gmm", (a, w, sizes))
         ms = cuda_ms(torch, lambda a=a, w=w: gmm.gmm(a, w, sizes), flush)
         plain = cuda_ms(torch, lambda a=a, w=w: ref.gmm_ref(a, w, sizes),
                         flush)
@@ -613,8 +653,9 @@ def lora_path_phase(torch, ops, ref, counters, flush):
                           if isinstance(a, torch.Tensor)]}
         del want
         if work is not None:   # bgmv_expert is timed at the hooks' shapes
-            row["bound_ms"], row["bound_by"] = bound_ms(work.bytes,
-                                                        work.operations)
+            row["bound_ms"], row["bound_by"] = kernel_bound(
+                torch, f"lora-kernel path {case}", op, args,
+                want=bound_ms(work.bytes, work.operations))
             row["ms"] = cuda_ms(torch, lambda o=op, a=args:
                                 getattr(ops, o)(*a), flush)
             row["plain_ms"] = cuda_ms(torch, lambda o=op, a=args: getattr(
@@ -1286,6 +1327,8 @@ def transport_phase(torch, ops, smi, cfg, params, ecfg):
         **{k: prof[k] for k in ("device_ms_per_step", "wall_ms_per_step",
                                 "device_busy_share")}, **replay})
           + f"; card {smi}", flush=True)
+    roofline_cell(torch, smi, cfg, params, eng, statistics.median(
+        cells["R=1 paged"]["fused"]["decode_ms_per_step"]), replay)
     del eng, lora
     torch.cuda.empty_cache()
     return fused_tokens, prof
@@ -2451,7 +2494,7 @@ def time_calls(torch, ref, flush, calls, kernels) -> list:
         check(err <= tol[name], f"{name} at {shapes}: max abs err {err} > "
               f"{tol[name]}")
         check(bool(torch.isfinite(got).all()), f"{name}: not finite")
-        b_ms, b_by = call_bound(torch, name, args, kw)
+        b_ms, b_by = kernel_bound(torch, f"{name} call {i}", name, args, kw)
         ms = cuda_ms(torch, lambda: fn(*args, **kw), flush)
         out.append({"kernel": name, "call": i, "shapes": shapes,
                     "max_abs_err": err, "ms": ms, "bound_ms": b_ms,
@@ -3413,10 +3456,11 @@ def mesh_phase(torch, ops, ref, counters, flush, smi, cfg, params, ecfg,
 F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARM = 4, 1024, 20, 3
 TRAIN_RANK, TRAIN_ALPHA = 8, 16.0
-# (iii): 10 steps with a checkpoint at 5, then the 5 resumed (20 + 10
-# took 186 s; cut to make room for phase 13)
+# (iii): 6 steps with a checkpoint at 3, then the 3 resumed (20 + 10
+# took 186 s; cut to 10 + 5 to make room for phase 13, to 6 + 3 for
+# phase 14)
 FULL_ARCH, FULL_B, FULL_S, FULL_STEPS, FULL_CKPT = "smollm-360m", 8, 4096, \
-    10, 5
+    6, 3
 # the kernels' gradients against the twins' (relative to the largest
 # magnitude of the twin's): f32 ones (dA, dB, and dx before its cast) sum
 # in another order; a bf16 one (dx of bf16 activations, gmm's bf16
@@ -3476,7 +3520,8 @@ def autograd_case(torch, flush, name, kernel, twin, leaves, dy, bf16_grads,
     ms = cuda_ms(torch, lambda: run(kernel, leaves), flush, n=10, warmup=2)
     plain = cuda_ms(torch, lambda: run(twin, twin_leaves), flush, n=10,
                     warmup=2)
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_rate
+    from repro_torch.analysis import roofline
+    t_bytes, t_ops = n_bytes / roofline.HBM_BW, n_ops / ops_rate
     out = {"fwd_bwd_ms": ms, "plain_fwd_bwd_ms": plain,
            "bound_ms": 1e3 * max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -3494,6 +3539,7 @@ def train_kernels(torch, ops, ref, flush) -> dict:
     base GEMMs of path (a)'s dispatch (4096 tokens top-8 of 128 experts at
     capacity 1.25: E*C rows), bf16 activations, f32 rank-8 factors, bf16
     expert weights, each under autograd against its twin's."""
+    from repro_torch.analysis import roofline
     from repro_torch.models.moe import capacity
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -3554,7 +3600,8 @@ def train_kernels(torch, ops, ref, flush) -> dict:
             torch, flush, f"gmm {tgt} (C {C})",
             lambda xe, w: ops.gmm(xe, w, sizes),
             lambda xe, w: ref.gmm_ref(xe, w, sizes), [xe, w], dy,
-            (True, True), n_bytes, 6 * n_act * d_in * d_out, BF16_OPS_PER_S)
+            (True, True), n_bytes, 6 * n_act * d_in * d_out,
+            roofline.PEAK_FLOPS)
         del xe, w, dy
     for row in out.values():
         row["shapes"] = {"T": T, "r": r, "E": E, "C": C, "rows": E * C,
@@ -3965,6 +4012,7 @@ def spmd_baseline(torch, smi) -> dict:
         tok = prompts[:, -1:]
         toks, logits, ms = [], [], []
         ctx = pool.lora_ctx(ids)
+        mem = memory_cell(torch, cfg, params, cache)
         for _ in range(SPMD_STEPS):
             t0 = time_now(torch)
             lg, cache = transformer.decode_step(params, cfg, cache, tok,
@@ -3973,6 +4021,7 @@ def spmd_baseline(torch, smi) -> dict:
             tok = lg.argmax(-1, keepdim=True).to(prompts.dtype)
             toks.append(tok.cpu())
             logits.append(lg.float().cpu())
+        memory_report(torch, smi, mem)
         out["serve"] = {"tokens": torch.stack(toks).numpy(),
                         "logits": torch.stack(logits).numpy(),
                         "ms_per_step": 1e3 * statistics.median(ms[2:])}
@@ -4551,6 +4600,325 @@ def spmd_phase(torch, smi) -> dict:
     return r0["launches"]
 
 
+# ------------------------------ phase 14 ------------------------------ #
+# the analysis plane; each part runs where its state lives: (a) in the
+# transport phase, (b) in phase 13's local baseline, (c)-(e) at the end
+PHASE14 = {"seconds": {}}
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_TIMEOUT = 300
+
+
+def _to_meta(tree):
+    """Each tensor of a nested dict as a meta tensor (shapes, no data)."""
+    if isinstance(tree, dict):
+        return {k: _to_meta(v) for k, v in tree.items()}
+    return tree.to("meta") if hasattr(tree, "to") else tree
+
+
+def _brief(counted) -> dict:
+    return {k: counted[k] for k in ("flops", "hbm_bytes", "coll_total",
+                                    "form", "kernels", "aten_ops")}
+
+
+def roofline_cell(torch, smi, cfg, params, eng, fused_ms, replay) -> dict:
+    """Phase 14(a): the fused plane's decode step of the 6 running rows
+    (the transport phase's engine, R = 1, paged) counted twice by
+    ``analysis.counter``: on the card, eagerly (the captured step's own
+    function and inputs, the kernels launching, their work read from the
+    data), and on the meta device at the same shapes (the twins' shape
+    arithmetic, the kernels' shape form); the card's shape-form count must
+    equal the meta one's. Then the roofline of the card's count against
+    the fused ms/step the transport phase measured: the step's roofline
+    share (bound / measured) and its mfu (model flops / (989 TFLOP/s x
+    measured s))."""
+    import numpy as np
+    from repro_torch.analysis import roofline
+    from repro_torch.analysis.counter import count
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.obs.clock import wall_time
+    from repro_torch.transport.base import decode_tokens
+    from repro_torch.transport.fused import DeviceLoraView
+
+    t0 = wall_time()
+    tr, seen = eng.transport, []
+    orig = tr.decode_step
+
+    def record(p, c, k, v, toks, pos_vec, adapter_ids, lora_scale, **kw):
+        seen.append((k, v, np.asarray(toks).reshape(-1), np.asarray(pos_vec),
+                     np.asarray(adapter_ids), float(lora_scale),
+                     kw.get("block_table")))
+        return orig(p, c, k, v, toks, pos_vec, adapter_ids, lora_scale, **kw)
+
+    tr.decode_step = record     # one engine step's inputs, as it gives them
+    try:
+        eng.step()
+    finally:
+        del tr.decode_step
+    k, v, toks, pos, ids, scale, bt = seen[0]
+    B = len(pos)
+
+    def step_args(dev, prm, view, kk, vv):
+        def i32(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.int32,
+                                   device=dev)
+        return dict(params=prm, cfg=cfg, k=kk, v=vv, toks=i32(toks).view(
+            B, 1), pos_vec=i32(pos), server=view, adapter_ids=i32(ids),
+            lora_scale=torch.tensor(scale, dtype=torch.float32, device=dev),
+            block_table=i32(bt))
+
+    # the eager step rewrites the KV cells the engine's step wrote, with
+    # the same values
+    card = step_args(k.device, params, tr.view, k, v)
+    with torch.no_grad(), count() as on_card:
+        decode_tokens(**card)
+    torch.cuda.synchronize()
+    view = tr.view
+    meta = step_args("meta", _to_meta(params), DeviceLoraView(
+        _to_meta(view.pools), view.slot_lut.to("meta"),
+        view.slot_ranks.to("meta"), view.r_pool), k.to("meta"),
+        v.to("meta"))
+    with torch.no_grad():
+        decode_tokens(**meta)    # the meta device's RoPE table, once
+        with count() as on_meta:
+            decode_tokens(**meta)
+    data, card_shape = on_card.summary("data"), on_card.summary("shape")
+    meta_shape = on_meta.summary("shape")
+    cell = ShapeConfig("smoke_decode", seq_len=int(pos.max()) + 1,
+                       global_batch=B, kind="decode")
+    rl = roofline.analyze(ARCH, cell.name, "one card", 1, data, 0, cfg,
+                          cell)
+    bound = 1e3 * rl.step_time
+    out = {"rows": B, "layers": cfg.n_layers, "positions": pos.tolist(),
+           "card": _brief(data), "card_shape_form": _brief(card_shape),
+           "meta_shape_form": _brief(meta_shape),
+           "card_eq_meta": {k: card_shape[k] == meta_shape[k] for k in (
+               "flops", "hbm_bytes", "kernels")},
+           "t_compute_ms": 1e3 * rl.t_compute,
+           "t_memory_ms": 1e3 * rl.t_memory, "bottleneck": rl.bottleneck,
+           "bound_ms": bound, "fused_ms_per_step": fused_ms,
+           "roofline_share": bound / fused_ms,
+           "mfu": rl.model_flops / (roofline.PEAK_FLOPS * fused_ms / 1e3),
+           "model_flops": rl.model_flops,
+           "replay_device_ms": replay["replay_device_ms"],
+           "replay_bucket": replay["bucket"],
+           # the same batch's replay (the transport phase's ms/step
+           # averages steps of 2 to 8 active rows)
+           "roofline_share_of_replay": bound / replay["replay_device_ms"],
+           "top_ops": data["top_ops"]}
+    PHASE14["seconds"]["a"] = wall_time() - t0
+    print("phase 14(a) the fused decode step against its roofline: "
+          + json.dumps(out) + f"; card {smi}", flush=True)
+    check(all(out["card_eq_meta"].values()),
+          f"phase 14(a): the card's shape-form count is not the meta "
+          f"device's: {out['card_shape_form']} against "
+          f"{out['meta_shape_form']}")
+    check(data["kernels"].get("gmm", {}).get("calls") == 3 * cfg.n_layers
+          and data["kernels"].get("bgmv_expert", {}).get("calls")
+          == 2 * cfg.n_layers and math.isfinite(bound) and bound > 0,
+          f"phase 14(a): the counted step is not the fused step: "
+          f"{data['kernels']}")
+    PHASE14["a"] = out
+    return out
+
+
+def memory_cell(torch, cfg, params, cache) -> dict:
+    """Phase 14(b), before phase 13's local decode loop: the analytic
+    bytes of its step (one card, the local plan) against the bytes of the
+    allocated parameter and cache tensors, which must be equal; the peak
+    counter is reset here, at rest."""
+    from repro_torch.analysis.memory_est import analytic_device_bytes
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed.steps import rules_for
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.obs.clock import wall_time
+
+    t0 = wall_time()
+    rules = rules_for(make_serve_mesh(1, 1, devices=["cuda:0"]), "decode",
+                      cfg)
+    shape = ShapeConfig("phase13_serve", seq_len=SPMD_S,
+                        global_batch=SPMD_B, kind="decode")
+    an = analytic_device_bytes(cfg, shape, rules, "decode")
+
+    def nbytes(t):
+        if isinstance(t, dict):
+            return sum(nbytes(x) for x in t.values())
+        return t.numel() * t.element_size() if hasattr(t, "numel") else 0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    PHASE14["seconds"]["b"] = wall_time() - t0
+    return {"analytic": an, "allocated": {"params": nbytes(params),
+                                          "cache": nbytes(cache)},
+            "at_rest_allocated": torch.cuda.memory_allocated()}
+
+
+def memory_report(torch, smi, mem) -> None:
+    """Phase 14(b), after the decode loop: the workspace estimate beside
+    the peak above the at-rest bytes (reported, not held)."""
+    an, got = mem["analytic"], mem["allocated"]
+    out = {"params_analytic": an["params"], "params_allocated": got["params"],
+           "cache_analytic": an["cache"], "cache_allocated": got["cache"],
+           "workspace_estimate": an["workspace"],
+           "workspace_measured": torch.cuda.max_memory_allocated()
+           - mem["at_rest_allocated"],
+           "at_rest_allocated": mem["at_rest_allocated"],
+           "fits_80g": an["fits_80g"], "batch": SPMD_B, "cache_len": SPMD_S,
+           "layers": LAYERS}
+    print("phase 14(b) memory of phase 13's local serve step: "
+          + json.dumps(out) + f"; card {smi}", flush=True)
+    check(an["params"] == got["params"] and an["cache"] == got["cache"],
+          f"phase 14(b): analytic bytes {an} against the allocated {got}")
+    PHASE14["b"] = out
+
+
+def host_jobs_start(out_dir: pathlib.Path):
+    """The host-only work of phase 14, in a subprocess of its own with no
+    card visible, started before phase 12 so that it runs on the host's
+    cores while the card trains: (c) the dry run of ARCH's three shapes on
+    the single production mesh and the disaggregated split (its fake
+    process group never meets phase 13's NCCL world; meta tensors), and
+    (e) the provision_capacity example, which runs no model."""
+    code = ("import sys\n"
+            "from repro_torch.launch import dryrun\n"
+            "from repro_torch.examples import provision_capacity\n"
+            f"a = dryrun.main(['--arch', '{ARCH}', '--mesh', 'single', "
+            f"'--force', '--out', '{out_dir}'])\n"
+            f"b = dryrun.main(['--disagg', '--arch', '{ARCH}', '--out', "
+            f"'{out_dir}'])\n"
+            "c = provision_capacity.main([])\n"
+            "sys.exit(a or b or c)\n")
+    root = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    return subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def stop(proc) -> None:
+    """Kill ``proc`` if it still runs, and reap it."""
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def host_jobs_report(smi, proc, out_dir: pathlib.Path) -> dict:
+    """Phase 14(c)'s records and (e)'s provision_capacity lines, once the
+    subprocess has ended."""
+    try:
+        log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    finally:
+        stop(proc)
+    lines = log.splitlines()
+    print("phase 14(c) dry run log: " + " | ".join(
+        ln for ln in lines if "__" in ln), flush=True)
+    print("phase 14(e) provision_capacity (no device): " + " | ".join(
+        lines[-4:]), flush=True)
+    check(proc.returncode == 0, f"phase 14(c, e): the host jobs exited "
+          f"{proc.returncode}: {lines[-20:]}")
+    check("grows for the larger pool: True; shrinks for the hot one: True"
+          in lines, "phase 14(e): provision_capacity's invariant line")
+    out = {}
+    for shape in DRYRUN_SHAPES:
+        rec = json.loads((out_dir / f"{ARCH}__{shape}__single.json")
+                         .read_text())
+        check(rec["status"] == "OK", f"phase 14(c) {shape}: {rec}")
+        r, m = rec["roofline"], rec["memory"]
+        out[shape] = {"peak_gib_analytic": m["peak_per_device"] / 2**30,
+                      "fits_80g": m["fits_80g"],
+                      "bottleneck": r["bottleneck"],
+                      "roofline_fraction": r["roofline_fraction"],
+                      "t_compute_ms": 1e3 * r["t_compute"],
+                      "t_memory_ms": 1e3 * r["t_memory"],
+                      "t_collective_ms": 1e3 * r["t_collective"],
+                      "trace_s": rec["trace_s"], "chips": r["chips"]}
+    split = json.loads((out_dir / f"{ARCH}__decode_32k__single__disagg.json")
+                       .read_text())
+    check(split["status"] == "OK", f"phase 14(c) disagg: {split}")
+    out["disagg"] = {k: split[k] for k in (
+        "instance_mesh", "server_mesh", "transfer_bytes_per_layer")}
+    print("phase 14(c) dry run of the production mesh (one rank of 256, "
+          "meta tensors): " + json.dumps(out) + f"; card {smi}", flush=True)
+    return out
+
+
+def run_example(name: str, argv) -> tuple:
+    """(exit code, printed lines) of ``repro_torch.examples.<name>``'s
+    ``main(argv)`` run in this process."""
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def examples_cell(torch, smi) -> dict:
+    """Phase 14(e) on the card: serve_disaggregated's model part at ARCH's
+    widths, depth 2 (coupled == disaggregated under mid-decode admission,
+    its invariant line held; the cancellation; the provisioning demo) and
+    train_lora's three steps. Its S-LoRA vs InfiniLoRA table runs no model
+    (the analytic plane, ~20 s of host time, ``tests/test_torch_examples.py``
+    runs it) and provision_capacity runs in the host jobs' subprocess."""
+    from repro_torch.examples import serve_disaggregated as sd
+    from repro_torch.obs.clock import wall_time
+
+    out = {"seconds": {}}
+    t0 = wall_time()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ok = sd.functional_demo(torch.device("cuda"), layers=2)
+        sd.provisioning_demo()
+    lines = buf.getvalue().splitlines()
+    out["seconds"]["serve_disaggregated"] = wall_time() - t0
+    keep = [ln for ln in lines if ln.startswith(("  rid=", "tokens ident",
+                                                 "  qwen3", "min cache"))]
+    print("phase 14(e) serve_disaggregated (depth 2, full width): "
+          + " | ".join(keep) + f"; card {smi}", flush=True)
+    check(ok and "tokens identical across architectures: True" in lines,
+          "phase 14(e): serve_disaggregated's planes or its cancellation")
+    out["serve_disaggregated"] = True
+    free_device(torch)
+    t0 = wall_time()
+    rc, lines = run_example("train_lora", ["--device", "cuda", "--steps",
+                                           "3"])
+    out["seconds"]["train_lora"] = wall_time() - t0
+    print("phase 14(e) train_lora: " + " | ".join(lines) + f"; card {smi}",
+          flush=True)
+    losses = [float(ln.rsplit(" ", 1)[1]) for ln in lines
+              if ln.startswith("tenant ")]
+    check(rc == 0 and losses and all(math.isfinite(x) for x in losses),
+          f"phase 14(e): train_lora exited {rc}: {lines}")
+    out["train_lora_losses"] = losses
+    print("phase 14(e) seconds: " + json.dumps(out["seconds"]), flush=True)
+    return out
+
+
+def analysis_phase(torch, smi, proc, dry_dir: pathlib.Path) -> None:
+    """Phase 14's (c), (d) and (e); (a) and (b) ran in the transport phase
+    and in phase 13's baseline, and the host jobs ``proc`` (the dry run,
+    provision_capacity) have run in their subprocess since phase 12
+    began."""
+    from repro_torch.analysis import roofline
+    from repro_torch.obs.clock import wall_time
+
+    t0 = wall_time()
+    PHASE14["e"] = examples_cell(torch, smi)
+    PHASE14["seconds"]["e"] = wall_time() - t0
+    t1 = wall_time()
+    PHASE14["c"] = host_jobs_report(smi, proc, dry_dir)
+    PHASE14["seconds"]["c_wait"] = wall_time() - t1
+    worst = max(BOUND_CHECKS, key=lambda wc: wc[1])
+    print("phase 14(d) kernel bounds from analysis.roofline: " + json.dumps({
+        "bounds": len(BOUND_CHECKS), "max_rel_diff": worst[1],
+        "worst": worst[0], "tol": BOUND_TOL,
+        "peaks": {"flops": roofline.PEAK_FLOPS, "hbm": roofline.HBM_BW,
+                  "link": roofline.LINK_BW}}), flush=True)
+    secs = PHASE14["seconds"]
+    total = sum(secs.values())
+    print(f"phase 14: {total:.1f} s ({json.dumps(secs)})", flush=True)
+
 def _first_layers(tree, n: int):
     """Views of the first ``n`` layers of a layer-stacked tree."""
     if isinstance(tree, dict):
@@ -4572,6 +4940,7 @@ def main() -> int:
     # the plain versions contract in f32: keep them IEEE f32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = wall_time()
     smi = nvidia_smi()
     print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
@@ -4618,10 +4987,18 @@ def main() -> int:
     free_device(torch)
     launches.update(families_phase(torch, ops, ref, counters, flush, smi))
     launches.update(static_phase(torch, ops, ref, counters, smi))
-    train_grads, launches["train"] = train_phase(torch, ops, ref, counters,
-                                                 flush, smi)
-    free_device(torch)
-    launches["spmd"] = spmd_phase(torch, smi)
+    dry_dir = pathlib.Path(tempfile.mkdtemp())
+    proc = host_jobs_start(dry_dir)  # phase 14(c, e), on the host's cores
+    try:
+        train_grads, launches["train"] = train_phase(
+            torch, ops, ref, counters, flush, smi)
+        free_device(torch)
+        launches["spmd"] = spmd_phase(torch, smi)
+        free_device(torch)
+        analysis_phase(torch, smi, proc, dry_dir)
+    finally:
+        stop(proc)
+        shutil.rmtree(dry_dir, ignore_errors=True)
 
     # "launches": the coupled plane's run for rows 1-3 and gmm, the
     # LoRA-kernel path's run for rows 4-8; each path's counted run in
@@ -4668,6 +5045,7 @@ def main() -> int:
         if row["name"] in train_grads:
             row["train"] = train_grads[row["name"]]
     print(json.dumps({"kernels": kernels}))
+    print(f"script: {wall_time() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 """Config registry of the port: ``get_config(arch_id)`` / ``list_archs()``,
 the reference's registry: the 10 assigned architectures and the paper's
 own evaluation models."""
-from repro_torch.configs.base import ModelConfig  # noqa: F401
+from repro_torch.configs.base import ModelConfig, ShapeConfig, \
+    applicable  # noqa: F401
+from repro_torch.configs.shapes import SHAPES, get_shape  # noqa: F401
 
 from repro_torch.configs.qwen2_1_5b import CONFIG as _qwen2_1_5b
 from repro_torch.configs.starcoder2_15b import CONFIG as _starcoder2_15b
@@ -43,5 +45,5 @@ def list_archs(assigned_only: bool = True):
     return sorted(ASSIGNED if assigned_only else REGISTRY)
 
 
-__all__ = ["ModelConfig", "get_config", "list_archs", "ASSIGNED", "PAPER",
-           "REGISTRY"]
+__all__ = ["ModelConfig", "ShapeConfig", "applicable", "SHAPES", "get_shape",
+           "get_config", "list_archs", "ASSIGNED", "PAPER", "REGISTRY"]

@@ -208,3 +208,12 @@ class ShapeConfig:
     @property
     def tokens(self) -> int:
         return self.seq_len * self.global_batch
+
+
+def applicable(arch: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether (arch, shape) is a runnable dry-run cell; else the reason to
+    SKIP (the reference's)."""
+    if shape.name == "long_500k" and not arch.sub_quadratic:
+        return False, ("full-attention arch: 500k dense-KV decode is the "
+                       "quadratic case long_500k excludes (DESIGN.md §5)")
+    return True, ""

@@ -25,7 +25,11 @@ axes it is not sharded on (``distributed.steps``). The pairs:
 ``all_reduce`` without autograd serves what needs no gradient (the
 losses, counts, the decode's combine). A group of None is one rank: each
 function is then the identity. Tensors are made contiguous where NCCL
-needs it; gloo and NCCL both take f32, bf16 and int32."""
+needs it; gloo and NCCL both take f32, bf16 and int32.
+
+This file is the only place the port issues collectives: each one reports
+its kind and result to the active work counters (``OBSERVERS``,
+``analysis.counter``)."""
 from __future__ import annotations
 
 import torch
@@ -40,6 +44,16 @@ _scatter_from = getattr(dist, "reduce_scatter_single", None) or \
     dist.reduce_scatter_tensor
 
 
+# active work counters (``analysis.counter.count``)
+OBSERVERS: list = []
+
+
+def _seen(kind: str, out):
+    for o in OBSERVERS:
+        o.collective(kind, out)
+    return out
+
+
 def group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
@@ -50,6 +64,7 @@ def _gather(x, group, dim: int):
     out = torch.empty((n * xs.shape[0],) + xs.shape[1:], dtype=x.dtype,
                       device=x.device)
     _gather_into(out, xs, group=group)
+    _seen("all-gather", out)
     return out.movedim(0, dim).contiguous()    # the kernels take no strides
 
 
@@ -62,6 +77,7 @@ def _scatter_sum(x, group, dim: int):
     out = torch.empty((xs.shape[0] // n,) + xs.shape[1:], dtype=x.dtype,
                       device=x.device)
     _scatter_from(out, xs, op=dist.ReduceOp.SUM, group=group)
+    _seen("reduce-scatter", out)
     return out.movedim(0, dim).contiguous()
 
 
@@ -77,6 +93,7 @@ def _a2a(x, group, split: int, concat: int):
     xs = xs.reshape((n, xs.shape[0] // n) + xs.shape[1:]).contiguous()
     out = torch.empty_like(xs)
     dist.all_to_all_single(out, xs, group=group)
+    _seen("all-to-all", out)
     return torch.cat([c.movedim(0, split) for c in out.unbind(0)],
                      dim=concat)
 
@@ -89,7 +106,7 @@ def all_reduce(x, group, op: str = "sum"):
     out = x.detach().clone().contiguous()
     dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
                     else dist.ReduceOp.SUM, group=group)
-    return out
+    return _seen("all-reduce", out)
 
 
 class _AllGather(torch.autograd.Function):
@@ -130,7 +147,7 @@ class _Psum(torch.autograd.Function):
     def forward(ctx, x, group):
         out = x.contiguous().clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-        return out
+        return _seen("all-reduce", out)
 
     @staticmethod
     def backward(ctx, g):
@@ -147,7 +164,7 @@ class _SumGrad(torch.autograd.Function):
     def backward(ctx, g):
         out = g.contiguous().clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ctx.group)
-        return out, None
+        return _seen("all-reduce", out), None
 
 
 def all_gather(x, group, dim: int):

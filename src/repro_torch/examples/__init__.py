@@ -1,0 +1,3 @@
+"""The port's examples, the counterparts of the reference's
+``examples/``: ``python -m repro_torch.examples.<name>`` (on the card by
+default; ``--device cpu`` on the CPU)."""

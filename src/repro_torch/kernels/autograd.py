@@ -45,11 +45,12 @@ def matmul_f32(a, b):
     meets a bf16 one (a gradient meeting a bf16 weight) is split on the
     card into its bf16 high and low halves, two products: within ~2^-16
     of the f32 product, where one bf16 product of the rounded gradient
-    would part from it by 2^-9. Off the card both go to f32."""
+    would part from it by 2^-9. Off the card both go to f32; a trace on
+    the meta device takes the card's branch."""
     mm = torch.bmm if a.dim() == 3 else torch.mm
     if a.dtype == F32 and b.dtype == F32:
         return mm(a, b)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cuda", "meta"):
         return mm(a.to(F32), b.to(F32))
     if a.dtype == b.dtype:
         return mm(a, b, out_dtype=F32)

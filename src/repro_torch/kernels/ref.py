@@ -84,7 +84,9 @@ def bgmv_expert_ref(x, A, B, ids, eids, ranks: Optional[torch.Tensor] = None,
     N, E, _, r = A.shape
     d_out = B.shape[-1]
     out = torch.zeros((T, d_out), dtype=F32, device=x.device)
-    act = torch.nonzero(ids >= 0).reshape(-1)
+    # a trace on the meta device has no ids to read: every row counts
+    act = (torch.arange(T, device=x.device) if x.is_meta
+           else torch.nonzero(ids >= 0).reshape(-1))
     slot = ids[act].long().clamp(max=N - 1)
     e = eids[act].long().clamp(0, E - 1)
     h = torch.einsum("td,tdr->tr", x[act].to(F32), A[slot, e].to(F32))

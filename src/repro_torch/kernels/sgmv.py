@@ -116,6 +116,7 @@ def _call(name, lib, dims, seg_rows, A, B, slots, eids, ranks, index, out,
     raise_on_error(name, err)
 
 
+# staticcheck: disable=SC004 (the launcher sgmv.cu's twinned entries share)
 def launch(name: str, seg_rows, A, B, slots, eids, ranks, out, r: int):
     """One launch of ``csrc/sgmv.cu`` over all segments and the first ``r``
     rank columns of the pool. A: (M, E, d_in, r_pool), B: (M, E, r_pool,

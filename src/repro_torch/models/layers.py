@@ -42,10 +42,11 @@ def mm_f32(a, b):
     bf16 weights, or the reverse) multiply in f32, as the reference
     promotes them. The batched expert GEMMs go to ``ops.gmm``. Under
     autograd the bf16 product goes through ``_MmF32`` (cuBLAS's
-    ``out_dtype`` form has no derivative)."""
+    ``out_dtype`` form has no derivative). A trace on the meta device
+    takes the card's branch, so it counts the card's work."""
     if a.dtype == F32 and b.dtype == F32:
         return a @ b
-    if a.device.type != "cuda" or a.dtype != b.dtype:
+    if a.device.type not in ("cuda", "meta") or a.dtype != b.dtype:
         return a.to(F32) @ b.to(F32)
     lead = a.shape[:-1]
     a2 = a.reshape(-1, a.shape[-1])
@@ -96,6 +97,7 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
 def _rope_freqs_on(head_dim: int, theta: float, device: torch.device):
     # copied to the device once: a host->device copy from pageable memory
     # inside the decode step would wait for the stream to drain
+    # staticcheck: disable=SC006 (cached: made at the warm-up, not captured)
     return torch.as_tensor(rope_freqs(head_dim, theta), dtype=F32,
                            device=device)
 
