@@ -167,8 +167,15 @@ port only. Phases, each of which fails the run with a non-zero exit:
 
 13. the collective-bearing SPMD steps (``distributed.steps``) over one
    NCCL world of W processes, one a card: W = 2 where two cards are
-   visible, else W = 1 (every grid is then the local plan; the lines say
-   so). Each sub-phase's single-card local step runs first on cuda:0, its
+   visible, else W = 1 (every grid is then the local plan and every
+   placement whole; the lines say so, and that the layout's cross-rank
+   proof is the CPU's gloo world and (c)'s dry run). The parameters rest
+   in the reference's layout (``steps.step_placements``), and every rank
+   prints the bytes of its parameter shards (its AdamW moments, its
+   cache) beside ``analysis.memory_est``'s for its grid, held equal, and
+   each step's bytes as run (those shards plus the most the step
+   allocated above what was live) beside memory_est's ``total_as_run``.
+   Each sub-phase's single-card local step runs first on cuda:0, its
    outputs kept on the host: (i) ``jit_serve_step`` at the serving cell's
    width and depth, B 8, a cache of 2048 positions holding a 1536-token
    prompt, expert adapters of true ranks RANKS a row, 16 steps fed the
@@ -203,7 +210,10 @@ port only. Phases, each of which fails the run with a non-zero exit:
    decode_32k on the single production mesh (one rank of 256, a fake
    process group, meta tensors) and the disaggregated split, in a
    subprocess with no card visible: each cell OK, its analytic peak,
-   ``fits_80g``, bottleneck and roofline fraction; (d) every kernel bound
+   ``fits_80g``, bottleneck and roofline fraction, its parameters as
+   run (held equal to ``params``: the reference's layout), the largest
+   layer's gather at use and the logits as run; train_4k must fit a
+   card (``fits_80g``); (d) every kernel bound
    this run printed comes from ``analysis.roofline.kernel_bound``, held
    within 1e-9 of the formula it replaced (``call_bound``, the LoRA-kernel
    path's ``Work``); (e) the examples: serve_disaggregated's model part on
@@ -4208,6 +4218,7 @@ def spmd_serve_rank(torch, W, base, cfg, params, main) -> dict:
 
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.cuda.reset_peak_memory_stats()
+    mem = StepMemory(torch)
     prompts, ids, pool = _spmd_serve_inputs(torch, cfg, dev)
     k_all, v_all = (_unbits(torch, a, dev) for a in base["kv"])
     shape = ShapeConfig("spmd_serve", seq_len=SPMD_S, global_batch=SPMD_B,
@@ -4218,7 +4229,7 @@ def spmd_serve_rank(torch, W, base, cfg, params, main) -> dict:
         mesh = make_debug_mesh(*grid)
         step, _, rules = tsteps.jit_serve_step(cfg, shape, mesh)
         _, cpl = tsteps.cache_specs(cfg, shape, rules)
-        place = tsteps.step_placements(cfg, rules, "decode", SPMD_B, 1)
+        place = tsteps.step_placements(cfg, rules)
         p_l = _clone_sharded(torch, tsteps.local_params(params, place),
                              place)
         loc = {}
@@ -4234,6 +4245,7 @@ def spmd_serve_rank(torch, W, base, cfg, params, main) -> dict:
                 buf[:, :, :n] = src[:, b0:b0 + buf.shape[1], s0:s0 + n]
             loc[name] = buf
         loc["pos"] = SPMD_PROMPT
+        layout = layout_bytes(cfg, shape, rules, "decode", p_l, cache=loc)
         bspec = rules.spec(("batch", None), (SPMD_B, 1))
         bpl = tsteps.Placement(mesh, bspec, (SPMD_B, 1))
         ctx = pool.lora_ctx(bpl.local(ids[:, None])[:, 0].contiguous())
@@ -4241,6 +4253,7 @@ def spmd_serve_rank(torch, W, base, cfg, params, main) -> dict:
         want_logits = torch.from_numpy(want["logits"])
         feed = [prompts[:, -1:]] + [toks[i] for i in range(SPMD_STEPS - 1)]
         c0 = dict(main.n)
+        mem.above = 0
         got, shadow, halves, ms = [], [], [], []
         h = SPMD_B // 2
         for t in feed:
@@ -4263,7 +4276,7 @@ def spmd_serve_rank(torch, W, base, cfg, params, main) -> dict:
                         .cpu() for a in (0, h)]))
             del whole
             t0 = time_now(torch)
-            with main.count():
+            with main.count(), mem.step():
                 lg, loc = step(p_l, loc, {"tokens": bpl.local(t)
                                           .contiguous()}, lora_ctx=ctx)
             ms.append(time_now(torch) - t0)
@@ -4275,7 +4288,9 @@ def spmd_serve_rank(torch, W, base, cfg, params, main) -> dict:
                "launches_per_step": {k: (main.n[k] - c0[k]) / SPMD_STEPS
                                      for k in ("gmm", "bgmv_expert",
                                                "bgmv")},
-               "plan": _plan_of(cfg, rules, "decode", SPMD_B, 1)}
+               "plan": _plan_of(cfg, rules, "decode", SPMD_B, 1),
+               "layout_bytes": layout}
+        step_memory(layout, mem.above)
         if mesh.rank == 0:
             med, agree, worst = _median_max_err(torch, torch.stack(got),
                                                 torch.stack(shadow))
@@ -4298,7 +4313,7 @@ def spmd_serve_rank(torch, W, base, cfg, params, main) -> dict:
         free_device(torch)
     del pool, k_all, v_all
     free_device(torch)
-    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["peak_gib"] = mem.rank_peak() / 2**30
     return out
 
 
@@ -4439,8 +4454,7 @@ def spmd_train_rank(torch, W, base, main) -> dict:
     step, _, rules = tsteps.jit_train_step(
         cfg1, shape, mesh, topt.AdamWConfig(lr=SPMD_TRAIN_LR,
                                             warmup_steps=1, total_steps=10))
-    place = tsteps.step_placements(cfg1, rules, "train", SPMD_TRAIN_B,
-                                   SPMD_TRAIN_S)
+    place = tsteps.step_placements(cfg1, rules)
     p_l = {k: v for k, v in tsteps.local_params(p1, place).items()}
     p_l = _clone_sharded(torch, p_l, place)
     del p1
@@ -4450,12 +4464,15 @@ def spmd_train_rank(torch, W, base, main) -> dict:
     bpl = tsteps.Placement(mesh, bspec, (SPMD_TRAIN_B, SPMD_TRAIN_S))
     b_l = {k: bpl.local(v).contiguous() for k, v in batch.items()}
     opt = topt.init(p_l)
-    torch.cuda.reset_peak_memory_stats()
+    out["layout_bytes"] = layout_bytes(cfg1, shape, rules, "train", p_l,
+                                       opt=opt)
+    mem = StepMemory(torch)
     t0 = time_now(torch)
-    with main.count():
+    with main.count(), mem.step():
         loss, p_l, opt = step(p_l, opt, b_l)
     out["ms_step"] = 1e3 * (time_now(torch) - t0)
     out["peak_gib_step"] = torch.cuda.max_memory_allocated() / 2**30
+    step_memory(out["layout_bytes"], mem.above)
     del p_l
     free_device(torch)
     flat_pl = flatten_with_keys(place)
@@ -4488,16 +4505,18 @@ def spmd_prefill_rank(torch, W, base, cfg, params, main) -> dict:
     out = {"grid": str((1, W))}
     for key, c in (("prefill_dropless", dropless(cfg)), ("prefill", cfg)):
         pstep, _, prules = tsteps.jit_prefill_step(c, pshape, mesh)
-        pplace = tsteps.step_placements(c, prules, "prefill", SPMD_TRAIN_B,
-                                        SPMD_TRAIN_S)
+        pplace = tsteps.step_placements(c, prules)
         bspec = prules.spec(("batch", "seq"), (SPMD_TRAIN_B, SPMD_TRAIN_S))
         bpl = tsteps.Placement(mesh, bspec, (SPMD_TRAIN_B, SPMD_TRAIN_S))
         p_l = _clone_sharded(torch, tsteps.local_params(params, pplace),
                              pplace)
+        layout = layout_bytes(c, pshape, prules, "prefill", p_l)
+        mem = StepMemory(torch)
         t0 = time_now(torch)
-        with main.count():
+        with main.count(), mem.step():
             lg = pstep(p_l, {"tokens": bpl.local(toks).contiguous()})
         ms = 1e3 * (time_now(torch) - t0)
+        step_memory(layout, mem.above)
         for dim, p in ((0, bspec[0]), (1, bspec[1])):
             if p:
                 lg = col.all_gather(lg.contiguous(), mesh.get_group(p), dim)
@@ -4508,8 +4527,67 @@ def spmd_prefill_rank(torch, W, base, cfg, params, main) -> dict:
             torch, got.transpose(0, 1),
             torch.from_numpy(base[key]).transpose(0, 1))
         out[key] = {"ms": ms, "median_max_logit_err": med,
-                    "max_logit_err": worst, "greedy_agree": agree}
+                    "max_logit_err": worst, "greedy_agree": agree,
+                    "layout_bytes": layout}
     return out
+
+
+def _nbytes(tree) -> int:
+    """The bytes of the tensors of a nested dict (host ints count 0)."""
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size() if hasattr(tree, "numel") \
+        else 0
+
+
+def layout_bytes(cfg, shape, rules, kind, params, opt=None,
+                 cache=None) -> dict:
+    """Phase 13, on every rank: the bytes of the parameter shards this
+    rank's step holds (and of its AdamW moments, its cache's shards)
+    beside ``analysis.memory_est``'s ``params`` (``opt_state``, ``cache``)
+    for its grid, which must be equal; and memory_est's ``total_as_run``,
+    which ``step_memory`` sets beside what the step took."""
+    from repro_torch.analysis.memory_est import analytic_device_bytes
+    an = analytic_device_bytes(cfg, shape, rules, kind)
+    got = {"params": _nbytes(params)}
+    if opt is not None:
+        got["opt_state"] = _nbytes({"m": opt["m"], "v": opt["v"]})
+    if cache is not None:
+        got["cache"] = _nbytes(cache)
+    return {"kind": kind, "allocated": got,
+            "memory_est": {k: an[k] for k in got},
+            "total_as_run": an["total_as_run"],
+            "equal": all(got[k] == an[k] for k in got)}
+
+
+class StepMemory:
+    """The most bytes a step allocated above what was live before it (the
+    allocator's peak reset at each step), and the running peak of the
+    rank across those resets (``rank_peak``)."""
+
+    def __init__(self, torch):
+        self.torch, self.above, self.peak = torch, 0, 0
+
+    @contextlib.contextmanager
+    def step(self):
+        cuda = self.torch.cuda
+        self.peak = max(self.peak, cuda.max_memory_allocated())
+        a0 = cuda.memory_allocated()
+        cuda.reset_peak_memory_stats()
+        yield
+        self.above = max(self.above, cuda.max_memory_allocated() - a0)
+
+    def rank_peak(self) -> int:
+        return max(self.peak, self.torch.cuda.max_memory_allocated())
+
+
+def step_memory(layout: dict, above: int) -> None:
+    """Into ``layout``: the step's bytes as run, its held shards (the
+    bytes memory_est counts at rest) plus the most it allocated above
+    what was live, and their ratio to memory_est's ``total_as_run``."""
+    run = sum(layout["allocated"].values()) + above
+    layout.update(step_bytes_measured=run,
+                  measured_over_total_as_run=run / layout["total_as_run"])
 
 
 def _clone_sharded(torch, p_l, place):
@@ -4532,10 +4610,13 @@ def spmd_phase(torch, smi) -> dict:
     W = spmd_world(torch)
     head = {"world": W, "grids": [str(g) for g in spmd_grids(W)],
             "cards": torch.cuda.device_count(), "backend": "nccl"}
-    print(f"phase 13: the SPMD steps, world {W} (NCCL, one rank a card; "
-          f"grids {head['grids']})" + ("; one card: every grid is the local "
-                                      "plan, no check crosses cards"
-                                      if W == 1 else ""), flush=True)
+    print(f"phase 13: the SPMD steps in the reference's parameter layout, "
+          f"world {W} (NCCL, one rank a card; grids {head['grids']})"
+          + ("; one card: every grid is the local plan and every placement "
+             "whole, no check crosses cards; the layout's cross-rank proof "
+             "is the CPU's 4-rank gloo world (tests/test_torch_spmd_layout"
+             ".py) and phase 14(c)'s meta dry run of the (16, 16) mesh"
+             if W == 1 else ""), flush=True)
     base = spmd_baseline(torch, smi)
     free_device(torch)      # the ranks share cuda:0 with this process
     t1 = wall_time()
@@ -4546,7 +4627,17 @@ def spmd_phase(torch, smi) -> dict:
              for part in ("serve", "dp")}
     peaks["train"] = [r["train"]["peak_gib_step"] for r in ranks]
     dp, tr, pf = r0["dp"], r0["train"], r0["prefill"]
+    layout = [{"rank": r["rank"],
+               **{f"serve {g}": res.pop("layout_bytes")
+                  for g, res in r["serve"].items()},
+               "train": r["train"].pop("layout_bytes"),
+               **{k: v.pop("layout_bytes") for k, v in r["prefill"].items()
+                  if isinstance(v, dict)}} for r in ranks]
     # every line first, then the checks: a failure shows all readings
+    print("phase 13 parameter, moment and cache bytes a rank against "
+          "memory_est, and each step's bytes as run (its shards + the most "
+          "it allocated above them) against memory_est's total_as_run: "
+          + json.dumps(layout) + f"; card {smi}", flush=True)
     for grid, res in r0["serve"].items():
         print(f"phase 13(i) serve {grid}: " + json.dumps(
             {**head, **res, "peak_gib_by_rank": peaks["serve"]})
@@ -4558,6 +4649,11 @@ def spmd_phase(torch, smi) -> dict:
         {**head, **tr, "prefill": pf, "peak_gib_by_rank": peaks["train"],
          "local_peak_gib": base["train"]["peak_gib"]})
         + f"; card {smi}", flush=True)
+    for r in layout:
+        for part, lb in r.items():
+            check(part == "rank" or lb["equal"],
+                  f"spmd rank {r['rank']} {part}: the bytes held are not "
+                  f"memory_est's: {lb}")
     for grid, res in r0["serve"].items():
         check(res["median_row_max_logit_err"] <= LOGIT_TOL,
               f"spmd serve {grid}: median (step, row) logit err "
@@ -4824,8 +4920,13 @@ def host_jobs_report(smi, proc, out_dir: pathlib.Path) -> dict:
                          .read_text())
         check(rec["status"] == "OK", f"phase 14(c) {shape}: {rec}")
         r, m = rec["roofline"], rec["memory"]
+        an = m["analytic"]
         out[shape] = {"peak_gib_analytic": m["peak_per_device"] / 2**30,
                       "fits_80g": m["fits_80g"],
+                      **{k + "_gib": an[k] / 2**30 for k in (
+                          "params", "params_as_run", "grads",
+                          "at_use_gather", "logits_as_run", "opt_state",
+                          "workspace", "total", "total_as_run")},
                       "bottleneck": r["bottleneck"],
                       "roofline_fraction": r["roofline_fraction"],
                       "t_compute_ms": 1e3 * r["t_compute"],
@@ -4838,7 +4939,14 @@ def host_jobs_report(smi, proc, out_dir: pathlib.Path) -> dict:
     out["disagg"] = {k: split[k] for k in (
         "instance_mesh", "server_mesh", "transfer_bytes_per_layer")}
     print("phase 14(c) dry run of the production mesh (one rank of 256, "
-          "meta tensors): " + json.dumps(out) + f"; card {smi}", flush=True)
+          "meta tensors; the steps in the reference's parameter layout): "
+          + json.dumps(out) + f"; card {smi}", flush=True)
+    for shape in DRYRUN_SHAPES:
+        check(out[shape]["params_as_run_gib"] == out[shape]["params_gib"],
+              f"phase 14(c) {shape}: the parameters as run are not the "
+              f"reference's layout: {out[shape]}")
+    check(out["train_4k"]["fits_80g"],
+          f"phase 14(c): train_4k does not fit a card: {out['train_4k']}")
     return out
 
 

@@ -16,10 +16,17 @@ computes with, so there is no such caveat. ``fits_80g`` holds the total
 against one card's 80 GB (the reference's ``fits_16g`` was its 16 GB
 accelerator's).
 
-``params_as_run`` is what the port's SPMD steps actually hold: they keep
-whole on every rank what only the reference's compiler shards (the
-attention weights, the vocab; ``steps.step_placements``), so on a mesh it
-exceeds ``params``. ``fits_80g`` is held against the total with it.
+What the port's SPMD steps hold beside that: ``params_as_run``, the
+parameters in the layout the steps take (``steps.step_placements``), the
+reference's, so equal to ``params``; for train ``grads``, the gradient
+tree at the same shards; ``at_use_gather``, the largest layer's weights
+as its bodies compute with them (``model.use_layout``: whole, the
+sequence-parallel MLP's fsdp dims gathered, the expert weights at their
+plan's specs), twice for train (their gradient beside them in the
+backward); and ``logits_as_run``, the f32 logits rows of this rank's
+tokens over the padded vocab as ``layers.unembed`` makes them, beside
+the workspace estimate's vocab-sharded logits. ``total_as_run`` adds
+these to ``total``, and ``fits_80g`` is held against it.
 """
 from __future__ import annotations
 
@@ -29,7 +36,10 @@ from typing import Dict
 import torch
 
 from repro_torch.distributed import steps as steps_mod
+from repro_torch.distributed.sharding import axes_of, use_rules
 from repro_torch.models import model as model_mod
+from repro_torch.models.layers import mlp_sp_axes
+from repro_torch.models.moe import resolve_moe_plan
 
 CARD_BYTES = 80 * 10**9      # one H100's 80 GB (85.5e9 bytes, less the
 #                              driver's and the allocator's share)
@@ -47,8 +57,9 @@ def _tree_device_bytes(abstract, placements) -> int:
 def analytic_device_bytes(cfg, shape, rules, kind: str,
                           kv_quant: bool = False) -> Dict[str, int]:
     """{"params", "cache", "workspace", "opt_state", "total",
-    "params_as_run", "total_as_run", "fits_80g"} of one rank for a step of
-    ``kind`` at ``shape`` under ``rules``."""
+    "params_as_run", "grads", "at_use_gather", "logits_as_run",
+    "total_as_run", "fits_80g"} of one rank for a step of ``kind`` at ``shape`` under
+    ``rules``."""
     params_abs = model_mod.abstract_params(cfg)
     out = {"params": _tree_device_bytes(
         params_abs, model_mod.param_shardings(cfg, rules))}
@@ -83,14 +94,71 @@ def analytic_device_bytes(cfg, shape, rules, kind: str,
         out["cache"] = 0
         out["workspace"] = int(act_carry * (2 if kind == "train" else 1)
                                + score_tile + logits)
-        out["opt_state"] = (2 * 4 * out["params"] // 2  # m+v f32 vs bf16 p
-                            if kind == "train" else 0)
+        # AdamW's m and v in f32, one of each a parameter element
+        out["opt_state"] = (8 * out["params"] // params_abs["embed"]
+                            .element_size() if kind == "train" else 0)
     out["total"] = sum(out.values())
     seq = 1 if kind == "decode" else shape.seq_len
-    as_run = _tree_device_bytes(params_abs, steps_mod.step_placements(
-        cfg, rules, kind, shape.global_batch, seq))
-    out["params_as_run"] = as_run
-    out["total_as_run"] = (as_run + out["cache"] + out["workspace"]
-                           + (4 * as_run if kind == "train" else 0))
+    out["params_as_run"] = _tree_device_bytes(
+        params_abs, steps_mod.step_placements(cfg, rules))
+    # the gradient tree value_and_grad returns, at the parameters' shards
+    out["grads"] = out["params_as_run"] if kind == "train" else 0
+    out["at_use_gather"] = _at_use_bytes(cfg, rules, kind, shape.global_batch,
+                                         seq, params_abs["embed"]
+                                         .element_size())
+    out["logits_as_run"] = _logits_bytes(cfg, shape, rules, kind)
+    out["total_as_run"] = (out["total"] - out["params"] + out["params_as_run"]
+                           + out["grads"] + out["at_use_gather"]
+                           + out["logits_as_run"])
     out["fits_80g"] = bool(out["total_as_run"] < CARD_BYTES)
     return out
+
+
+def _local_tokens(rules, kind: str, batch: int, seq: int):
+    """(batch rows, sequence positions) of this rank's share of global
+    activations (batch, seq) of a step of ``kind``."""
+    names, dims = (["batch"], [batch]) if kind == "decode" else (
+        ["batch", "seq"], [batch, seq])
+    loc = [n // rules.size(p) for n, p in zip(dims, rules.spec(names, dims))]
+    return loc[0], (loc[1] if kind != "decode" else 1)
+
+
+def _logits_bytes(cfg, shape, rules, kind) -> int:
+    """The f32 logits of this rank's rows as ``layers.unembed`` makes
+    them: under a vocab its tokens' axes shard, this rank's columns of the
+    gathered rows and the rows the all-to-all returns (twice the rows);
+    under one they do not, its columns and the gathered whole."""
+    seq = shape.seq_len
+    if kind != "decode" and cfg.is_encdec:      # the decoder's tokens
+        seq = steps_mod.batch_specs(cfg, shape, rules)["tokens"][0].shape[1]
+    B, S = _local_tokens(rules, kind, shape.global_batch, seq)
+    V = cfg.padded_vocab
+    vax = axes_of(rules.spec(("vocab", None), (V, cfg.d_model))[0])
+    n = rules.size(vax)
+    rows = 4 * B * S * V
+    if n == 1:
+        return rows
+    tok = sum(rules.token_layout(B, S if kind != "decode" else None), ())
+    return 2 * rows if set(vax) & set(tok) else rows + rows // n
+
+
+def _at_use_bytes(cfg, rules, kind, batch, seq, itemsize) -> int:
+    """The largest layer's weights as its bodies compute with them
+    (``model.use_layout``): each leaf whose tensor at use is larger than
+    its shard at rest, twice for train (its gradient beside it in the
+    backward)."""
+    with use_rules(rules):
+        plan = resolve_moe_plan(cfg, batch, seq, kind) if cfg.is_moe \
+            else None
+    B, S = _local_tokens(rules, kind, batch, seq)
+    sp = mlp_sp_axes(rules, cfg, B, S) if kind != "decode" else None
+    sp_fsdp = None if sp is None else tuple(a for a in sp[1:] if a)
+    experts = None if plan is None else (plan.ep_axis, plan.ff_axis)
+    sizes = dict(zip(rules.mesh.axis_names, rules.mesh.devices.shape))
+    specs = model_mod.param_specs(cfg)
+    per_layer = max(
+        sum(leaf.use_elements(sizes) for leaf in model_mod.use_layout(
+            cfg, rules, g, sp_fsdp, experts).values()
+            if leaf.use_elements(sizes) != math.prod(leaf.local))
+        for g in model_mod.LAYER_GROUPS if g in specs)
+    return per_layer * itemsize * (2 if kind == "train" else 1)

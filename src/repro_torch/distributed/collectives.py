@@ -11,6 +11,10 @@ axes it is not sharded on (``distributed.steps``). The pairs:
 - ``all_gather`` (tiled, along a dim) <-> a reduce-scatter of the
   gradient: every rank's downstream work is its own, so the gathered
   tensor's gradients add up across the group;
+- ``all_gather_replicated`` <-> this rank's chunk of the gradient: what
+  follows is replicated over the group (it shards no tokens there), so
+  each rank already holds the whole gradient and a sum would count it
+  once a rank;
 - ``reduce_scatter`` <-> ``all_gather`` of the gradient;
 - ``all_to_all`` (tiled: split one dim, concatenate another, the
   reference's ``all_to_all(..., tiled=True)``) <-> the reverse
@@ -120,6 +124,18 @@ class _AllGather(torch.autograd.Function):
         return _scatter_sum(g, ctx.group, ctx.dim), None, None
 
 
+class _AllGatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.n, ctx.n).contiguous(), None, None
+
+
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
@@ -172,6 +188,12 @@ def all_gather(x, group, dim: int):
     order (the reference's tiled ``all_gather``); the gradient is
     reduce-scattered back."""
     return x if group is None else _AllGather.apply(x, group, dim)
+
+
+def all_gather_replicated(x, group, dim: int):
+    """``all_gather`` where what follows is replicated over the group:
+    the gradient keeps this rank's chunk, unsummed."""
+    return x if group is None else _AllGatherReplicated.apply(x, group, dim)
 
 
 def reduce_scatter(x, group, dim: int):

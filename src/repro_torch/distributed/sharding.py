@@ -190,6 +190,43 @@ class Placement:
         return t
 
 
+def to_spec(t, have, want, mesh, token_axes=()):
+    """``t``, this rank's shard of a tensor laid out by spec ``have`` over
+    ``mesh``, as its shard under spec ``want``: each dim whose axes differ
+    is all-gathered over its ``have`` axes, then cut to this rank's slice
+    of its ``want`` axes. The gradient of a gather over an axis that
+    shards the tokens (``token_axes``) or the result (an axis of
+    ``want``) is reduce-scattered: there each rank's is a part of it. Over
+    any other axis what follows is replicated, so each rank keeps its
+    chunk (``all_gather_replicated``). A cut over an axis that shards
+    neither ``have`` (a dim of it) nor the tokens leaves each rank the gradient of its
+    slice only, so that gradient is summed over it (``col.sum_grad``);
+    over a token axis ``steps.sum_grads`` sums it."""
+    parts = set(token_axes) | {a for p in want for a in axes_of(p)}
+    rest = {a for p in have for a in axes_of(p)}
+    for dim, (h, w) in enumerate(zip(have, want)):
+        h, w = axes_of(h), axes_of(w)
+        if h == w:
+            continue
+        runs = []           # the innermost axes first, alike ones at once
+        for a in reversed(h):
+            if runs and runs[-1][0] == (a in parts):
+                runs[-1][1].insert(0, a)
+            else:
+                runs.append((a in parts, [a]))
+        for summed, axes in runs:
+            g = mesh.get_group(tuple(axes))
+            t = (col.all_gather if summed else col.all_gather_replicated)(
+                t, g, dim)
+        if w:
+            cut = tuple(a for a in w if a not in rest and a not in token_axes)
+            if cut:
+                t = col.sum_grad(t, mesh.get_group(cut))
+            n = t.shape[dim] // mesh.size(w)
+            t = t.narrow(dim, mesh.coord(w) * n, n).contiguous()
+    return t
+
+
 _tls = threading.local()
 
 

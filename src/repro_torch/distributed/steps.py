@@ -16,9 +16,9 @@ The serving plane uses the decode rule-set only to find its expert axis:
 the base expert GEMMs are independent per expert, so running them over
 blocks of experts, each on its own device, is a pure map with no
 collective, and each expert's output keeps its bits (``moe.expert_gmm``).
-Unlike the reference, the port does not replicate the other weights to
-every position: each replicated operation is computed once, on the mesh's
-first device, where those weights stay.
+Unlike the reference, the serving plane does not replicate the other
+weights to every position: each replicated operation is computed once,
+on the mesh's first device, where those weights stay.
 
 ``lm_loss`` is the training plane's loss (``training.train_step``'s).
 
@@ -29,11 +29,16 @@ inputs and the rules) run one process a position of a
 calls the step on its local shards and the model's sharded bodies write
 their collectives out (``models.moe``, ``models.layers``). The token dims
 (batch, sequence) are sharded over every axis their rule names, and a
-global size that does not divide is refused. What the reference leaves to
-its compiler the port keeps whole on every rank: the attention weights,
-the embedding and lm head (vocab) and the fsdp dims outside the MoE and
-MLP bodies; ``step_placements`` gives the layout the steps take. A
-gradient is summed over the token axes its weight is not sharded on.
+global size that does not divide is refused. The parameters rest in the
+reference's layout (``step_placements``, ``model.param_shardings``):
+every weight sharded by its logical axes, the attention's qkv_out and
+kv_out, the vocab and the fsdp dims included. A layer body gathers its
+weights at use (``transformer.weights_at_use``), the MoE takes its expert
+weights to its plan's specs, both as ``model.use_layout`` says, and the
+embedding and lm head run vocab-parallel. A gather's backward sums the
+gradient over the axes that shard the tokens and keeps this rank's
+chunk over the others (``sharding.to_spec``). A gradient is then summed
+over the token axes its weight is not sharded on (``sum_grads``).
 """
 from __future__ import annotations
 
@@ -49,9 +54,7 @@ from repro_torch.distributed.sharding import Placement, ShardingRules, \
     axes_of, use_rules
 from repro_torch.models import cache as cache_mod
 from repro_torch.models import model as model_mod
-from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer
-from repro_torch.models.layers import mlp_sp_axes
 from repro_torch.models.moe import ExpertBlocks, Remote
 from repro_torch.training import optimizer as opt_mod
 from repro_torch.training.train_step import _nll_sum, value_and_grad
@@ -210,40 +213,13 @@ def _check_tokens(rules: ShardingRules, dims, what: str):
     return local
 
 
-def step_placements(cfg, rules: ShardingRules, kind: str, batch: int,
-                    seq: int):
-    """The parameters' layout the SPMD steps take, for global activations
-    (batch, seq) of step ``kind``: the MoE's expert weights as its plan
-    shards them (``moe.weight_specs``), the MLP's (fsdp, mlp) shards where
-    it runs sequence-parallel, every other weight whole on each rank.
-    A tree of ``Placement``."""
-    with use_rules(rules):
-        plan = moe_mod.resolve_moe_plan(cfg, batch, seq, kind) \
-            if cfg.is_moe else None
-    sp = None
-    if kind != "decode":
-        spec = rules.spec(["batch", "seq"], [batch, seq])
-        sp = mlp_sp_axes(rules, cfg, batch // rules.size(spec[0]),
-                         seq // rules.size(spec[1]))
-    mesh = rules.mesh
-
-    def place(path, s):
-        n = len(s.shape)
-        if plan is not None and path[-2:-1] == ("moe",) and path[-1] in (
-                "gate", "up", "down"):
-            gu, dn = moe_mod.weight_specs(plan)
-            spec = (None,) + (dn if path[-1] == "down" else gu)
-            return Placement(mesh, spec, s.shape)
-        if sp is not None and "mlp" in path:
-            return rules.sharding(s.axes, s.shape)
-        return Placement(mesh, (None,) * n, s.shape)
-
-    def walk(tree, path):
-        if isinstance(tree, model_mod.PSpec):
-            return place(path, tree)
-        return {k: walk(v, path + (k,)) for k, v in tree.items()}
-
-    return walk(model_mod.param_specs(cfg), ())
+def step_placements(cfg, rules: ShardingRules):
+    """The parameters' layout the SPMD steps take, every step kind and
+    token shape alike: the reference's, every leaf by its logical axes
+    under ``rules`` (``model.param_shardings``). The bodies take each
+    weight from it to what they compute with (``model.use_layout``). A
+    tree of ``Placement``."""
+    return model_mod.param_shardings(cfg, rules)
 
 
 def local_params(params, placements):
@@ -271,7 +247,8 @@ def _token_group(rules, batch: int, seq: Optional[int]):
 
 def sum_grads(grads, placements, token_axes, mesh):
     """Each gradient summed over the token axes its weight is not sharded
-    on (a weight whole on every rank saw only this rank's tokens)."""
+    on: over those, each rank saw only its own tokens (over the token
+    axes a weight is sharded on, its gather's backward summed it)."""
     if isinstance(grads, dict):
         return {k: sum_grads(v, placements[k], token_axes, mesh)
                 for k, v in grads.items()}
@@ -314,29 +291,20 @@ def adamw_(params, grads, opt_state, opt_cfg: opt_mod.AdamWConfig):
 def make_train_step(cfg, rules: ShardingRules,
                     opt_cfg: opt_mod.AdamWConfig = None):
     """step(params, opt_state, batch) -> (loss, params, opt_state) on this
-    rank's shards (``step_placements`` of the global batch): the loss of
-    the global batch, every rank's the same. The parameters and moments
+    rank's shards (``step_placements``): the loss of the global batch,
+    every rank's the same. The parameters and moments
     are updated in place (``adamw_``)."""
     opt_cfg = opt_cfg or opt_mod.AdamWConfig()
     mesh = rules.mesh
-    layouts = {}        # local (B, S, S_all) -> (token axes, group, place)
-
-    def layout(B, S, S_all):
-        if (B, S, S_all) not in layouts:
-            with use_rules(rules):
-                token_axes, tg = _token_group(rules, B, S)
-                bax, sax = rules.token_layout(B, S)
-                layouts[B, S, S_all] = (token_axes, tg, step_placements(
-                    cfg, rules, "train", B * rules.size(bax),
-                    S_all * rules.size(sax)))
-        return layouts[B, S, S_all]
+    place = step_placements(cfg, rules)
+    groups = {}         # local (B, S) -> (token axes, their group)
 
     def step(params, opt_state, batch):
         labels = batch["labels"]
         B, S = labels.shape
-        S_all = S + (batch["frontend_emb"].shape[1]
-                     if "frontend_emb" in batch else 0)
-        token_axes, tg, place = layout(B, S, S_all)
+        if (B, S) not in groups:
+            groups[B, S] = _token_group(rules, B, S)
+        token_axes, tg = groups[B, S]
         with use_rules(rules):
             n_labels = col.all_reduce((labels >= 0).sum(), tg)
 

@@ -107,9 +107,7 @@ def trace_cell(cfg, shape, mesh, kv_quant: bool = False):
         step, (p, cache, batch), rules = steps_mod.jit_serve_step(
             cfg, shape, mesh, kv_quant=kv_quant)
     lb = _local_batch(cfg, shape, rules, batch)
-    place = steps_mod.step_placements(
-        cfg, rules, kind, shape.global_batch,
-        1 if kind == "decode" else shape.seq_len)
+    place = steps_mod.step_placements(cfg, rules)
     params = _contiguous(steps_mod.local_params(p, place))
     if kind == "train":
         args = (params, {"m": _contiguous(steps_mod.local_params(opt["m"],

@@ -12,12 +12,15 @@ tensor is this process's shard, and three functions run the reference's
 ``shard_map`` bodies with their collectives written out:
 ``causal_attention`` / ``flash_attention`` head-sharded under sequence
 parallelism, the ``kv_seq`` flash-decode (``decode_attention_update``,
-``decode_attention``) and the sequence-parallel ``mlp``. Without rules
-each runs its local path, unchanged.
+``decode_attention``) and the sequence-parallel ``mlp``; the embedding
+and lm head run vocab-parallel on this process's rows of their tables
+(``embed``, ``unembed``). Without rules each runs its local path,
+unchanged.
 """
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -134,14 +137,76 @@ def out_project(attn_out, p):
     return mm_f32(attn_out.reshape(B, S, -1), p["wo"]).to(attn_out.dtype)
 
 
-def embed(tokens, table):
-    """tokens: (B, S) int; table: (V, d)."""
-    return table[tokens]
+def _vocab_group(table, vocab: Optional[int], batch: int, seq: int):
+    """(process group, this rank's first row, whether the activations of
+    local (batch, seq) are sharded over it) of an embedding table of
+    ``vocab`` global rows whose rows the active rules shard ("vocab"),
+    or None where it is whole here. A table of another row count than
+    its placement's is refused, and so is a vocab whose axes shard the
+    tokens in part."""
+    rules = active_rules()
+    if rules is None or vocab is None:
+        return None
+    place = rules.sharding(("vocab", None), (vocab, table.shape[1]))
+    rows = place.local_shape[0]
+    if table.shape[0] != rows:
+        raise ValueError(f"an embedding table of {vocab} rows holds {rows} "
+                         f"a rank under these rules, got {table.shape[0]}")
+    ax = axes_of(place.spec[0])
+    if rules.size(ax) == 1:
+        return None
+    tok = set(sum(rules.token_layout(batch, seq), ()))
+    if 0 < len(tok & set(ax)) < len(ax):
+        raise NotImplementedError(
+            f"the vocab over {ax}, of which only {sorted(tok & set(ax))} "
+            f"shard the tokens")
+    return rules.mesh.get_group(ax), rules.mesh.coord(ax) * rows, \
+        bool(tok & set(ax))
 
 
-def unembed(x, table):
-    """x: (B, S, d) -> logits (B, S, V) f32."""
-    return mm_f32(x, table.t())
+def embed(tokens, table, vocab: Optional[int] = None):
+    """tokens: (B, S) int; table: (V, d). Under rules that shard the rows
+    of a ``vocab``-row table, ``table`` is this rank's rows and the lookup
+    is vocab-parallel: each rank looks up the ids its rows hold (zero rows
+    elsewhere) and the partial rows are summed over the vocab's ranks,
+    exactly (one rank holds each row). Where those ranks hold other
+    tokens, the ids are gathered first and the sum reduce-scattered back
+    to this rank's tokens; where they hold the same ones, the sum is an
+    all-reduce whose gradient passes unchanged (``col.psum``)."""
+    shard = _vocab_group(table, vocab, *tokens.shape)
+    if shard is None:
+        return table[tokens]
+    g, v0, sharded = shard
+    ids = tokens.reshape(-1)
+    if sharded:
+        ids = col.all_gather(ids, g, 0)
+    ids = ids - v0
+    mine = (ids >= 0) & (ids < table.shape[0])
+    rows = torch.where(mine[:, None], table[ids.clamp(0, table.shape[0] - 1)],
+                       0.0)
+    rows = col.reduce_scatter(rows, g, 0) if sharded else col.psum(rows, g)
+    return rows.reshape(*tokens.shape, -1)
+
+
+def unembed(x, table, vocab: Optional[int] = None):
+    """x: (B, S, d) -> logits (B, S, V) f32. Under rules that shard the
+    rows of a ``vocab``-row table, each rank computes its vocab columns in
+    f32 (x cast first, so the input's gradient is summed in f32). Where
+    the vocab's ranks hold other tokens, x is gathered over them and a
+    tiled all-to-all returns this rank's rows over the whole vocab; where
+    they hold the same ones, the columns are gathered (their gradient
+    kept unsummed) and x's gradient is summed over them
+    (``col.sum_grad``). The columns come in the placement's order."""
+    shard = _vocab_group(table, vocab, *x.shape[:2])
+    if shard is None:
+        return mm_f32(x, table.t())
+    g, _, sharded = shard
+    xf = x.reshape(-1, x.shape[-1]).float()
+    if not sharded:
+        y = mm_f32(col.sum_grad(xf, g), table.t())
+        return col.all_gather_replicated(y, g, 1).reshape(*x.shape[:-1], -1)
+    y = col.all_to_all(mm_f32(col.all_gather(xf, g, 0), table.t()), g, 0, 1)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 # -------------------------------- MLP ---------------------------------- #

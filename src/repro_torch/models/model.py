@@ -17,13 +17,21 @@ leading layer dim (L), or (G, every) for the hybrid's mamba stack.
           shared_attn: ln1, ln2 (d,), attn and mlp without a layer dim
   audio: enc_layers {ln1, ln2, attn, mlp} (n_enc ...) | enc_norm (d,) |
           layers {ln1, ln2, ln3, attn, cross, mlp} (L ...)
+
+Under sharding rules every leaf rests as ``param_shardings`` lays it out
+(the reference's layout); ``use_layout`` says what a layer body computes
+with instead, and ``LeafUse.take`` takes a shard there.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+import functools
+import math
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import axes_of, to_spec
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -183,6 +191,89 @@ def param_shardings(cfg, rules):
     ``NamedSharding`` tree: the same specs)."""
     return _map_specs(lambda s: rules.sharding(s.axes, s.shape),
                       param_specs(cfg))
+
+
+EXPERT_WEIGHTS = ("gate", "up", "down")      # a "moe" group's, per expert
+LAYER_GROUPS = ("layers", "enc_layers", "shared_attn")
+
+
+def layer_lead(cfg, group: str) -> int:
+    """The leading layer dims of a leaf of ``param_specs(cfg)[group]``."""
+    if group == "shared_attn":
+        return 0
+    return 2 if group == "layers" and cfg.family == "hybrid" else 1
+
+
+class LeafUse(NamedTuple):
+    """One layer's leaf (its layer dims dropped): its global ``shape``,
+    its ``rest`` spec (the reference's layout) and ``local`` shard shape,
+    the ``use`` spec its body computes with, and that ``body``: "layer"
+    (``transformer.weights_at_use``), "moe" or "mlp"."""
+    shape: Tuple[int, ...]
+    rest: Tuple
+    local: Tuple[int, ...]
+    use: Tuple
+    body: str
+
+    def use_elements(self, mesh_sizes: Dict[str, int]) -> int:
+        """The elements of this rank's tensor at ``use``."""
+        return math.prod(n // math.prod(mesh_sizes[a] for a in axes_of(p))
+                         for n, p in zip(self.shape, self.use))
+
+    def take(self, t, mesh, token_axes, what: str):
+        """``t``, this rank's shard at ``rest``, at ``use``
+        (``sharding.to_spec``); a tensor of another shape is refused."""
+        if tuple(t.shape) != self.local:
+            raise ValueError(f"{what}: this rank's shard is {self.local} "
+                             f"under the step's layout {self.rest}; got "
+                             f"{tuple(t.shape)}")
+        return to_spec(t, self.rest, self.use, mesh, token_axes)
+
+
+@functools.lru_cache(maxsize=256)
+def use_layout(cfg, rules, group: str, sp_fsdp: Optional[Tuple] = None,
+               experts: Optional[Tuple] = None) -> Dict[tuple, LeafUse]:
+    """{path: ``LeafUse``} of each leaf of one layer of
+    ``param_specs(cfg)[group]`` under ``rules``: the one place that says
+    what a layer body computes with.
+
+      - the MoE's expert weights (a "moe" group's ``EXPERT_WEIGHTS``), by
+        the MoE body: over its plan's ``experts`` = (ep axis, ff axis),
+        (ep, None, ff) for gate/up and (ep, ff, None) for down; at rest
+        where no plan is given;
+      - the MLP's weights where it runs sequence-parallel (``sp_fsdp``,
+        the fsdp axes it gathers, a tuple; None where it does not), by the
+        MLP body: their rest spec without those axes;
+      - every other leaf whole, by the layer."""
+    lead = layer_lead(cfg, group)
+    out = {}
+
+    def walk(tree, path):
+        if not isinstance(tree, PSpec):
+            for k, v in tree.items():
+                walk(v, path + (k,))
+            return
+        pl = rules.sharding(tree.axes, tree.shape)
+        if any(pl.spec[:lead]):
+            raise ValueError(f"{group}/{'/'.join(path)}: a layer dim is "
+                             f"sharded ({pl.spec})")
+        rest = pl.spec[lead:]
+        if path[-2:-1] == ("moe",) and path[-1] in EXPERT_WEIGHTS:
+            body = "moe"
+            use = rest if experts is None else (
+                (experts[0], experts[1], None) if path[-1] == "down"
+                else (experts[0], None, experts[1]))
+        elif sp_fsdp is not None and path[0] == "mlp":
+            body = "mlp"
+            use = tuple(None if p is not None and set(axes_of(p)) <= set(
+                sp_fsdp) else p for p in rest)
+        else:
+            body, use = "layer", (None,) * len(rest)
+        out[path] = LeafUse(tree.shape[lead:], rest, pl.local_shape[lead:],
+                            use, body)
+
+    walk(param_specs(cfg)[group], ())
+    return out
 
 
 def _make(spec: PSpec, dtype, device, gen) -> torch.Tensor:

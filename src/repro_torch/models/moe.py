@@ -5,7 +5,8 @@ Two plans, as the reference's:
   - local (no rules active): every expert on this device;
   - sharded (``moe_block`` under a ``ShardingRules`` over a
     ``ProcessMesh``, the plan from ``resolve_moe_plan``): each process
-    holds its tokens and its shard of the expert weights, experts split
+    holds its tokens and its shard of the expert weights in the
+    reference's at-rest layout, taken to the plan's at use: experts split
     over ``ep_axis`` (tokens exchanged by a tiled all-to-all there and
     back), the expert hidden dim over ``ff_axis`` at compute time (summed
     after the down GEMM) or over ``fsdp_axis`` at rest (gathered for the
@@ -32,6 +33,7 @@ from repro_torch.distributed import collectives as col
 from repro_torch.distributed.sharding import active_rules
 from repro_torch.kernels import ops
 from repro_torch.models.layers import gelu, mm_f32
+from repro_torch.models.model import EXPERT_WEIGHTS, use_layout
 
 F32 = torch.float32
 
@@ -354,16 +356,17 @@ def moe_block(x, params, cfg, kind: str = "train", lora=None, ids_tok=None,
     Without rules, the reference's local plan, dropless when T*K <= 4096
     as there, whatever the ``kind``. Under rules x and ``ids_tok`` are
     this process's tokens and the gate/up/down its shards of the expert
-    weights (``weight_specs`` of the plan), the router and the adapters
-    whole; the plan is resolved for the global token shape."""
+    weights in the at-rest layout (``model.param_shardings``; taken to the
+    plan's ``weight_specs`` at use), the router and the adapters whole;
+    the plan is resolved for the global token shape."""
     B, S, d = x.shape
     rules = active_rules()
     if rules is not None:
         bax, sax = rules.token_layout(B, S if kind != "decode" else None)
         plan = resolve_moe_plan(cfg, B * rules.size(bax),
                                 S * rules.size(sax), kind)
-        return _moe_sharded(x, params, cfg, plan, kind, sax, lora, ids_tok,
-                            lora_scale)
+        return _moe_sharded(x, params, cfg, plan, kind, bax + sax, sax,
+                            lora, ids_tok, lora_scale)
     xf = x.reshape(-1, d)
     T = xf.shape[0]
     ids, wts = route(xf, params["router"], cfg.n_experts, cfg.top_k)
@@ -415,20 +418,23 @@ def _dispatch_compute_combine(xf, ids, wts, wg, wu, wd, cfg, C, lora=None,
     return combine(y.reshape(-1, d), pair_slot, wts)
 
 
-def _moe_sharded(x, params, cfg, plan: MoEPlan, kind: str, seq_axes,
-                 lora=None, ids_tok=None, lora_scale=1.0):
+def _moe_sharded(x, params, cfg, plan: MoEPlan, kind: str, token_axes,
+                 seq_axes, lora=None, ids_tok=None, lora_scale=1.0):
     """The reference's ``shard_map`` body on this process's tokens x
-    (B_l, S_l, d), sequence-sharded over ``seq_axes``. A plan that needs
-    whole sequences (its ff axis is the sequence's) gathers them first
-    and reduce-scatters the experts' partial sums back."""
-    mesh = active_rules().mesh
+    (B_l, S_l, d), sharded over ``token_axes``, the sequence over
+    ``seq_axes``. The expert weights are taken from their rest layout to
+    the plan's (``model.use_layout``). A plan that needs whole sequences
+    (its ff axis is the sequence's) gathers them first and
+    reduce-scatters the experts' partial sums back."""
+    rules = active_rules()
+    mesh = rules.mesh
     d, E = x.shape[-1], cfg.n_experts
-    ep, ffa, fsdp = plan.ep_axis, plan.ff_axis, plan.fsdp_axis
-    wu, wd, wg = params["up"], params["down"], params.get("gate")
-    if fsdp and not ffa:        # FSDP: this layer's ff shards gathered
-        g = mesh.get_group(fsdp)
-        wu, wd = col.all_gather(wu, g, -1), col.all_gather(wd, g, -2)
-        wg = col.all_gather(wg, g, -1) if wg is not None else None
+    ep, ffa = plan.ep_axis, plan.ff_axis
+    layout = use_layout(cfg, rules, "layers", experts=(ep, ffa))
+    w = {name: layout[("moe", name)].take(params[name], mesh, token_axes,
+                                          f"moe/{name}")
+         for name in EXPERT_WEIGHTS if params.get(name) is not None}
+    wu, wd, wg = w["up"], w["down"], w.get("gate")
     gather_seq = bool(seq_axes) and plan.token_seq_axis is None
     if gather_seq:
         gs = mesh.get_group(seq_axes)

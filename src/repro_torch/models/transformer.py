@@ -27,7 +27,11 @@ Under active sharding rules (the SPMD steps, ``distributed.steps``) the
 same code runs on this process's shards: tokens and activations are its
 batch rows and sequence slice (positions offset to the slice's), the
 ``kind`` picks the MoE's plan, and the attention, the MLP and the MoE run
-their sharded bodies (``layers``, ``moe``).
+their sharded bodies (``layers``, ``moe``). The parameters are this
+rank's shards of the reference's layout: each layer body gathers its own
+weights first (``weights_at_use``; in a checkpointed body, again
+in the recompute), and the embedding and lm head run vocab-parallel
+(``layers.embed``, ``layers.unembed``).
 """
 from __future__ import annotations
 
@@ -35,12 +39,47 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import SLOT_FAMILIES
-from repro_torch.distributed.sharding import active_rules, use_rules
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed.sharding import active_rules, axes_of, \
+    use_rules
 from repro_torch.kernels import ops
+from repro_torch.models import cache as cache_mod
 from repro_torch.models import layers as ll
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
+from repro_torch.models import model as model_mod
 from repro_torch.models.model import layer_params
+
+
+def weights_at_use(lp, cfg, group: str, x):
+    """One layer's weights as its body computes with them
+    (``model.use_layout``). ``lp`` is ``params[group]`` at one layer (its
+    layer dims dropped), or the whole group where it has none. Under
+    active rules each leaf is this rank's shard of the reference's layout,
+    and each the layer takes whole is gathered here (``LeafUse.take``;
+    called inside a checkpointed body, again in the recompute, so a
+    layer's weights live for that layer only). The MoE's expert weights
+    and the sequence-parallel MLP's, over activations ``x`` (B, S, d), are
+    left to their bodies. Without rules, ``lp`` itself."""
+    rules = active_rules()
+    if rules is None:
+        return lp
+    B, S = x.shape[:2]
+    sp = ll.mlp_sp_axes(rules, cfg, B, S)
+    layout = model_mod.use_layout(cfg, rules, group, None if sp is None
+                                  else tuple(a for a in sp[1:] if a))
+    token_axes = sum(rules.token_layout(B, S), ())
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, path + (k,)) for k, v in t.items()}
+        leaf = layout[path]
+        if leaf.body != "layer":
+            return t
+        return leaf.take(t, rules.mesh, token_axes,
+                         f"{group}/{'/'.join(path)}")
+
+    return walk(lp, ())
 
 
 # ------------------------- LoRA helper (coupled) ------------------------ #
@@ -154,10 +193,11 @@ def decode_step_slots(params, cfg, k_cache, v_cache, tokens, pos_vec,
     stack = lora_ctx["adapters"] if lora_ctx is not None else None
     ids_tok = lora_ctx["ids"] if lora_ctx is not None else None
     scale = lora_ctx["scale"] if lora_ctx is not None else 1.0
-    x = ll.embed(tokens, params["embed"])
+    x = _embed(params, cfg, tokens)
     positions = pos_vec.clamp_min(0)[:, None]
     for l in range(cfg.n_layers):
-        lp = layer_params(params["layers"], l)
+        lp = weights_at_use(layer_params(params["layers"], l), cfg,
+                               "layers", x)
         lora_layer = layer_params(stack, l) if stack is not None else None
         x = attn_decode_slots(x, lp, cfg, positions, pos_vec, k_cache[l],
                               v_cache[l], block_table, lora_layer, ids_tok,
@@ -170,9 +210,7 @@ def decode_step_slots(params, cfg, k_cache, v_cache, tokens, pos_vec,
         else:
             y = _mlp_with_lora(h, lp["mlp"], cfg, lora_layer, ids_tok, scale)
         x = x + y
-    x = ll.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = ll.unembed(x, params.get("lm_head", params["embed"]))
-    return logits[:, 0], k_cache, v_cache
+    return _logits(params, cfg, x)[:, 0], k_cache, v_cache
 
 
 # ------------------------------ prefill --------------------------------- #
@@ -185,13 +223,14 @@ def prefill_chunk(params, cfg, tokens, k_ctx, v_ctx):
     a monolithic forward over the whole prompt would cache. The last
     layer's MoE or MLP is skipped: no returned KV depends on it."""
     _check_family(cfg, "chunked prefill")
-    x = ll.embed(tokens, params["embed"])
+    x = _embed(params, cfg, tokens)
     B, C, _ = x.shape
     pos0 = k_ctx.shape[2]
     positions = (pos0 + torch.arange(C, device=x.device)).expand(B, C)
     ks, vs = [], []
     for l in range(cfg.n_layers):
-        lp = layer_params(params["layers"], l)
+        lp = weights_at_use(layer_params(params["layers"], l), cfg,
+                               "layers", x)
         h = ll.rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = ll.qkv_project(h, lp["attn"], cfg)
         q = ll.apply_rope(q, positions, cfg.rope_theta)
@@ -263,11 +302,12 @@ def _positions(B: int, S: int, device):
     return (p0 + torch.arange(S, device=device)).expand(B, S)
 
 
-def _check_frontend(x, front) -> None:
+def _check_frontend(batch: int, seq: int) -> None:
     """A frontend's positions lie ahead of the text's: with the sequence
-    sharded, each rank's slice of the joined sequence is not its two
-    slices joined, so that layout is refused."""
-    if _seq_shard(x.shape[0], x.shape[1] + front.shape[1]) is not None:
+    (local (batch, seq), the frontend's rows and the text's) sharded,
+    each rank's slice of the joined sequence is not its two slices
+    joined, so that layout is refused."""
+    if _seq_shard(batch, seq) is not None:
         raise NotImplementedError(
             "a frontend (frontend_emb) under sequence parallelism: shard the "
             "batch only (rules whose 'seq' is None)")
@@ -294,7 +334,8 @@ def _decoder_layer(x, lp, lora_layer, cfg, positions, ids_tok, scale,
                    ffn: bool, train: bool, kind: str = "prefill"):
     """One decoder layer -> (x, k, v); ``ffn`` False skips its MoE or
     MLP (the KV-only prefill's last layer); ``kind`` picks the MoE's plan
-    under rules."""
+    under rules; ``lp`` is this rank's shards (``weights_at_use``)."""
+    lp = weights_at_use(lp, cfg, "layers", x)
     h = ll.rms_norm(x, lp["ln1"], cfg.norm_eps)
     att, (k, v) = attn_block(h, lp["attn"], cfg, positions,
                              window=cfg.sliding_window, lora_layer=lora_layer,
@@ -341,10 +382,12 @@ def forward(params, cfg, tokens, frontend_emb=None, kind="prefill",
     if fam == "hybrid":
         return _forward_hybrid(params, cfg, tokens, collect_kv, train)
 
-    x = ll.embed(tokens, params["embed"])
-    if cfg.frontend and frontend_emb is not None:
-        _check_frontend(x, frontend_emb)
-        x = torch.cat([frontend_emb.to(x.dtype), x], dim=1)
+    front = frontend_emb if cfg.frontend else None
+    if front is not None:
+        _check_frontend(tokens.shape[0], tokens.shape[1] + front.shape[1])
+    x = _embed(params, cfg, tokens)
+    if front is not None:
+        x = torch.cat([front.to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
     stack, ids_tok, scale = _lora_parts(lora_ctx, S)
@@ -364,13 +407,19 @@ def forward(params, cfg, tokens, frontend_emb=None, kind="prefill",
     return _logits(params, cfg, x), kvs
 
 
+def _embed(params, cfg, tokens):
+    return ll.embed(tokens, params["embed"], cfg.padded_vocab)
+
+
 def _logits(params, cfg, x):
     x = ll.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return ll.unembed(x, params.get("lm_head", params["embed"]))
+    return ll.unembed(x, params.get("lm_head", params["embed"]),
+                      cfg.padded_vocab)
 
 
 def _rwkv_layer(x, lp, cfg, state0):
     """One RWKV-6 layer from the zero state -> (x, its final state)."""
+    lp = weights_at_use(lp, cfg, "layers", x)
     y, st = ssm.rwkv6_time_mix(ll.rms_norm(x, lp["ln1"], cfg.norm_eps),
                                lp, cfg, state0)
     x = x + y
@@ -381,7 +430,7 @@ def _rwkv_layer(x, lp, cfg, state0):
 
 def _forward_rwkv(params, cfg, tokens, train=False):
     """RWKV-6: time mix then channel mix a layer, each from a zero state."""
-    x = ll.embed(tokens, params["embed"])
+    x = _embed(params, cfg, tokens)
     state0 = ssm.rwkv6_init_state(cfg, x.shape[0], x.device)
     states = []
     for l in range(cfg.n_layers):
@@ -394,6 +443,7 @@ def _forward_rwkv(params, cfg, tokens, train=False):
 
 def _shared_block(x, sp, cfg, positions, window, train=False):
     """The hybrid's weight-shared attention + MLP block."""
+    sp = weights_at_use(sp, cfg, "shared_attn", x)
     att, kv = attn_block(ll.rms_norm(x, sp["ln1"], cfg.norm_eps), sp["attn"],
                          cfg, positions, window=window, train=train)
     x = x + att
@@ -407,6 +457,7 @@ def _mamba_layer(layers, g: int, j: int) -> dict:
 
 
 def _mamba_residual(x, lp, cfg):
+    lp = weights_at_use(lp, cfg, "layers", x)
     y, st = ssm.mamba2_forward(x, lp, cfg, None)
     return x + y, st
 
@@ -414,7 +465,7 @@ def _mamba_residual(x, lp, cfg):
 def _forward_hybrid(params, cfg, tokens, collect_kv, train=False):
     """Zamba2: per group, the shared block then ``every`` mamba2 layers
     (the mamba layers checkpointed when training, as the reference's)."""
-    x = ll.embed(tokens, params["embed"])
+    x = _embed(params, cfg, tokens)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
     every = cfg.shared_attn_every
@@ -437,6 +488,7 @@ def _forward_hybrid(params, cfg, tokens, collect_kv, train=False):
 
 
 def _enc_layer(enc, lp, cfg, enc_pos, train):
+    lp = weights_at_use(lp, cfg, "enc_layers", enc)
     att, _ = attn_block(ll.rms_norm(enc, lp["ln1"], cfg.norm_eps),
                         lp["attn"], cfg, enc_pos, causal=False, train=train)
     enc = enc + att
@@ -446,6 +498,7 @@ def _enc_layer(enc, lp, cfg, enc_pos, train):
 
 def _dec_layer(x, lp, enc, cfg, dec_pos, train):
     """One decoder layer -> (x, (k, v), (ck, cv))."""
+    lp = weights_at_use(lp, cfg, "layers", x)
     att, kv = attn_block(ll.rms_norm(x, lp["ln1"], cfg.norm_eps),
                          lp["attn"], cfg, dec_pos, train=train)
     x = x + att
@@ -473,7 +526,7 @@ def _forward_encdec(params, cfg, tokens, frontend_emb, collect_kv,
                      train)
     enc = ll.rms_norm(enc, params["enc_norm"], cfg.norm_eps)
 
-    x = ll.embed(tokens, params["embed"])
+    x = _embed(params, cfg, tokens)
     dec_pos = _positions(B, x.shape[1], x.device)
     kvs = []
     for l in range(cfg.n_layers):
@@ -488,6 +541,43 @@ def _forward_encdec(params, cfg, tokens, frontend_emb, collect_kv,
     return _logits(params, cfg, x), aux
 
 
+_STATES = ("tm", "cm", "wkv", "h", "conv")     # the recurrent caches
+
+
+def _states_at_use(cfg, cache, batch: int):
+    """(the recurrent states of ``cache`` whole over every axis but the
+    batch's, fn(name, new state) -> this rank's slice of it). Under decode
+    rules the reference's layout shards the states' heads and inner
+    channels (rwkv's wkv, the hybrid's h and conv) over "model"; the
+    recurrences run on this rank's rows of the whole states. Without
+    rules, the states and the identity."""
+    rules = active_rules()
+    names = [k for k in _STATES if k in cache]
+    if rules is None or not names:
+        return cache, lambda name, t: t
+    axes = cache_mod.cache_logical_axes(cfg)
+    B = batch * rules.size(rules.token_layout(batch)[0])
+    glob = cache_mod.init_cache(cfg, B, 1, device="meta")
+    cuts = {k: [(dim, axes_of(p)) for dim, (name, p) in enumerate(zip(
+        axes[k], rules.spec(axes[k], glob[k].shape)))
+        if name != "batch" and axes_of(p)] for k in names}
+    mesh = rules.mesh
+    whole = {}
+    for k in names:
+        t = cache[k]
+        for dim, ax in cuts[k]:
+            t = col.all_gather(t, mesh.get_group(ax), dim)
+        whole[k] = t
+
+    def local(name, t):
+        for dim, ax in cuts[name]:
+            n = t.shape[dim] // mesh.size(ax)
+            t = t.narrow(dim, mesh.coord(ax) * n, n)
+        return t.contiguous()
+
+    return whole, local
+
+
 def decode_step(params, cfg, cache, tokens, lora_ctx=None):
     """One token for a static batch, every family. tokens: (B, 1); cache:
     ``cache.init_cache``'s dict, its ``pos`` a host int (this token's
@@ -497,12 +587,13 @@ def decode_step(params, cfg, cache, tokens, lora_ctx=None):
     activations' dtype as the reference's scan returns them. ``lora_ctx``
     applies to the dense, moe and vlm families. Under decode rules the
     batch rows and the caches' "kv_seq" slices are this rank's
-    (``layers.decode_attention_update``) and the MoE runs its decode plan.
-    Returns (logits (B, Vp) f32, the new cache: a new dict with ``pos``
-    + 1)."""
+    (``layers.decode_attention_update``), the recurrent states its heads
+    or channels (gathered at use, ``_states_at_use``), and the MoE runs
+    its decode plan. Returns (logits (B, Vp) f32, the new cache: a new
+    dict with ``pos`` + 1)."""
     fam = cfg.family
     pos = int(cache["pos"])
-    x = ll.embed(tokens, params["embed"])
+    x = _embed(params, cfg, tokens)
     positions = torch.full((tokens.shape[0], 1), pos, dtype=torch.long,
                            device=x.device)
     new = dict(cache, pos=pos + 1)
@@ -511,7 +602,8 @@ def decode_step(params, cfg, cache, tokens, lora_ctx=None):
                                             else lora_ctx)
         quant = "k_scale" in cache
         for l in range(cfg.n_layers):
-            lp = layer_params(params["layers"], l)
+            lp = weights_at_use(layer_params(params["layers"], l), cfg,
+                                   "layers", x)
             lora_layer = layer_params(stack, l) if stack is not None else None
             h = ll.rms_norm(x, lp["ln1"], cfg.norm_eps)
             q, k, v = _qkv_with_deltas(h, lp["attn"], cfg, lora_layer,
@@ -547,11 +639,13 @@ def decode_step(params, cfg, cache, tokens, lora_ctx=None):
                                    scale)
             x = x + y
     elif fam == "ssm" and cfg.rwkv:
+        whole, local = _states_at_use(cfg, cache, tokens.shape[0])
         states = []
         for l in range(cfg.n_layers):
-            lp = layer_params(params["layers"], l)
-            st = ssm.RWKV6State(cache["tm"][l], cache["cm"][l],
-                                cache["wkv"][l])
+            lp = weights_at_use(layer_params(params["layers"], l), cfg,
+                                   "layers", x)
+            st = ssm.RWKV6State(whole["tm"][l], whole["cm"][l],
+                                whole["wkv"][l])
             y, st = ssm.rwkv6_time_mix(ll.rms_norm(x, lp["ln1"], cfg.norm_eps),
                                        lp, cfg, st, chunk=1)
             x = x + y
@@ -559,14 +653,17 @@ def decode_step(params, cfg, cache, tokens, lora_ctx=None):
                 ll.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg, st)
             x = x + y
             states.append(st)
-        new["tm"], new["cm"], new["wkv"] = (torch.stack(s)
-                                            for s in zip(*states))
+        for name, s in zip(("tm", "cm", "wkv"), zip(*states)):
+            new[name] = local(name, torch.stack(s))
     elif fam == "hybrid":
-        sp, every = params["shared_attn"], cfg.shared_attn_every
+        every = cfg.shared_attn_every
         slot = pos % cache["ak"].shape[2]
+        whole, local = _states_at_use(cfg, cache, tokens.shape[0])
         states = []
         for g in range(cfg.n_layers // every):
             # the shared block against the ring buffer of the window's KV
+            sp = weights_at_use(params["shared_attn"], cfg, "shared_attn",
+                                   x)
             h = ll.rms_norm(x, sp["ln1"], cfg.norm_eps)
             q, k, v = ll.qkv_project(h, sp["attn"], cfg)
             q = ll.apply_rope(q, positions, cfg.rope_theta)
@@ -580,13 +677,15 @@ def decode_step(params, cfg, cache, tokens, lora_ctx=None):
                            cfg)
             for j in range(every):
                 y, st = ssm.mamba2_decode_step(
-                    x, _mamba_layer(params["layers"], g, j), cfg,
-                    ssm.Mamba2State(cache["h"][g, j], cache["conv"][g, j]))
+                    x, weights_at_use(_mamba_layer(params["layers"], g, j),
+                                         cfg, "layers", x), cfg,
+                    ssm.Mamba2State(whole["h"][g, j], whole["conv"][g, j]))
                 x = x + y
                 states.append(st)
         G = cfg.n_layers // every
-        new["h"], new["conv"] = (torch.stack(s).reshape(G, every, *s[0].shape)
-                                 for s in zip(*states))
+        for name, s in zip(("h", "conv"), zip(*states)):
+            new[name] = local(name, torch.stack(s).reshape(G, every,
+                                                           *s[0].shape))
     else:
         raise ValueError(fam)
     return _logits(params, cfg, x)[:, 0], new

@@ -35,7 +35,7 @@ COLLECTIVES = frozenset({
     "reduce", "send", "recv", "isend", "irecv", "barrier", "gather",
     "scatter", "all_gather_object", "broadcast_object_list",
     # distributed/collectives.py's
-    "psum", "sum_grad",
+    "psum", "sum_grad", "all_gather_replicated",
 })
 _PREFIXES = ("dist", "torch.distributed", "col", "collectives")
 WHOLE_MODULES = ("core/disagg.py",)

@@ -298,5 +298,8 @@ def test_analytic_memory_equals_reference():
                                                 else 0), (arch, kind)
         assert got["opt_state"] == want["opt_state"]
         assert got["workspace"] == want["workspace"]
-        assert got["params_as_run"] >= got["params"]
+        # the steps hold the reference's layout; a layer's weights are
+        # gathered whole at use
+        assert got["params_as_run"] == got["params"]
+        assert got["at_use_gather"] > 0
         assert got["fits_80g"] is True

@@ -8,7 +8,9 @@ routing it rests on:
     active counter
   - the CLI in a subprocess (a fake world of 8 ranks over the (2, 4) debug
     mesh, reduced configs, at the four shapes): OK records for train,
-    prefill and decode with their roofline and analytic memory, SKIP from
+    prefill and decode with their roofline and analytic memory (the
+    parameters as run == the reference's layout; the train step's
+    collectives count the weights' all-gathers), SKIP from
     ``configs.applicable`` for long_500k on a full-attention config, the
     disaggregated split (``compile_disagg``), the report's table and
     ``reanalyze``; nothing is written outside ``--out`` (not under
@@ -153,13 +155,17 @@ def test_dryrun_cli_debug_mesh(tmp_path):
         assert 0 < r["roofline_fraction"] <= 1
         assert m["fits_80g"] is True
         assert m["analytic"]["params"] > 0
+        # the steps hold the reference's layout
+        assert m["analytic"]["params_as_run"] == m["analytic"]["params"]
         assert rec["counted"]["kernels"]["gmm"]["calls"] >= cfg.n_layers
         shape = get_shape(name)
         if shape.kind == "decode":     # this rank's rows, the padded vocab
             assert rec["output_shape"] == [shape.global_batch // 2,
                                            cfg.padded_vocab]
-    # the train step's collectives: the MoE's all-to-alls over the ranks
-    assert recs["train_4k"]["roofline"]["coll_breakdown"]["all-to-all"] > 0
+    # the train step's collectives: the MoE's all-to-alls over the ranks,
+    # and the gathers of the weights at use
+    coll = recs["train_4k"]["roofline"]["coll_breakdown"]
+    assert coll["all-to-all"] > 0 and coll["all-gather"] > 0
     # a second run keeps the cached records
     p = _run(["repro_torch.launch.dryrun", "--arch", ARCH, "--mesh",
               "debug", "--reduced", "--shape", "decode_32k", "--out",

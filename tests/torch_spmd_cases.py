@@ -230,7 +230,7 @@ def train_step_case(mesh, inp, which):
     shape = inp["train_shape"]
     step, abstract, rules = tsteps.jit_train_step(
         cfg, shape, mesh, topt.AdamWConfig(**inp["opt"]))
-    place = tsteps.step_placements(cfg, rules, "train", B, S)
+    place = tsteps.step_placements(cfg, rules)
     p_l = tree_map(lambda t: t.clone(), tsteps.local_params(params, place))
     o_l = topt.init(p_l)
     b_l = {k: tsteps.Placement(mesh, rules.spec(("batch", "seq"), (B, S)),
@@ -249,7 +249,7 @@ def prefill_step_case(mesh, inp, which):
     B, S = toks.shape
     step, _, rules = tsteps.jit_prefill_step(cfg, inp["prefill_shape"],
                                              mesh)
-    place = tsteps.step_placements(cfg, rules, "prefill", B, S)
+    place = tsteps.step_placements(cfg, rules)
     spec = rules.spec(("batch", "seq"), (B, S))
     t_l = tsteps.Placement(mesh, spec, (B, S)).local(toks).clone()
     logits = step(tsteps.local_params(params, place), {"tokens": t_l})
@@ -263,7 +263,7 @@ def serve_step_case(mesh, inp, which):
     B, S = shape.global_batch, shape.seq_len
     step, (_, cache_abs, _), rules = tsteps.jit_serve_step(cfg, shape, mesh)
     _, placements = tsteps.cache_specs(cfg, shape, rules)
-    place = tsteps.step_placements(cfg, rules, "decode", B, 1)
+    place = tsteps.step_placements(cfg, rules)
     cache = init_cache(cfg, B, S, device="cpu", dtype=torch.float32)
     cache = {k: placements[k].local(v).clone() if torch.is_tensor(v) else v
              for k, v in cache.items()}
@@ -275,8 +275,10 @@ def serve_step_case(mesh, inp, which):
             torch.from_numpy(t)).clone()
         lg, cache = step(p_l, cache, {"tokens": t_l})
         logits.append(_np(_whole(lg, tok_spec, mesh)))
-    return {"logits": np.stack(logits),
-            "cache_k": _np(_whole(cache["k"], placements["k"].spec, mesh))}
+    out = {"logits": np.stack(logits)}
+    if "k" in cache:            # the attention families' KV (not a ring's)
+        out["cache_k"] = _np(_whole(cache["k"], placements["k"].spec, mesh))
+    return out
 
 
 def lora_dp_case(mesh, inp, compress):
