@@ -1,0 +1,9 @@
+"""device_idle: the share (%) of the traced stretch in which no operation
+ran on the card."""
+
+
+def read(run):
+    tr = run.devtrace
+    if tr is None or tr["window_us"] <= 0 or tr["busy_us"] <= 0:
+        return None
+    return 100.0 * (1.0 - tr["busy_us"] / tr["window_us"])
